@@ -1,0 +1,1 @@
+"""See the package docstring (truetrace_tpu_torch/__init__.py)."""
