@@ -13,7 +13,10 @@ Phases, each of which raises on a failed check:
    closest / any hit on the 293k-triangle atrium at K = 6 and K = 3 with
    bench.py's ray mix (primary, cosine-bounce and shadow rays) at the
    frame's 262144 rays per class, and Mrays/s at that count and at
-   bench.py's 131072;
+   bench.py's 131072. The plain traversal counts each ray's node decodes,
+   leaf rows and triangle tests; from those counts (traversal) or the
+   shapes (a-trous, step core) every kernel gets its bound: the larger of
+   its f32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s;
 3. the main path: `Renderer.step` on the atrium, 512x512, 4 bounces,
    Disney BSDF, light-tree NEE and SVGF; 1 warm-up and 4 timed frames,
    with every kernel's launch count read around exactly that run, then
@@ -23,14 +26,18 @@ Phases, each of which raises on a failed check:
    with the same render on the CPU, and passes the physics checks of
    scripts/verify_drive.py at 256x256.
 
-It prints the card line, one JSON line of kernel results, and as its last
-line {"ok": true, "device": {...}}. It exits non-zero, with no result
-line, when there is no CUDA card or the port's package is missing.
+It prints the card line, one JSON line of kernel results (time, plain
+time, bound and what sets it, launches per frame, ptxas registers,
+spills and shared memory, and for the traversal the work per ray), and
+as its last line {"ok": true, "device": {...}}. It exits non-zero, with
+no result line, when there is no CUDA card or the port's package is
+missing.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -49,6 +56,19 @@ FRAME = dict(width=512, height=512, bounces=4, bsdf="disney",
 # a-trous kernel vs plain: same arithmetic, but expf/powf on the card and
 # torch's exp/pow differ in the last ulps, which the normalised sums carry
 ATROUS_RTOL, ATROUS_ATOL = 1e-4, 1e-5
+FRAMES = 5              # phase 3 renders 1 warm-up + 4 timed frames
+
+# Bounds: the least time the card could take for a kernel's work, the
+# larger of its f32 operations over the H100 SXM's 67 TFLOP/s outside the
+# tensor cores (an FMA counts 2, a min, max, compare or reciprocal 1) and
+# its bytes (each input read once, each output written once) over
+# 3.35 TB/s. Operation counts, read from the CUDA sources:
+PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
+OPS_NODE = 216   # cwbvh_core decode_row: 8 slots x (3 axes x 8 + 3)
+OPS_TRI = 53     # cwbvh_core tri_test: 6 msub/dot3 (27), 3 scalings,
+                 # 3 subs, rcp + floor, 8 compares and sums
+OPS_ATROUS_PX = 740   # atrous.cu per pixel: 24 weighted taps x 29,
+                      # centre tap, prefilter, sigmas, normalisation
 
 
 def log(*a):
@@ -74,6 +94,13 @@ def cuda_ms(fn, reps: int) -> float:
 def check(cond: bool, what: str):
     if not cond:
         raise AssertionError(what)
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """bound_ms and bound_by of `ops` f32 operations moving `nbytes`."""
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def card_line() -> str:
@@ -124,9 +151,11 @@ def phase_atrous(results):
         plain_ms.append(p)
         log(f"atrous_pass 512x512 step {step}: kernel {k:.4f} ms, "
             f"plain {p:.4f} ms, max |diff| {err:.3g}")
+    # in: colour, variance, normal, depth; out: colour, variance
     results["atrous_pass"] = dict(
         max_abs_err=err, ms=sum(ms) / len(ms),
-        plain_ms=sum(plain_ms) / len(plain_ms))
+        plain_ms=sum(plain_ms) / len(plain_ms),
+        **bound(OPS_ATROUS_PX * H * W, (8 + 4) * 4 * H * W))
 
 
 def bench_rays(scene, cam, R):
@@ -174,10 +203,25 @@ def torch_equal_bits(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
+def traversal_work(counts: dict, R: int, W: int) -> dict:
+    """Per-ray work of one ray class (the plain traversal's counts) and
+    the bound it sets: decodes and triangle tests at OPS_NODE / OPS_TRI,
+    the table rows it touches (10K words each) and 44 bytes per ray
+    (origin, direction, t_max in; t, tri, u, v out)."""
+    nd, lr, tt = (float(counts[f].sum()) for f in (
+        "node_decodes", "leaf_rows", "tri_tests"))
+    return dict(node_decodes_per_ray=nd / R, leaf_rows_per_ray=lr / R,
+                tri_tests_per_ray=tt / R, rows_touched=counts["rows_touched"],
+                **bound(OPS_NODE * nd + OPS_TRI * tt,
+                        4 * W * counts["rows_touched"] + 44 * R))
+
+
 def phase_traversal(results, scenes, cam):
     """Kernel against plain on the bench mix at the frame's lane count
     (512 x 512 rays per class, the shape Renderer.step hands the
-    traversal); kernel times at that count and at bench.py's 131072."""
+    traversal); the plain run counts each ray's work, from which each
+    class's bound follows; kernel times at that count and at bench.py's
+    131072."""
     import torch
     from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
         any_hit_plain, any_hit_wavefront, closest_hit_plain,
@@ -186,12 +230,14 @@ def phase_traversal(results, scenes, cam):
     for k, scene in scenes.items():
         table, C, S = scene.cw_table(), scene.cw_nodes.shape[0], \
             scene.cw_stack
+        W = table.shape[1]
         ro_p, rd_p, ro_b, rd_b, tm_b = bench_rays(scene, cam, R)
-        plain, err = {}, {}
+        plain, err, work = {}, {}, {}
         for name, ro, rd in (("primary", ro_p, rd_p),
                              ("bounce", ro_b, rd_b)):
             hk = closest_hit_wavefront(table, C, ro, rd, 1e30, S)
-            hp = closest_hit_plain(table, C, ro, rd, 1e30, S)
+            counts = {}
+            hp = closest_hit_plain(table, C, ro, rd, 1e30, S, counts)
             for f in ("t", "tri", "u", "v"):
                 a, b = getattr(hk, f), getattr(hp, f)
                 check(torch_equal_bits(a, b),
@@ -202,17 +248,22 @@ def phase_traversal(results, scenes, cam):
             hit_share = float((hk.tri >= 0).float().mean())
             check(hit_share > 0.5, f"closest hit K={k} {name}: only "
                   f"{hit_share:.3f} of rays hit")
+            work[name] = traversal_work(counts, R, W)
             log(f"closest hit K={k} {name}: bitwise equal to plain "
-                f"(t, tri, u, v) on {R} rays; {hit_share:.3f} hit")
+                f"(t, tri, u, v) on {R} rays; {hit_share:.3f} hit; "
+                f"{work_line(work[name])}")
             plain[name] = cuda_ms(lambda: closest_hit_plain(
                 table, C, ro, rd, 1e30, S), 1)
         ok = any_hit_wavefront(table, C, ro_b, rd_b, tm_b, S)
-        op = any_hit_plain(table, C, ro_b, rd_b, tm_b, S)
+        counts = {}
+        op = any_hit_plain(table, C, ro_b, rd_b, tm_b, S, counts)
         check(torch.equal(ok, op), f"any hit K={k}: occlusion differs on "
               f"{int((ok != op).sum())} of {R} rays")
         err["any"] = max_abs_diff(ok.float(), op.float())
+        work["shadow"] = traversal_work(counts, R, W)
         log(f"any hit K={k} shadow: occlusion equal to plain on {R} rays; "
-            f"{float(ok.float().mean()):.3f} blocked")
+            f"{float(ok.float().mean()):.3f} blocked; "
+            f"{work_line(work['shadow'])}")
         plain["any"] = cuda_ms(lambda: any_hit_plain(
             table, C, ro_b, rd_b, tm_b, S), 1)
 
@@ -225,18 +276,38 @@ def phase_traversal(results, scenes, cam):
                 table, C, ro_b[:n], rd_b[:n], tm_b[:n], S), 20)
             mrays = 3 * n / ((t_cp + t_cb + t_an) * 1e-3) / 1e6
             log(f"traversal K={k} (bench mix, {n} rays per class): closest "
-                f"primary {t_cp:.3f} ms, closest bounce {t_cb:.3f} ms, any "
-                f"hit {t_an:.3f} ms -> {mrays:.2f} Mrays/s")
+                f"primary {t_cp:.4f} ms, closest bounce {t_cb:.4f} ms, any "
+                f"hit {t_an:.4f} ms -> {mrays:.2f} Mrays/s")
             results[f"traversal_k{k}_{n}"] = dict(mrays=mrays)
+        for name, t in (("primary", t_cp), ("bounce", t_cb),
+                        ("shadow", t_an)):
+            w = work[name]
+            log(f"traversal K={k} {name} at {R} rays: bound "
+                f"{w['bound_ms']:.4f} ms ({w['bound_by']}), kernel "
+                f"{t:.4f} ms = {w['bound_ms'] / t:.3f} of the bound")
         log(f"traversal K={k} plain at {R} rays: closest primary "
             f"{plain['primary']:.1f} ms, closest bounce "
             f"{plain['bounce']:.1f} ms, any hit {plain['any']:.1f} ms")
         if k == 6:
+            pb = [work["primary"], work["bounce"]]
             results["closest_hit_wavefront"] = dict(
                 max_abs_err=err["closest"], ms=(t_cp + t_cb) / 2,
-                plain_ms=(plain["primary"] + plain["bounce"]) / 2)
+                plain_ms=(plain["primary"] + plain["bounce"]) / 2,
+                bound_ms=(pb[0]["bound_ms"] + pb[1]["bound_ms"]) / 2,
+                bound_by=max(pb, key=lambda b: b["bound_ms"])["bound_by"],
+                work={n: work[n] for n in ("primary", "bounce")})
             results["any_hit_wavefront"] = dict(
-                max_abs_err=err["any"], ms=t_an, plain_ms=plain["any"])
+                max_abs_err=err["any"], ms=t_an, plain_ms=plain["any"],
+                bound_ms=work["shadow"]["bound_ms"],
+                bound_by=work["shadow"]["bound_by"],
+                work={"shadow": work["shadow"]})
+
+
+def work_line(w: dict) -> str:
+    return (f"per ray {w['node_decodes_per_ray']:.2f} node decodes, "
+            f"{w['leaf_rows_per_ray']:.2f} leaf rows, "
+            f"{w['tri_tests_per_ray']:.2f} triangle tests; "
+            f"{w['rows_touched']} table rows touched")
 
 
 def phase_step_core(results, scene3, cam):
@@ -291,7 +362,10 @@ def phase_step_core(results, scene3, cam):
     p = cuda_ms(lambda: step_core_plain(rowt, ray9, st5), 3)
     log(f"step_core R={R}: bitwise equal to plain ({n_hit} hits); "
         f"kernel {k:.4f} ms, plain {p:.3f} ms")
-    results["step_core"] = dict(max_abs_err=err, ms=k, plain_ms=p)
+    # rows [32,R], rays [9,R], state [5,R] in; [7,R] out
+    results["step_core"] = dict(max_abs_err=err, ms=k, plain_ms=p,
+                                **bound((3 * OPS_TRI + OPS_NODE) * R,
+                                        (32 + 9 + 5 + 7) * 4 * R))
 
 
 # ---------------------------------------------------------------------------
@@ -321,7 +395,7 @@ def phase_frame(results, scene, cam):
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     times = []
-    for _ in range(4):
+    for _ in range(FRAMES - 1):
         t0 = time.perf_counter()
         display, accum, state = r.step(state)
         torch.cuda.synchronize()
@@ -341,7 +415,7 @@ def phase_frame(results, scene, cam):
         f"{warm * 1e3:.1f} ms, frames {[round(t * 1e3, 1) for t in times]}"
         f" ms -> mean {ms:.1f} ms/frame, median {med:.1f}; radiance mean "
         f"{mean:.4f}")
-    log(f"launches over the 5 frames: {launches}")
+    log(f"launches over the {FRAMES} frames: {launches}")
     for name in PATH_KERNELS:
         check(launches[name] > 0, f"{name} never launched on the main path")
     results["frame"] = dict(ms=ms, median_ms=med, warmup_ms=warm * 1e3,
@@ -369,11 +443,13 @@ def phase_profile(r, state):
                and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in kernels) / 1e3
     n = sum(e.count for e in kernels)
+    trav = sum(dev_us(e) for e in kernels if "traverse_kernel" in e.key) / 1e3
     log(f"profiled frame: wall {wall * 1e3:.1f} ms, {n} kernels, device "
-        f"busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of wall)")
+        f"busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of wall), "
+        f"traversal {trav:.3f} ms ({100 * trav / busy:.1f}% of busy)")
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
         log(f"  {dev_us(e) / 1e3:8.3f} ms  {e.count:6d}x  {e.key[:100]}")
-    return dict(kernels=n, busy_ms=busy)
+    return dict(kernels=n, busy_ms=busy, traversal_ms=trav)
 
 
 # ---------------------------------------------------------------------------
@@ -386,7 +462,7 @@ def phase_cornell():
         RenderConfig, render, render_sample)
     from truetrace_tpu_torch.scene import cornell
     from truetrace_tpu_torch.scene.mesh import compile_scene
-    meshes, mats, cam = cornell.make()
+    meshes, mats, cam = cornell.make(device="cpu")
     sc_gpu = compile_scene(meshes, mats, with_cwbvh=True,
                            with_light_bvh=True, device=DEVICE)
     sc_cpu = compile_scene(meshes, mats, with_cwbvh=True,
@@ -437,16 +513,36 @@ def phase_cornell():
 
 # ---------------------------------------------------------------------------
 
+# (name, source, TPU kernel replaced, the kernel instantiations of the
+# source whose ptxas report goes into the row)
 KERNELS = (
     ("closest_hit_wavefront", "truetrace_tpu_torch/kernels/csrc/traverse.cu",
-     "truetrace_tpu/kernels/cwbvh_wavefront.py:861"),
+     "truetrace_tpu/kernels/cwbvh_wavefront.py:861", "traverse_kernel<6,0>"),
     ("any_hit_wavefront", "truetrace_tpu_torch/kernels/csrc/traverse.cu",
-     "truetrace_tpu/kernels/cwbvh_wavefront.py:927"),
+     "truetrace_tpu/kernels/cwbvh_wavefront.py:927", "traverse_kernel<6,1>"),
     ("step_core", "truetrace_tpu_torch/kernels/csrc/step_core.cu",
-     "truetrace_tpu/kernels/step_pallas.py:120"),
+     "truetrace_tpu/kernels/step_pallas.py:120", "step_core_kernel"),
     ("atrous_pass", "truetrace_tpu_torch/kernels/csrc/atrous.cu",
-     "truetrace_tpu/kernels/atrous_pallas.py:110"),
+     "truetrace_tpu/kernels/atrous_pallas.py:110", "atrous_kernel"),
 )
+
+
+def ptxas_of(src: str, want: str) -> dict:
+    """What ptxas reported in this run's build for the kernels of `src`
+    named `want` ("traverse_kernel<6,0>" is one instantiation,
+    "atrous_kernel" every one): {name<template args>: registers, spills,
+    stack frame, static shared memory}."""
+    from truetrace_tpu_torch.kernels import _cuda
+    base = want.split("<")[0]
+    out = {}
+    for mangled, info in _cuda.ptxas_report(os.path.basename(src)).items():
+        m = re.search(base + r"(I(?:L[a-z]\d+E)+E)?", mangled)
+        if m:
+            args = re.findall(r"L[a-z](\d+)E", m.group(1) or "")
+            name = base + (f"<{','.join(args)}>" if args else "")
+            if name == want or "<" not in want:
+                out[name] = info
+    return out
 
 
 PATH_KERNELS = ("closest_hit_wavefront", "any_hit_wavefront", "atrous_pass")
@@ -475,25 +571,27 @@ def main() -> int:
     _cuda.build_all()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_cuda.NVCC_FLAGS[:3])})")
-    for src, out in _cuda.build_log.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {src}: {line.strip()}")
+    ptxas = {name: ptxas_of(src, want) for name, src, _, want in KERNELS}
+    for name, rep in ptxas.items():
+        check(bool(rep), f"no ptxas report for {name}'s kernels")
+        for kern, info in rep.items():
+            log(f"  ptxas {kern}: {info}")
 
     results = {}
     phase_atrous(results)
 
     from truetrace_tpu_torch.scene import atrium
     from truetrace_tpu_torch.scene.mesh import compile_scene
-    meshes, mats, cam, env = atrium.make(detail=ATRIUM_DETAIL)
-    cam = cam.to(DEVICE)
+    meshes, mats, cam, env = atrium.make(detail=ATRIUM_DETAIL,
+                                         device=DEVICE)
     scenes = {}
     for k in (6, 3):
         t0 = time.perf_counter()
         scenes[k] = compile_scene(meshes, mats, env=env, with_cwbvh=True,
                                   with_light_bvh=(k == 6), leaf_k=k,
                                   device=DEVICE)
-        log(f"atrium detail {ATRIUM_DETAIL} K={k}: {scenes[k].n_tris()} triangles, "
+        log(f"atrium detail {ATRIUM_DETAIL} K={k}: "
+            f"{scenes[k].n_tris()} triangles, "
             f"{scenes[k].cw_nodes.shape[0]} nodes, "
             f"{scenes[k].cw_leaf_rows.shape[0]} leaf rows, stack "
             f"{scenes[k].cw_stack}, built in "
@@ -513,15 +611,27 @@ def main() -> int:
     log(f"frame 512x512x4 svgf: {results['frame']['ms']:.1f} ms "
         f"(median {results['frame']['median_ms']:.1f}); device busy "
         f"{results['profile']['busy_ms']:.1f} ms in "
-        f"{results['profile']['kernels']} kernels")
+        f"{results['profile']['kernels']} kernels, traversal "
+        f"{results['profile']['traversal_ms']:.3f} ms of it")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
-    rows = {name: dict(name=name, route="cuda", source=src, replaces=rep,
-                       launches=launches[name],
-                       max_abs_err=results[name]["max_abs_err"],
-                       ms=results[name]["ms"],
-                       plain_ms=results[name]["plain_ms"])
-            for name, src, rep in KERNELS}
+    # library_ms: no single PyTorch call computes any of these functions
+    rows = {}
+    for name, src, rep, _ in KERNELS:
+        res = results[name]
+        rows[name] = dict(
+            name=name, route="cuda", source=src, replaces=rep,
+            launches=launches[name], max_abs_err=res["max_abs_err"],
+            ms=res["ms"], plain_ms=res["plain_ms"],
+            bound_ms=res["bound_ms"], bound_by=res["bound_by"],
+            library_ms=None, launches_per_frame=launches[name] / FRAMES,
+            share_of_bound=res["bound_ms"] / res["ms"],
+            ptxas=ptxas[name], **({"work": res["work"]} if "work" in res
+                                  else {}))
+    smem = _cuda.lib("traverse.cu").tt_traverse_smem(scenes[6].cw_stack)
+    for name in ("closest_hit_wavefront", "any_hit_wavefront"):
+        # the ring stack's dynamic shared memory, as the launch sizes it
+        rows[name]["smem_dynamic"] = smem
     # "kernels": the main path's kernels. step_core's code runs inside
     # the traversal kernel; its own launch is held against its plain
     # version above but is not on the main path ("off_path").

@@ -1,8 +1,11 @@
 """Torch port, the CUDA kernels against their plain PyTorch twins on the
 card, at small sizes and on the edges the main path does not reach:
 frame sizes that are no multiple of the 16x16 tile, a-trous steps wider
-than the frame, leaf rows of K = 3, 6 and 12, a stack so shallow that
-pushes drop entries, dead lanes, and the wrappers' argument checks.
+than the frame, every compiled leaf width (K = 3, 4, 5, 6, 8, 12; rows
+of 3 and 5 are no multiple of 16 bytes), a stack so shallow that pushes
+drop entries, dead lanes, ray counts that leave warps part empty or
+outnumber the resident lanes, back-to-back launches (the ray counter
+starts anew), and the wrappers' argument checks.
 
 Needs an NVIDIA card and nvcc; skips elsewhere. It imports no JAX, so it
 runs on a machine without it (the JAX-side conftest is skipped):
@@ -55,9 +58,10 @@ def test_atrous_kernel_matches_plain(dev, h, w, step):
 
 @pytest.fixture(scope="module")
 def scenes(dev):
-    meshes, mats, cam, env = atrium.make(detail=0.2)
+    meshes, mats, cam, env = atrium.make(detail=0.2, device=dev)
     out = {k: compile_scene(meshes, mats, env=env, with_cwbvh=True,
-                            leaf_k=k, device=dev) for k in (3, 6, 12)}
+                            leaf_k=k, device=dev)
+           for k in (3, 4, 5, 6, 8, 12)}
     r = np.random.default_rng(3)
     R = 3000
     lo = out[3].tri_p0.amin(0).cpu().numpy()
@@ -70,15 +74,10 @@ def scenes(dev):
     return out, ro.to(dev), rd.to(dev), tm.to(dev)
 
 
-@pytest.mark.parametrize("k", [3, 6, 12])
-@pytest.mark.parametrize("stack", ["scene", 2])
-def test_traversal_kernel_bitwise(scenes, k, stack):
-    """Closest hit (t, tri, u, v) and occlusion are bitwise the plain
-    lock-step traversal's, also with a 2-entry stack whose pushes drop
-    the deepest entry (the shift-register semantics the ring mirrors)."""
-    out, ro, rd, tm = scenes
-    sc = out[k]
-    S = sc.cw_stack if stack == "scene" else stack
+def _check_both(sc, ro, rd, tm, S=None):
+    """Kernel against plain: closest hit bitwise (t, tri, u, v) and
+    occlusion equal. Returns the kernel's closest hit."""
+    S = sc.cw_stack if S is None else S
     table, C = sc.cw_table(), sc.cw_nodes.shape[0]
     hk = wf.closest_hit_wavefront(table, C, ro, rd, tm, S)
     hp = wf.closest_hit_plain(table, C, ro, rd, tm, S)
@@ -86,9 +85,34 @@ def test_traversal_kernel_bitwise(scenes, k, stack):
         a, b = getattr(hk, f), getattr(hp, f)
         assert torch.equal(a.view(torch.int32), b.to(a.dtype).view(
             torch.int32)), f
+    assert torch.equal(wf.any_hit_wavefront(table, C, ro, rd, tm, S),
+                       wf.any_hit_plain(table, C, ro, rd, tm, S))
+    return hk
+
+
+@pytest.mark.parametrize("k", [3, 4, 5, 6, 8, 12])
+@pytest.mark.parametrize("stack", ["scene", 2])
+def test_traversal_kernel_bitwise(scenes, k, stack):
+    """Closest hit (t, tri, u, v) and occlusion are bitwise the plain
+    lock-step traversal's for every compiled leaf width (rows of K = 3
+    and 5, 30 and 50 words, are no multiple of 16 bytes and are read 8
+    bytes at a time), also with a 2-entry stack whose pushes drop the
+    deepest entry (the shift-register semantics the ring mirrors): some
+    rays then lose subtrees, and the kernel loses the same ones. The
+    kernel's stack entry drops the pushed group's leaf-row base (bleaf),
+    which the plain traversal keeps as the JAX one does: equal bits pin
+    that it is dead state."""
+    out, ro, rd, tm = scenes
+    sc = out[k]
+    S = sc.cw_stack if stack == "scene" else stack
+    table, C = sc.cw_table(), sc.cw_nodes.shape[0]
+    assert (table.shape[1] % 4 == 0) == (k % 2 == 0)
+    hk = _check_both(sc, ro, rd, tm, S)
     assert bool((hk.tri[:100] == -1).all())
+    if stack == 2:
+        full = wf.closest_hit_plain(table, C, ro, rd, tm, sc.cw_stack)
+        assert bool((hk.tri != full.tri).any())
     ok = wf.any_hit_wavefront(table, C, ro, rd, tm, S)
-    assert torch.equal(ok, wf.any_hit_plain(table, C, ro, rd, tm, S))
     assert 0.05 < float(ok.float().mean()) < 0.95
 
 
@@ -128,8 +152,71 @@ def test_wrappers_reject_bad_arguments(scenes, dev):
                                  8)
     with pytest.raises(ValueError):
         wf.any_hit_wavefront(table, C, ro, rd, tm, 64)
+    # a table whose rows would be read misaligned, and a leaf width with
+    # no compiled kernel
+    t3 = out[3].cw_table()
+    shifted = torch.empty(t3.numel() + 1, dtype=torch.int32, device=dev)
+    shifted = shifted[1:].view(t3.shape)
+    shifted.copy_(t3)
+    with pytest.raises(ValueError, match="aligned"):
+        wf.closest_hit_wavefront(shifted, out[3].cw_nodes.shape[0], ro, rd,
+                                 tm, 8)
+    with pytest.raises(ValueError, match="K = 7"):
+        wf.closest_hit_wavefront(torch.zeros((64, 70), dtype=torch.int32,
+                                             device=dev), 8, ro, rd, tm, 8)
     x = torch.zeros((8, 8), device=dev)
     with pytest.raises(ValueError):
         atrous_pallas.atrous_pass(torch.zeros((8, 8, 3), device=dev), x,
                                   torch.zeros((8, 8, 3), device=dev),
                                   x.double(), 1)
+
+
+@pytest.mark.parametrize("R", [1, 33, 262145])
+def test_traversal_kernel_ray_counts(scenes, dev, R):
+    """One ray, a warp and a lane over, and more rays than the persistent
+    grid holds lanes at the main path's leaf width, so warps pull many
+    batches from the counter."""
+    out, _, _, _ = scenes
+    sc = out[6]
+    r = np.random.default_rng(R)
+    lo = sc.tri_p0.amin(0).cpu().numpy()
+    hi = sc.tri_p0.amax(0).cpu().numpy()
+    ro = torch.from_numpy(r.uniform(lo, hi, (R, 3)).astype(np.float32))
+    rd = torch.from_numpy(_unit(r, R))
+    tm = torch.from_numpy(r.uniform(0.05, 8.0, R).astype(np.float32))
+    hk = _check_both(sc, ro.to(dev), rd.to(dev), tm.to(dev))
+    if R > 1:
+        assert 0 < int((hk.tri >= 0).sum()) < R
+
+
+@pytest.mark.parametrize("dead", ["all", "half"])
+def test_traversal_kernel_dead_lanes(scenes, dead):
+    """t_max = 0 lanes (the integrator's dead paths) miss without a walk:
+    every lane, or every other lane."""
+    out, ro, rd, tm = scenes
+    tm = tm.clone()
+    if dead == "all":
+        tm.zero_()
+    else:
+        tm[::2] = 0.0
+    hk = _check_both(out[6], ro, rd, tm)
+    d = tm == 0
+    assert bool((hk.tri[d] == -1).all()) and bool((hk.t[d] == 0).all())
+    assert bool((hk.u[d] == 0).all()) and bool((hk.v[d] == 0).all())
+    if dead == "half":
+        assert bool((hk.tri[~d] >= 0).any())
+
+
+def test_traversal_kernel_repeats_bitwise(scenes):
+    """Two launches in a row give the same bits: each launch starts its
+    ray counter at 0, so no ray is skipped or walked twice."""
+    out, ro, rd, tm = scenes
+    sc = out[6]
+    table, C, S = sc.cw_table(), sc.cw_nodes.shape[0], sc.cw_stack
+    a = wf.closest_hit_wavefront(table, C, ro, rd, tm, S)
+    b = wf.closest_hit_wavefront(table, C, ro, rd, tm, S)
+    for f in ("t", "tri", "u", "v"):
+        assert torch.equal(getattr(a, f).view(torch.int32),
+                           getattr(b, f).view(torch.int32)), f
+    assert torch.equal(wf.any_hit_wavefront(table, C, ro, rd, tm, S),
+                       wf.any_hit_wavefront(table, C, ro, rd, tm, S))

@@ -109,8 +109,9 @@ def test_cornell_physics():
     Cornell box: red wall left, green wall right, a bright light, a
     finite image; NEE + MIS and BSDF-only sampling converge to the same
     channel means (rtol 0.12, as tests/test_cornell.py)."""
-    meshes, mats, cam = tcornell.make()
-    scene = tcompile(meshes, mats, with_cwbvh=True, with_light_bvh=True)
+    meshes, mats, cam = tcornell.make(device="cpu")
+    scene = tcompile(meshes, mats, with_cwbvh=True, with_light_bvh=True,
+                     device="cpu")
     img = _render(scene, cam, 32, 16, bounces=3)
     assert np.isfinite(img).all()
     mid = img[12:20]

@@ -2,7 +2,9 @@
 copies of the builders and scene generators) against the JAX package's,
 table for table and bit for bit; the traversal table (expand_nodes,
 pack_table); the carry-across constructors; and the options the slice
-does not port, which must raise."""
+does not port, which must raise; and the entry points' device defaults."""
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ from truetrace_tpu.scene.mesh import compile_scene as jcompile
 from truetrace_tpu_torch.kernels import cwbvh_wavefront as twf
 from truetrace_tpu_torch.scene import atrium as tatrium
 from truetrace_tpu_torch.scene import cornell as tcornell
+from truetrace_tpu_torch.scene import ir as tir
 from truetrace_tpu_torch.scene.ir import Scene
 from truetrace_tpu_torch.scene.mesh import compile_scene as tcompile
 
@@ -31,15 +34,15 @@ def _pair(name, detail, k):
     if key not in _cache:
         if name == "cornell":
             jm, jmat, _ = jcornell.make()
-            tm, tmat, _ = tcornell.make()
+            tm, tmat, _ = tcornell.make(device="cpu")
             jenv = tenv = None
         else:
             jm, jmat, _, jenv = jatrium.make(detail=detail)
-            tm, tmat, _, tenv = tatrium.make(detail=detail)
+            tm, tmat, _, tenv = tatrium.make(detail=detail, device="cpu")
         js = jcompile(jm, jmat, env=jenv, with_cwbvh=True,
                       with_light_bvh=True, leaf_k=k)
         ts = tcompile(tm, tmat, env=tenv, with_cwbvh=True,
-                      with_light_bvh=True, leaf_k=k)
+                      with_light_bvh=True, leaf_k=k, device="cpu")
         _cache[key] = (js, ts)
     return _cache[key]
 
@@ -143,11 +146,21 @@ def _raises(fn):
 @pytest.mark.parametrize("opt", ["presplit", "hot_order", "bvh2_only",
                                  "cache_dir", "atlas"])
 def test_unported_build_options_raise(opt):
-    m, mats, _ = tcornell.make()
-    kw = dict(with_cwbvh=True)
+    m, mats, _ = tcornell.make(device="cpu")
+    kw = dict(with_cwbvh=True, device="cpu")
     kw.update(dict(presplit=dict(presplit=0.5),
                    hot_order=dict(hot_order=True),
                    bvh2_only=dict(with_cwbvh=False),
                    cache_dir=dict(cache_dir="x"),
                    atlas=dict(atlas=np.zeros((4, 4, 4), np.float32)))[opt])
     _raises(lambda: tcompile(m, mats, **kw))
+
+
+@pytest.mark.parametrize("fn", [tcompile, tir.Camera.look_at, tatrium.make,
+                                tcornell.make],
+                         ids=["compile_scene", "Camera.look_at",
+                              "atrium.make", "cornell.make"])
+def test_entry_points_default_to_the_card(fn):
+    """The port's scene entry points build on the card unless the caller
+    asks for the CPU (every CPU test passes device="cpu")."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

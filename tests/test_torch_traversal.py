@@ -68,7 +68,7 @@ def _hit_np(h):
     return twf.Hit(*(_t(x) for x in h))
 
 
-@pytest.mark.parametrize("k", [3, 6])
+@pytest.mark.parametrize("k", [3, 6, 12])
 def test_closest_hit_bitwise(rays, k):
     """t, tri, u and v are bitwise the JAX ones (the same lock-step
     iteration, the same rounding: XLA's contracted mul-adds are fma()s).
@@ -87,7 +87,7 @@ def test_closest_hit_bitwise(rays, k):
     assert (tri[-N_DEAD:] == -1).all() and (b.t.numpy()[-N_DEAD:] == 0).all()
 
 
-@pytest.mark.parametrize("k", [3, 6])
+@pytest.mark.parametrize("k", [3, 6, 12])
 def test_any_hit_occlusion_equal(rays, k):
     """Occlusion against finite t_max segments (and dead lanes) equals
     the JAX any-hit traversal's."""
@@ -163,3 +163,34 @@ def test_step_core_plain_matches_pallas(rays):
         b = step_core_plain(rowt, ray9, st5, write_uv).numpy()
         np.testing.assert_array_equal(a, b.view(np.uint32))
     assert (b[1] >= 0).sum() > R // 8
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_plain_counts_each_rays_work(rays, any_hit):
+    """The counts the bounds in chip_smoke.py are computed from: dead
+    lanes do no work, every live ray decodes the root, a ray that hits
+    tested a leaf row, each leaf row holds 1..K real triangles, and
+    counting changes no result."""
+    js, ts = _scene(6)
+    ro, rd, t_max = rays
+    table, C, S = ts.cw_table(), ts.cw_nodes.shape[0], ts.cw_stack
+    fn = twf.any_hit_plain if any_hit else twf.closest_hit_plain
+    args = (table, C, _t(ro), _t(rd), _t(np.where(t_max > 0, 6.0, 0.0)
+                                         .astype(np.float32)), S)
+    counts = {}
+    got = fn(*args, counts=counts)
+    ref = fn(*args)
+    hit = got if any_hit else got.tri >= 0
+    if any_hit:
+        assert torch.equal(got, ref)
+    else:
+        assert torch.equal(got.t, ref.t) and torch.equal(got.tri, ref.tri)
+    nd, lr, tt = (counts[f] for f in ("node_decodes", "leaf_rows",
+                                      "tri_tests"))
+    dead = torch.arange(ro.shape[0]) >= ro.shape[0] - N_DEAD
+    assert int(nd[dead].sum() + lr[dead].sum() + tt[dead].sum()) == 0
+    assert bool((nd[~dead] >= 1).all())
+    assert bool((lr[hit] >= 1).all())
+    assert bool((tt >= lr).all()) and bool((tt <= 6 * lr).all())
+    assert 1 <= counts["rows_touched"] <= table.shape[0]
+    assert counts["rows_touched"] >= int(nd.max())

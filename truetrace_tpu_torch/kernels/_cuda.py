@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -33,13 +34,15 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3",
 _lock = threading.Lock()
 _libs: dict = {}
 build_seconds = None        # wall time of the last build (set by build_all)
-build_log: dict = {}        # source -> nvcc output (ptxas registers, spills)
+build_log: dict = {}        # source -> nvcc output (ptxas registers, spills),
+                            # kept beside each library as <library>.log
 
 P, I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every C entry point; each returns cudaError_t as int
 _SIGNATURES = {
     "traverse.cu": {
-        "tt_traverse": [P, I, I, I, I, I, P, P, P, I, I, P, P, P, P, P],
+        "tt_traverse": [P, I, I, I, I, P, P, P, I, I, P, P, P, P, P, P],
+        "tt_traverse_smem": [I],
     },
     "step_core.cu": {
         "tt_step_core": [P, P, P, P, I, I, P],
@@ -60,20 +63,65 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _digest(src: str) -> str:
+def _digest(src: str, csrc: str = CSRC) -> str:
     h = hashlib.sha256()
-    for name in (src,) + HEADERS + ("_flags",):
-        if name == "_flags":
-            h.update(" ".join(NVCC_FLAGS).encode())
-        else:
-            with open(os.path.join(CSRC, name), "rb") as f:
-                h.update(f.read())
+    for name in (src,) + HEADERS:
+        with open(os.path.join(csrc, name), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:12]
 
 
-def _so_path(src: str) -> str:
+def _so_path(src: str, csrc: str = CSRC) -> str:
     stem = os.path.splitext(src)[0]
-    return os.path.join(BUILD_DIR, f"tt_{stem}_{_digest(src)}.so")
+    return os.path.join(BUILD_DIR, f"tt_{stem}_{_digest(src, csrc)}.so")
+
+
+def _start(src: str, csrc: str = CSRC):
+    """Start nvcc on csrc/src unless its library is built; returns
+    (process, temporary output, library path) or None."""
+    so = _so_path(src, csrc)
+    if os.path.exists(so):
+        return None
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(csrc, src)]
+    return (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT), tmp, so)
+
+
+def _finish(src: str, job) -> str | None:
+    """Wait for a job of _start; keep its output beside the library as
+    <library>.log. Returns an error message, or None."""
+    proc, tmp, so = job
+    out, _ = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        return f"nvcc {src} failed:\n{out.decode()}"
+    with open(f"{so}.log", "wb") as f:
+        f.write(out)
+    os.replace(tmp, so)
+    return None
+
+
+def _load(so: str) -> tuple:
+    """(ctypes.CDLL, the nvcc output it was built with)."""
+    log = ""
+    if os.path.exists(f"{so}.log"):
+        with open(f"{so}.log") as f:
+            log = f.read()
+    return ctypes.CDLL(so), log
+
+
+def build_file(csrc: str, src: str) -> tuple:
+    """Build one source of another directory of kernel sources (an
+    earlier version of csrc/, to time against) with the same flags.
+    Returns (ctypes.CDLL, nvcc output); the caller sets its argtypes."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    job = _start(src, csrc)
+    if job is not None:
+        err = _finish(src, job)
+        if err:
+            raise RuntimeError(err)
+    return _load(_so_path(src, csrc))
 
 
 def build_all() -> dict:
@@ -86,27 +134,13 @@ def build_all() -> dict:
             return _libs
         os.makedirs(BUILD_DIR, exist_ok=True)
         t0 = time.perf_counter()
-        procs = {}
+        jobs = {src: _start(src) for src in SOURCES}
+        errors = [_finish(src, job) for src, job in jobs.items()
+                  if job is not None]
+        if any(errors):
+            raise RuntimeError("\n".join(e for e in errors if e))
         for src in SOURCES:
-            so = _so_path(src)
-            if os.path.exists(so):
-                continue
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
-            procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT), tmp, so)
-        errors = []
-        for src, (proc, tmp, so) in procs.items():
-            out, _ = proc.communicate(timeout=900)
-            build_log[src] = out.decode()
-            if proc.returncode != 0:
-                errors.append(f"nvcc {src} failed:\n{out.decode()}")
-            else:
-                os.replace(tmp, so)
-        if errors:
-            raise RuntimeError("\n".join(errors))
-        for src in SOURCES:
-            lib = ctypes.CDLL(_so_path(src))
+            lib, build_log[src] = _load(_so_path(src))
             for fn, argtypes in _SIGNATURES[src].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
@@ -117,6 +151,35 @@ def build_all() -> dict:
 
 def lib(src: str) -> ctypes.CDLL:
     return build_all()[src]
+
+
+def ptxas_report(src: str) -> dict:
+    """Per kernel of `src` (mangled name -> dict), what `ptxas -v` said
+    when the loaded library was built: registers, spill stores/loads and
+    stack frame bytes, static shared memory bytes."""
+    out, cur = {}, None
+    for line in build_log.get(src, "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), dict(
+                registers=0, spill_stores=0, spill_loads=0, stack_frame=0,
+                smem=0))
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            cur = out.get(m.group(1), cur)
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("stack_frame", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                cur[key] = int(m.group(1))
+    return out
 
 
 def check(err: int, what: str) -> None:

@@ -7,7 +7,10 @@
 // 8-slot conservative-bf16 slab decode of one expanded node row.
 //
 // Rows are read as row[k * stride]: stride 1 for a row of the unified
-// table, stride R for the lane-major [32, R] block of step_core.
+// table (or a copy of it in registers), stride R for the lane-major
+// [32, R] block of step_core. The traversal loads whole rows into
+// registers with 16- or 8-byte loads (load_row) and runs the same
+// arithmetic on the copy.
 //
 // Rounding contract: the file is compiled with --fmad=false, so every
 // mul and add rounds on its own, exactly as the plain PyTorch version
@@ -17,7 +20,9 @@
 //   a*b - c*d         -> fma(a, b, -(c*d))
 //   a*b + c*d + e*g   -> fma(e, g, fma(a, b, c*d))
 // so t/tri/u/v are bitwise those of the JAX package and of the plain
-// version (kernels/cwbvh_wavefront.py _moller).
+// version (kernels/cwbvh_wavefront.py _moller). Reciprocals are
+// __frcp_rn, the correctly rounded 1/x, which gives the bits of the IEEE
+// division 1.0f / x in fewer instructions.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -30,12 +35,19 @@ struct Ray {
 
 __device__ __forceinline__ float bits_f(uint32_t u) { return __uint_as_float(u); }
 
-// NaN-propagating min/max: the semantics of jnp/torch maximum/minimum
+// NaN-propagating min/max, the semantics of jnp/torch maximum/minimum,
+// in one instruction each (PTX min.NaN / max.NaN, sm_80 and later). A NaN
+// result only ever feeds the slab compares, which it fails whatever its
+// payload.
 __device__ __forceinline__ float nmax(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 __device__ __forceinline__ float nmin(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
 // a*b - c*d as XLA:CPU contracts it
@@ -48,49 +60,57 @@ __device__ __forceinline__ float dot3(float a, float b, float c, float d,
   return __fmaf_rn(e, g, __fmaf_rn(a, b, c * d));
 }
 
+// One Moller-Trumbore test: b holds p0, e1, e2 (9 words at `stride`).
+// Updates the running closest hit.
+__device__ __forceinline__ void tri_test(const uint32_t* b, int stride,
+                                         int tri_id, const Ray& r,
+                                         bool leaf_lane, bool write_uv,
+                                         float& t_best, int& tri_best,
+                                         float& u_best, float& v_best) {
+  const float p0x = bits_f(b[0]), p0y = bits_f(b[stride]),
+              p0z = bits_f(b[2 * stride]);
+  const float e1x = bits_f(b[3 * stride]), e1y = bits_f(b[4 * stride]),
+              e1z = bits_f(b[5 * stride]);
+  const float e2x = bits_f(b[6 * stride]), e2y = bits_f(b[7 * stride]),
+              e2z = bits_f(b[8 * stride]);
+  const float rdx = r.d[0], rdy = r.d[1], rdz = r.d[2];
+  const float pvx = msub(rdy, e2z, rdz, e2y);
+  const float pvy = msub(rdz, e2x, rdx, e2z);
+  const float pvz = msub(rdx, e2y, rdy, e2x);
+  const float det = dot3(e1x, pvx, e1y, pvy, e1z, pvz);
+  const float inv_det = __frcp_rn(fabsf(det) < 1e-12f ? 1e-12f : det);
+  const float tvx = r.o[0] - p0x, tvy = r.o[1] - p0y, tvz = r.o[2] - p0z;
+  const float u = dot3(tvx, pvx, tvy, pvy, tvz, pvz) * inv_det;
+  const float qvx = msub(tvy, e1z, tvz, e1y);
+  const float qvy = msub(tvz, e1x, tvx, e1z);
+  const float qvz = msub(tvx, e1y, tvy, e1x);
+  const float v = dot3(rdx, qvx, rdy, qvy, rdz, qvz) * inv_det;
+  const float th = dot3(e2x, qvx, e2y, qvy, e2z, qvz) * inv_det;
+  const bool ok = leaf_lane && tri_id >= 0 && u >= 0.0f && v >= 0.0f &&
+                  u + v <= 1.0f && th > 1e-4f && th < t_best &&
+                  fabsf(det) > 1e-12f;
+  if (ok) {
+    t_best = th;
+    tri_best = tri_id;
+    if (write_uv) {
+      u_best = u;
+      v_best = v;
+    }
+  }
+}
+
 // <= K Moller-Trumbore tests against one leaf row: 9K triangle words
-// (p0, e1, e2 per triangle) then K triangle ids (-1 = padding). Updates
-// the running closest hit.
+// (p0, e1, e2 per triangle) then K triangle ids (-1 = padding).
 __device__ __forceinline__ void moller_row(const uint32_t* row, int stride,
                                            int K, const Ray& r,
                                            bool leaf_lane, bool write_uv,
                                            float& t_best, int& tri_best,
                                            float& u_best, float& v_best) {
-  const float rox = r.o[0], roy = r.o[1], roz = r.o[2];
-  const float rdx = r.d[0], rdy = r.d[1], rdz = r.d[2];
-  for (int j = 0; j < K; ++j) {
-    const uint32_t* b = row + (size_t)(9 * j) * stride;
-    const float p0x = bits_f(b[0]), p0y = bits_f(b[stride]),
-                p0z = bits_f(b[2 * stride]);
-    const float e1x = bits_f(b[3 * stride]), e1y = bits_f(b[4 * stride]),
-                e1z = bits_f(b[5 * stride]);
-    const float e2x = bits_f(b[6 * stride]), e2y = bits_f(b[7 * stride]),
-                e2z = bits_f(b[8 * stride]);
-    const int tri_id = (int)row[(size_t)(9 * K + j) * stride];
-    const float pvx = msub(rdy, e2z, rdz, e2y);
-    const float pvy = msub(rdz, e2x, rdx, e2z);
-    const float pvz = msub(rdx, e2y, rdy, e2x);
-    const float det = dot3(e1x, pvx, e1y, pvy, e1z, pvz);
-    const float inv_det = 1.0f / (fabsf(det) < 1e-12f ? 1e-12f : det);
-    const float tvx = rox - p0x, tvy = roy - p0y, tvz = roz - p0z;
-    const float u = dot3(tvx, pvx, tvy, pvy, tvz, pvz) * inv_det;
-    const float qvx = msub(tvy, e1z, tvz, e1y);
-    const float qvy = msub(tvz, e1x, tvx, e1z);
-    const float qvz = msub(tvx, e1y, tvy, e1x);
-    const float v = dot3(rdx, qvx, rdy, qvy, rdz, qvz) * inv_det;
-    const float th = dot3(e2x, qvx, e2y, qvy, e2z, qvz) * inv_det;
-    const bool ok = leaf_lane && tri_id >= 0 && u >= 0.0f && v >= 0.0f &&
-                    u + v <= 1.0f && th > 1e-4f && th < t_best &&
-                    fabsf(det) > 1e-12f;
-    if (ok) {
-      t_best = th;
-      tri_best = tri_id;
-      if (write_uv) {
-        u_best = u;
-        v_best = v;
-      }
-    }
-  }
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+    tri_test(row + (size_t)(9 * j) * stride, stride,
+             (int)row[(size_t)(9 * K + j) * stride], r, leaf_lane, write_uv,
+             t_best, tri_best, u_best, v_best);
 }
 
 // Slab-test the 8 children of one expanded node row (26 words: per axis
@@ -152,9 +172,73 @@ __device__ __forceinline__ Ray make_ray(const float* o, const float* d) {
     r.d[a] = d[a];
     const float dd = fabsf(d[a]) < 1e-12f ? (d[a] >= 0.0f ? 1e-12f : -1e-12f)
                                           : d[a];
-    r.inv[a] = 1.0f / dd;
+    r.inv[a] = __frcp_rn(dd);
   }
   return r;
+}
+
+// ---------------------------------------------------------------------------
+// Whole-row loads for the traversal: V words (16 bytes for V = 4, 8 bytes
+// for V = 2) per load through the read-only data path. A row of the
+// unified table is 10K words, so V = 4 needs K even (rows start 16-byte
+// aligned) and an odd K takes V = 2; the launcher picks V from K and
+// the wrapper checks the table pointer's alignment.
+// ---------------------------------------------------------------------------
+
+template <int V>
+__device__ __forceinline__ void ldg_vec(const uint32_t* p, uint32_t* w) {
+  if constexpr (V == 4) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = q.x;
+    w[1] = q.y;
+    w[2] = q.z;
+    w[3] = q.w;
+  } else {
+    static_assert(V == 2, "rows are read 16 or 8 bytes at a time");
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = q.x;
+    w[1] = q.y;
+  }
+}
+
+// Words [0, N) of a row into registers (N a multiple of V).
+template <int V, int N>
+__device__ __forceinline__ void load_row(const uint32_t* __restrict__ row,
+                                         uint32_t (&w)[N]) {
+  static_assert(N % V == 0, "a row load is a whole number of vectors");
+#pragma unroll
+  for (int c = 0; c < N; c += V) ldg_vec<V>(row + c, w + c);
+}
+
+// Node row: its 26 words in 7 16-byte loads (the 2 words past them are
+// the row's zero padding) or 13 8-byte loads.
+template <int V>
+__device__ __forceinline__ void decode_node(const uint32_t* __restrict__ row,
+                                            const Ray& r, float t_best,
+                                            uint32_t& hits, uint32_t& chim,
+                                            uint32_t& bleaf) {
+  uint32_t w[(26 + V - 1) / V * V];
+  load_row<V>(row, w);
+  decode_row(w, 1, r, t_best, hits, chim, bleaf);
+}
+
+// Leaf row of K triangles: all 10K words in 10K/V loads, then the tests
+// of the triangles whose id is not padding (a padding id never passes
+// the test, so skipping it changes no bit).
+template <int K, int V>
+__device__ __forceinline__ void test_leaf(const uint32_t* __restrict__ row,
+                                          const Ray& r, bool write_uv,
+                                          float& t_best, int& tri_best,
+                                          float& u_best, float& v_best) {
+  uint32_t w[10 * K];
+  load_row<V>(row, w);
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int id = (int)w[9 * K + j];
+    if (id >= 0)
+      tri_test(w + 9 * j, 1, id, r, true, write_uv, t_best, tri_best,
+               u_best, v_best);
+  }
 }
 
 }  // namespace tt

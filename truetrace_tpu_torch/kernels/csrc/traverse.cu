@@ -1,37 +1,79 @@
-// CWBVH traversal, one thread per ray: closest hit and any hit.
+// CWBVH traversal on the H100: closest hit and any hit, one ray per lane
+// at a time, in persistent warps that pull rays from a shared counter.
 //
 // Replaces truetrace_tpu/kernels/cwbvh_wavefront.py closest_hit_wavefront
 // (:861) and any_hit_wavefront (:927), whose per-ray while_loop (:755)
 // torch cannot express on the device, and carries the work of the Pallas
 // step_core (step_pallas.py:120) through the shared core in
-// cwbvh_core.cuh. The design is the reference renderer's own GPU one
-// (SURVEY.md 3.2, IntersectionKernels.compute:155-252): each thread walks
-// the unified table (expanded 26-word node rows zero-padded to 10K words,
-// then leaf rows) with a private stack of (hits, chim, bleaf) groups.
-// The TPU's lock-step machinery (shift-register stack planes, occupancy
-// cascade, chunking) is not needed: a thread retires when its ray does.
-//
-// Per iteration, exactly as cwbvh_wavefront._step: pop a saved group when
-// the current one is empty; pending leaf slots go first (row = base leaf
-// row + rank of the slot among the leaf slots); otherwise descend into the
-// next node slot (closest hit: near-to-far by the ray's octant; any hit:
-// lowest set bit), saving the rest of the group. Any hit stops at its
-// first accepted triangle.
-//
+// cwbvh_core.cuh. Each ray walks the unified table (expanded 26-word node
+// rows zero-padded to 10K words, then leaf rows) in exactly the order of
+// cwbvh_wavefront._step: pop a saved group when the current one is empty;
+// pending leaf slots first (row = base leaf row + rank of the slot among
+// the leaf slots); otherwise descend into the next node slot (closest
+// hit: near to far by the ray's octant; any hit: lowest set bit), saving
+// the rest of the group. Any hit stops at its first accepted triangle.
 // The stack is a ring of max_stack entries that reproduces the JAX shift
-// register exactly, including its drop-the-deepest push on a full stack
-// (unreachable while max_stack = tree depth + 1, as compile_scene sets).
+// register, including its drop-the-deepest push on a full stack.
 //
-// What bounds it on the H100: dependent row loads (one 40- or 240-byte
-// row per iteration per ray, L2-resident for the 293k-triangle atrium) and
-// divergence between rays of a warp. This first version has no shared-
-// memory caching of the top levels and no persistent work queue.
+// What bounds it on the H100. chip_smoke.py counts the work on the plain
+// traversal: on the 293k-triangle atrium at K = 6, bench.py's mix at
+// 262144 rays per class, a primary ray decodes 11.3 node rows and tests
+// 2.1 leaf rows (9.4 triangles), a cosine bounce 11.3 and 3.1 (14.2), a
+// shadow ray 8.0 and 1.9 (8.7). At 216 f32 operations a decode and 53 a
+// triangle that is 8.6-12.5 us of work at 67 TFLOP/s, above the 5.5-7.4
+// us the touched rows and the rays need at 3.35 TB/s: operations bound it.
+// The kernel takes 17-23 times that (H100 80GB HBM3, 700 W): a warp's
+// trip runs only the lanes whose next step is the body it chose, and once
+// the ray pool is empty the longest rays still in flight keep their warps
+// alive on their own.
+//
+// The design, element by element:
+//
+// * Row loads. Every lane reads its own row, so each load instruction of
+//   a warp touches up to 32 cache lines; scalar loads paid that once per
+//   4-byte word (26 for a node, 60 for a K = 6 leaf row). Rows are read
+//   whole into registers through the read-only path, in 16-byte loads (7
+//   for a node, 10K/4 for a leaf row) where K is even and in 8-byte loads
+//   where K is odd (a 10K-word row then starts only 8-byte aligned):
+//   tt::decode_node / tt::test_leaf. Padding triangles are skipped.
+// * The stack. An entry is 8 bytes, (chim, node mask), in a ring of
+//   max_stack entries in dynamic shared memory, entry-major so a warp's
+//   accesses are conflict free; three dynamically indexed arrays of 32
+//   words per thread in local memory before. The leaf-row base (bleaf) of
+//   a pushed group is dead state: a group is pushed only when its leaf
+//   bits are drained, so a popped group descends before bleaf is read,
+//   and the child's decode replaces it.
+// * Persistent warps. The grid is the resident blocks per SM (occupancy
+//   calculator) times the SM count, and a warp refills its idle lanes,
+//   once at least kRefillMin of them are idle, with one atomicAdd on a
+//   ray counter: the reference renderer's work pull
+//   (IntersectionKernels.compute:79-82). A warp no longer lives as long
+//   as its slowest ray, and a dead ray (t_max = 0, most lanes of the late
+//   bounces) writes its miss at fetch time and never holds a lane.
+// * One body per trip. A lane's next step is a leaf row or a node row;
+//   each trip of the warp's loop runs the body more of its lanes want,
+//   and the others wait, where a one-thread-per-ray loop runs both bodies
+//   whenever its lanes disagree. A fresh ray's root decode is a node step.
+// * Arithmetic. min.NaN / max.NaN in one instruction each where the
+//   NaN-propagating min/max took two compares and a select, and __frcp_rn
+//   for the reciprocals: the same bits, fewer instructions.
+//
+// Variants built and timed on the card and not kept, none faster:
+// prefetching the next rows into L1, fewer resident blocks, more with a
+// register cap (it spills), blocks of 64 or 256 threads, a warp-local
+// queue of 32 claimed rays, other refill thresholds, and other trip
+// schedules (both bodies per trip; while-while phases; nodes first).
+#include <algorithm>
+
 #include "cwbvh_core.cuh"
 
 namespace {
 
 constexpr int kMaxStack = 32;
 constexpr int kIterCap = 65536;   // cwbvh_wavefront._ITER_CAP
+constexpr int kBlock = 128;
+constexpr int kRefillMin = 8;     // a warp refills once this many lanes idle
+constexpr unsigned kAll = 0xFFFFFFFFu;
 
 __device__ __forceinline__ uint32_t xor_permute8(uint32_t m, uint32_t v) {
   if (v & 1u) m = ((m & 0xAAu) >> 1) | ((m & 0x55u) << 1);
@@ -40,127 +82,231 @@ __device__ __forceinline__ uint32_t xor_permute8(uint32_t m, uint32_t v) {
   return m;
 }
 
-template <bool kAnyHit>
-__global__ void traverse_kernel(const uint32_t* __restrict__ table, int W,
-                                int K, int C, int L, int S,
-                                const float* __restrict__ ro,
-                                const float* __restrict__ rd,
-                                const float* __restrict__ t_max, int R,
-                                float* __restrict__ out_t,
-                                int* __restrict__ out_tri,
-                                float* __restrict__ out_u,
-                                float* __restrict__ out_v) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R) return;
-  const tt::Ray r = tt::make_ray(ro + 3 * i, rd + 3 * i);
-  const uint32_t oct = (r.d[0] < 0.0f ? 1u : 0u) | (r.d[1] < 0.0f ? 2u : 0u) |
-                       (r.d[2] < 0.0f ? 4u : 0u);
-  float t = t_max[i], u = 0.0f, v = 0.0f;
-  int tri = -1;
-  if (!(t > 1e-4f)) {
-    // no triangle can pass th > 1e-4 && th < t: the result is a miss
-    // (the dead lanes of the integrator, t_max = 0), so skip the walk
-    out_t[i] = t;
-    out_tri[i] = tri;
-    out_u[i] = u;
-    out_v[i] = v;
-    return;
-  }
+template <int K, bool kAnyHit>
+__global__ void __launch_bounds__(kBlock)
+traverse_kernel(const uint32_t* __restrict__ table, int C, int L, int S,
+                const float* __restrict__ ro, const float* __restrict__ rd,
+                const float* __restrict__ t_max, int R,
+                int* __restrict__ next_ray, float* __restrict__ out_t,
+                int* __restrict__ out_tri, float* __restrict__ out_u,
+                float* __restrict__ out_v) {
+  constexpr int W = 10 * K;
+  constexpr int V = K % 2 == 0 ? 4 : 2;   // words per row load
+  extern __shared__ uint2 stack_mem[];
+  uint2* const stk = stack_mem + threadIdx.x;   // entry e: stk[e * kBlock]
+  const int lane = threadIdx.x & 31;
 
-  uint32_t hits, chim, bleaf;
-  tt::decode_row(table, 1, r, t, hits, chim, bleaf);   // enter the root
+  int ray = -1;              // this lane's ray, -1 while idle
+  bool pool_open = true;     // the same on every lane of the warp
+  bool root = false;         // the ray's root row is still to decode
+  tt::Ray r;
+  uint32_t oct = 0u, hits = 0u, chim = 0u, bleaf = 0u;
+  float t = 0.0f, u = 0.0f, v = 0.0f;
+  int tri = -1, head = 0, sp = 0, it = 0;
 
-  uint32_t st_h[kMaxStack], st_c[kMaxStack], st_b[kMaxStack];
-  for (int k = 0; k < S; ++k) st_h[k] = st_c[k] = st_b[k] = 0u;
-  int head = 0, sp = 0;
-
-  for (int it = 0; it < kIterCap && (hits != 0u || sp > 0); ++it) {
-    if (hits == 0u) {           // pop; the vacated slot becomes the bottom
-      hits = st_h[head];
-      chim = st_c[head];
-      bleaf = st_b[head];
-      st_h[head] = st_c[head] = st_b[head] = 0u;
-      head = head + 1 == S ? 0 : head + 1;
-      --sp;
-      if (hits == 0u) continue;
+  while (true) {
+    // refill the idle lanes with the next rays of the pool
+    const uint32_t idle = __ballot_sync(kAll, ray < 0);
+    if (pool_open && (idle == kAll || __popc(idle) >= kRefillMin)) {
+      const int n = __popc(idle);
+      int base = 0;
+      if (lane == 0) base = atomicAdd(next_ray, n);
+      base = __shfl_sync(kAll, base, 0);
+      if (base + n >= R) pool_open = false;
+      if (ray < 0) {
+        const int i = base + __popc(idle & ((1u << lane) - 1u));
+        if (i < R) {
+          t = t_max[i];
+          tri = -1;
+          u = v = 0.0f;
+          if (t > 1e-4f) {
+            r = tt::make_ray(ro + 3 * i, rd + 3 * i);
+            oct = (r.d[0] < 0.0f ? 1u : 0u) | (r.d[1] < 0.0f ? 2u : 0u) |
+                  (r.d[2] < 0.0f ? 4u : 0u);
+            ray = i;
+            root = true;
+            head = sp = it = 0;
+          } else {
+            // no triangle can pass th > 1e-4 && th < t: a miss, with no
+            // walk (the dead lanes of the integrator, t_max = 0)
+            out_t[i] = t;
+            out_tri[i] = -1;
+            out_u[i] = 0.0f;
+            out_v[i] = 0.0f;
+          }
+        }
+      }
     }
-    const uint32_t leaf_bits = hits & 0xFFu;
-    if (leaf_bits != 0u) {
+    const uint32_t busy = __ballot_sync(kAll, ray >= 0);
+    if (busy == 0u) {
+      if (!pool_open) break;
+      continue;
+    }
+
+    // one body per trip: the one more of the warp's lanes want next (a
+    // leaf row while a lane's group has leaf bits, else a node row: a
+    // pop, the root); the other lanes wait for the next trip
+    const bool want_leaf = ray >= 0 && !root && (hits & 0xFFu) != 0u;
+    const uint32_t leaf_mask = __ballot_sync(kAll, want_leaf);
+    const bool run_leaf = __popc(leaf_mask) > __popc(busy & ~leaf_mask);
+    if (ray < 0 || want_leaf != run_leaf) continue;
+
+    // one iteration of cwbvh_wavefront._step for this lane's ray
+    if (want_leaf) {           // the group's next leaf slot
+      ++it;
+      const uint32_t leaf_bits = hits & 0xFFu;
       const uint32_t lsb = leaf_bits & (~leaf_bits + 1u);
       const int lrank = __popc((bleaf >> 24) & (lsb - 1u));
-      int lrow = (int)(bleaf & 0x00FFFFFFu) + lrank;
-      lrow = min(max(lrow, 0), L - 1);
-      tt::moller_row(table + (size_t)(C + lrow) * W, 1, K, r, true,
-                     !kAnyHit, t, tri, u, v);
+      const int row =
+          C + min(max((int)(bleaf & 0x00FFFFFFu) + lrank, 0), L - 1);
       hits &= ~lsb;
-    } else {
-      const uint32_t node_bits = hits >> 24;
-      int slot;
-      uint32_t node_rest;
-      if (kAnyHit) {
-        const uint32_t lsb_n = node_bits & (~node_bits + 1u);
-        slot = __popc(lsb_n - 1u);
-        node_rest = node_bits & ~lsb_n;
+      tt::test_leaf<K, V>(table + (size_t)row * W, r, !kAnyHit, t, tri, u,
+                          v);
+    } else {                   // the root, or the next node slot
+      bool work = true;
+      int row = 0;             // the root's row unless set below
+      uint32_t rest = 0u;      // node slots to push
+      if (root) {
+        root = false;          // entering the root is no iteration
       } else {
-        const uint32_t pm = xor_permute8(node_bits, oct);
-        const uint32_t lsb = pm & (~pm + 1u);
-        slot = (__popc(lsb - 1u) ^ (int)oct) & 7;
-        node_rest = node_bits & ~(1u << slot);
+        ++it;
+        if (hits == 0u) {      // pop; the vacated slot becomes the bottom
+          const uint2 e = stk[head * kBlock];
+          stk[head * kBlock] = make_uint2(0u, 0u);
+          head = head + 1 == S ? 0 : head + 1;
+          --sp;
+          hits = e.y << 24;
+          chim = e.x;
+          work = hits != 0u;
+        }
+        if (work) {
+          const uint32_t node_bits = hits >> 24;
+          int slot;
+          if (kAnyHit) {
+            const uint32_t lsb_n = node_bits & (~node_bits + 1u);
+            slot = __popc(lsb_n - 1u);
+            rest = node_bits & ~lsb_n;
+          } else {
+            const uint32_t pm = xor_permute8(node_bits, oct);
+            const uint32_t lsb = pm & (~pm + 1u);
+            slot = (__popc(lsb - 1u) ^ (int)oct) & 7;
+            rest = node_bits & ~(1u << slot);
+          }
+          const uint32_t below = (chim >> 24) & ((1u << slot) - 1u);
+          row = min(max((int)(chim & 0x00FFFFFFu) + __popc(below), 0),
+                    C - 1);
+        }
       }
-      const uint32_t below = (chim >> 24) & ((1u << slot) - 1u);
-      int child = (int)(chim & 0x00FFFFFFu) + __popc(below);
-      child = min(max(child, 0), C - 1);
-      uint32_t c_hits, c_chim, c_bleaf;
-      tt::decode_row(table + (size_t)child * W, 1, r, t, c_hits, c_chim,
-                     c_bleaf);
-      if (node_rest != 0u) {    // push; a full stack drops its deepest entry
-        head = head == 0 ? S - 1 : head - 1;
-        st_h[head] = node_rest << 24;
-        st_c[head] = chim;
-        st_b[head] = bleaf;
-        ++sp;
+      if (work) {
+        uint32_t c_hits, c_chim, c_bleaf;
+        tt::decode_node<V>(table + (size_t)row * W, r, t, c_hits, c_chim,
+                           c_bleaf);
+        if (rest != 0u) {      // push; a full ring drops its deepest entry
+          head = head == 0 ? S - 1 : head - 1;
+          stk[head * kBlock] = make_uint2(chim, rest);
+          ++sp;
+        }
+        hits = c_hits;
+        chim = c_chim;
+        bleaf = c_bleaf;
       }
-      hits = c_hits;
-      chim = c_chim;
-      bleaf = c_bleaf;
     }
     if (kAnyHit && tri >= 0) {
       hits = 0u;
       sp = 0;
     }
+    if ((hits == 0u && sp == 0) || it >= kIterCap) {
+      out_t[ray] = t;
+      out_tri[ray] = tri;
+      out_u[ray] = u;
+      out_v[ray] = v;
+      ray = -1;
+    }
   }
-  out_t[i] = t;
-  out_tri[i] = tri;
-  out_u[i] = u;
-  out_v[i] = v;
 }
+
+size_t stack_bytes(int S) { return (size_t)S * kBlock * sizeof(uint2); }
+
+// Resident blocks per SM of one instantiation at S stack entries,
+// memoised per (instantiation, S); 0 when the query fails.
+template <int K, bool kAnyHit>
+int blocks_per_sm(int S) {
+  static int memo[kMaxStack + 1] = {0};
+  if (memo[S] == 0) {
+    const size_t smem = stack_bytes(S);
+    if (smem > 48 * 1024 &&
+        cudaFuncSetAttribute(traverse_kernel<K, kAnyHit>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem) != cudaSuccess)
+      return 0;
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, traverse_kernel<K, kAnyHit>, kBlock, smem) != cudaSuccess)
+      return 0;
+    memo[S] = n;
+  }
+  return memo[S];
+}
+
+template <int K, bool kAnyHit>
+int launch(const uint32_t* table, int C, int L, int S, const float* ro,
+           const float* rd, const float* tm, int R, int* next_ray,
+           float* out_t, int* out_tri, float* out_u, float* out_v,
+           cudaStream_t s) {
+  const int per_sm = blocks_per_sm<K, kAnyHit>(S);
+  if (per_sm < 1) {
+    const cudaError_t e = cudaGetLastError();
+    return (int)(e != cudaSuccess ? e : cudaErrorInvalidConfiguration);
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int grid = std::min((R + kBlock - 1) / kBlock, per_sm * sms);
+  traverse_kernel<K, kAnyHit><<<grid, kBlock, stack_bytes(S), s>>>(
+      table, C, L, S, ro, rd, tm, R, next_ray, out_t, out_tri, out_u, out_v);
+  return (int)cudaGetLastError();
+}
+
+// The leaf widths with a compiled kernel; keep cwbvh_wavefront.CUDA_LEAF_K
+// in step.
+#define TT_FOR_EACH_K(X) X(3) X(4) X(5) X(6) X(8) X(12)
 
 }  // namespace
 
-extern "C" int tt_traverse(const void* table, int W, int K, int C, int L,
-                           int S, const void* ro, const void* rd,
-                           const void* t_max, int R, int any_hit, void* out_t,
+extern "C" int tt_traverse(const void* table, int W, int C, int L, int S,
+                           const void* ro, const void* rd, const void* t_max,
+                           int R, int any_hit, void* next_ray, void* out_t,
                            void* out_tri, void* out_u, void* out_v,
                            void* stream) {
   if (S < 1 || S > kMaxStack) return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaSuccess;
-  const int block = 128;
-  const int grid = (R + block - 1) / block;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t* tb = static_cast<const uint32_t*>(table);
   const float* o = static_cast<const float*>(ro);
   const float* d = static_cast<const float*>(rd);
   const float* tm = static_cast<const float*>(t_max);
-  if (any_hit) {
-    traverse_kernel<true><<<grid, block, 0, s>>>(
-        tb, W, K, C, L, S, o, d, tm, R, static_cast<float*>(out_t),
-        static_cast<int*>(out_tri), static_cast<float*>(out_u),
-        static_cast<float*>(out_v));
-  } else {
-    traverse_kernel<false><<<grid, block, 0, s>>>(
-        tb, W, K, C, L, S, o, d, tm, R, static_cast<float*>(out_t),
-        static_cast<int*>(out_tri), static_cast<float*>(out_u),
-        static_cast<float*>(out_v));
+  int* nr = static_cast<int*>(next_ray);
+  float* ot = static_cast<float*>(out_t);
+  int* oi = static_cast<int*>(out_tri);
+  float* ou = static_cast<float*>(out_u);
+  float* ov = static_cast<float*>(out_v);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TT_CASE(k)                                                        \
+  case 10 * k:                                                            \
+    return any_hit ? launch<k, true>(tb, C, L, S, o, d, tm, R, nr, ot, oi, \
+                                     ou, ov, s)                           \
+                   : launch<k, false>(tb, C, L, S, o, d, tm, R, nr, ot, oi, \
+                                      ou, ov, s);
+  switch (W) {
+    TT_FOR_EACH_K(TT_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+#undef TT_CASE
+}
+
+// Dynamic shared memory of a launch with S stack entries, in bytes (-1
+// for an S tt_traverse refuses).
+extern "C" int tt_traverse_smem(int S) {
+  if (S < 1 || S > kMaxStack) return -1;
+  return (int)stack_bytes(S);
 }

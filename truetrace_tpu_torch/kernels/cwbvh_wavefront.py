@@ -10,13 +10,15 @@ conservative-bf16 bounds, and `pack_table` stacks both into one
 Two implementations of one traversal:
 
 * `closest_hit_wavefront` / `any_hit_wavefront` launch the CUDA kernel
-  `csrc/traverse.cu` (one thread per ray, private stack) on CUDA tensors;
-  on CPU tensors they run the plain version. Each counts its launches in
-  its `launches` attribute.
+  `csrc/traverse.cu` (persistent warps pulling rays from a counter, one
+  ray per lane at a time, whole-row vector loads, an 8-byte stack entry
+  in shared memory) on CUDA tensors; on CPU tensors they run the plain
+  version. Each counts its launches in its `launches` attribute.
 * `closest_hit_plain` / `any_hit_plain`: plain PyTorch, a Python loop of
   lock-step iterations over all lanes with active masks, mirroring
   `cwbvh_wavefront._step` op for op (the JAX shift-register stack
-  included). It is the CPU path and the kernel's reference on the card.
+  included). It is the CPU path and the kernel's reference on the card,
+  and can count each ray's work.
 
 Both round every operation as the JAX package does on the CPU (see
 core/math.py `fma`), so t is bitwise equal across the three.
@@ -34,7 +36,8 @@ M32 = 0xFFFFFFFF
 PTR_MASK = 0x00FFFFFF   # low 24 bits of chim/bleaf hold the base index
 LEAF_MASK = 0xFF        # hits bits 0..7 = pending leaf slots
 ITER_CAP = 65536        # as the JAX package's _ITER_CAP
-MAX_STACK_CUDA = 32     # private stack entries per thread in traverse.cu
+MAX_STACK_CUDA = 32     # ring entries per lane in traverse.cu
+CUDA_LEAF_K = (3, 4, 5, 6, 8, 12)   # leaf widths traverse.cu is built for
 
 
 def pack_leaf_rows(nodes: np.ndarray, slot_tri_base: np.ndarray,
@@ -277,9 +280,16 @@ def _extract_slot(mask, oct_key):
 
 
 def _traverse_plain(table, n_nodes, ro, rd, t_max, any_hit: bool,
-                    max_stack: int) -> Hit:
+                    max_stack: int, counts: dict | None = None) -> Hit:
     """Lock-step traversal of every lane until all are done (the JAX
-    package's single-stage `_traverse`)."""
+    package's single-stage `_traverse`).
+
+    counts: if a dict, it receives each ray's work as the kernel does it
+    ([R] int64): "node_decodes" (the root's and one per descent),
+    "leaf_rows", "tri_tests" (non-padding triangles of those rows), and
+    "rows_touched", the number of distinct table rows read. A ray with
+    t_max <= 1e-4 can accept no triangle, so the kernel does not walk it
+    and it counts nothing."""
     R = ro.shape[0]
     C = n_nodes
     L = table.shape[0] - C
@@ -300,6 +310,14 @@ def _traverse_plain(table, n_nodes, ro, rd, t_max, any_hit: bool,
     pc = torch.zeros_like(ph)
     pb = torch.zeros_like(ph)
     sp = torch.zeros((R,), dtype=torch.int64, device=dev)
+    if counts is not None:
+        live = t > 1e-4
+        n_node = live.long()
+        n_leaf = torch.zeros_like(n_node)
+        n_tri = torch.zeros_like(n_node)
+        touched = torch.zeros((table.shape[0],), dtype=torch.bool,
+                              device=dev)
+        touched[0] = bool(live.any())
 
     for _ in range(ITER_CAP):
         if not bool(((hits != 0) | (sp > 0)).any()):
@@ -332,6 +350,12 @@ def _traverse_plain(table, n_nodes, ro, rd, t_max, any_hit: bool,
         row_idx = torch.where(leaf_lane, C + lrow,
                               torch.where(descend, child, 0))
         ucol, fcol, icol = _row_cols(table[row_idx])
+        if counts is not None:     # the kernel walks live rays only
+            n_node += (live & descend).long()
+            n_leaf += (live & leaf_lane).long()
+            for j in range(K):
+                n_tri += (live & leaf_lane & (icol(9 * K + j) >= 0)).long()
+            touched[row_idx[live & active]] = True
         t, tri, u_b, v_b = _moller(fcol, icol, K, ro, rd, leaf_lane,
                                    not any_hit, t, tri, u_b, v_b)
         c_hits, c_chim, c_bleaf = _decode(ucol, ro, inv, t)
@@ -352,17 +376,23 @@ def _traverse_plain(table, n_nodes, ro, rd, t_max, any_hit: bool,
             found = tri >= 0
             hits = torch.where(found, 0, hits)
             sp = torch.where(found, 0, sp)
+    if counts is not None:
+        counts.update(node_decodes=n_node, leaf_rows=n_leaf, tri_tests=n_tri,
+                      rows_touched=int(touched.sum()))
     return Hit(t=t, tri=tri.to(torch.int32), u=u_b, v=v_b)
 
 
-def closest_hit_plain(table, n_nodes, ro, rd, t_max, max_stack: int) -> Hit:
-    return _traverse_plain(table, n_nodes, ro, rd, t_max, False, max_stack)
+def closest_hit_plain(table, n_nodes, ro, rd, t_max, max_stack: int,
+                      counts: dict | None = None) -> Hit:
+    return _traverse_plain(table, n_nodes, ro, rd, t_max, False, max_stack,
+                           counts)
 
 
-def any_hit_plain(table, n_nodes, ro, rd, t_max, max_stack: int):
+def any_hit_plain(table, n_nodes, ro, rd, t_max, max_stack: int,
+                  counts: dict | None = None):
     """Occlusion: bool [R], True = blocked before t_max."""
-    return _traverse_plain(table, n_nodes, ro, rd, t_max, True,
-                           max_stack).tri >= 0
+    return _traverse_plain(table, n_nodes, ro, rd, t_max, True, max_stack,
+                           counts).tri >= 0
 
 
 # ---------------------------------------------------------------------------
@@ -371,7 +401,8 @@ def any_hit_plain(table, n_nodes, ro, rd, t_max, max_stack: int):
 
 def _launch(table, n_nodes, ro, rd, t_max, any_hit: bool,
             max_stack: int) -> Hit:
-    """Check the arguments, allocate the outputs, launch traverse.cu."""
+    """Check the arguments, allocate the outputs and the ray counter the
+    warps pull from, launch traverse.cu."""
     dev = ro.device
     R = ro.shape[0]
     for name, x, dt in (("table", table, torch.int32),
@@ -386,6 +417,17 @@ def _launch(table, n_nodes, ro, rd, t_max, any_hit: bool,
     if W % 10 or W < 30 or not 0 < n_nodes < N or N >= (1 << 31) // W:
         raise ValueError(f"bad table {tuple(table.shape)} for "
                          f"{n_nodes} nodes")
+    K = W // 10
+    if K not in CUDA_LEAF_K:
+        raise ValueError(f"traverse.cu is built for leaf rows of K in "
+                         f"{CUDA_LEAF_K}, not K = {K}")
+    # rows are read 16 bytes at a time when 10K words is a multiple of 4
+    # (K even), else 8 bytes at a time
+    align = 16 if W % 4 == 0 else 8
+    if table.data_ptr() % align:
+        raise ValueError(f"table: rows of K = {K} are read {align} bytes "
+                         f"at a time, so its data must be {align}-byte "
+                         f"aligned")
     if not 1 <= max_stack <= MAX_STACK_CUDA:
         raise ValueError(f"max_stack {max_stack} outside 1..{MAX_STACK_CUDA}")
     tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
@@ -394,11 +436,12 @@ def _launch(table, n_nodes, ro, rd, t_max, any_hit: bool,
     tri = torch.empty((R,), dtype=torch.int32, device=dev)
     u = torch.empty((R,), dtype=torch.float32, device=dev)
     v = torch.empty((R,), dtype=torch.float32, device=dev)
+    next_ray = torch.zeros((1,), dtype=torch.int32, device=dev)
     err = _cuda.lib("traverse.cu").tt_traverse(
-        table.data_ptr(), W, W // 10, n_nodes, N - n_nodes, max_stack,
+        table.data_ptr(), W, n_nodes, N - n_nodes, max_stack,
         ro.data_ptr(), rd.data_ptr(), tm.data_ptr(), R, int(any_hit),
-        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-        _cuda.stream_ptr(ro))
+        next_ray.data_ptr(), t.data_ptr(), tri.data_ptr(), u.data_ptr(),
+        v.data_ptr(), _cuda.stream_ptr(ro))
     _cuda.check(err, "tt_traverse")
     return Hit(t=t, tri=tri, u=u, v=v)
 

@@ -54,9 +54,10 @@ def _box(lo, hi, rot_y_deg=0.0, center=None):
     return corners, faces
 
 
-def make(light_radiance: float = 15.0,
+def make(light_radiance: float = 15.0, device="cuda",
          ) -> Tuple[List[HostMesh], List[HostMaterial], Camera]:
-    """Build the Cornell box. Returns (meshes, materials, camera)."""
+    """Build the Cornell box; the camera lives on `device`. Returns
+    (meshes, materials, camera)."""
     mats = [
         HostMaterial(base_color=WHITE, roughness=1.0),
         HostMaterial(base_color=RED, roughness=1.0),
@@ -107,5 +108,5 @@ def make(light_radiance: float = 15.0,
     # classic Cornell camera: 800 units back from the open face (scaled)
     cam = Camera.look_at(eye=(s * 0.5, s * 0.5, -0.8),
                          target=(s * 0.5, s * 0.5, 0.0),
-                         fov_y_deg=39.0)
+                         fov_y_deg=39.0, device=device)
     return [mesh], mats, cam

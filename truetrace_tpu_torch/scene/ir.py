@@ -295,7 +295,7 @@ class Camera:
 
     @staticmethod
     def look_at(eye, target, up=(0.0, 1.0, 0.0), fov_y_deg=40.0,
-                aperture=0.0, focus_dist=1.0, device="cpu") -> "Camera":
+                aperture=0.0, focus_dist=1.0, device="cuda") -> "Camera":
         eye = np.asarray(eye, np.float32)
         fwd = np.asarray(target, np.float32) - eye
         fwd /= np.linalg.norm(fwd)

@@ -214,8 +214,9 @@ def compile_scene(meshes: List[HostMesh], mats: List[HostMaterial],
                   with_light_bvh: bool = False, terrain=None,
                   presplit: float = 0.0, leaf_k: Optional[int] = None,
                   cache_dir: Optional[str] = None, hot_order: bool = False,
-                  device="cpu") -> Scene:
-    """Build the render-ready single-BLAS Scene on `device`.
+                  device="cuda") -> Scene:
+    """Build the render-ready single-BLAS Scene on `device` (the card
+    unless the caller asks for the CPU).
 
     leaf_k: triangles per CWBVH leaf row (any K; rows are 10K words).
     None picks the JAX package's rule (6 up to 400k triangles, else 12),
