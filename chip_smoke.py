@@ -6,10 +6,13 @@
 Phases, each of which raises on a failed check:
 
 1. the card's name and power limit; build every CUDA kernel of the port
-   from `truetrace_tpu_torch/kernels/csrc/` (one nvcc per source);
+   from `truetrace_tpu_torch/kernels/csrc/` (one nvcc per source, each
+   with its own flags);
 2. every kernel against its plain PyTorch version on the same inputs, at
-   the main path's shapes: the a-trous pass at 512x512 for steps 1-16,
-   the traversal step core at R = 65536 (K = 3 rows of the atrium), and
+   the main path's shapes: the a-trous pass at 512x512 for steps 1-16
+   and the packed five-pass route against five plain passes, timed per
+   step on the device alone (no host launch gaps); the traversal step
+   core at R = 65536 (K = 3 rows of the atrium); and
    closest / any hit on the 293k-triangle atrium at K = 6 and K = 3 with
    bench.py's ray mix (primary, cosine-bounce and shadow rays) at the
    frame's 262144 rays per class, and Mrays/s at that count and at
@@ -20,15 +23,18 @@ Phases, each of which raises on a failed check:
 3. the main path: `Renderer.step` on the atrium, 512x512, 4 bounces,
    Disney BSDF, light-tree NEE and SVGF; 1 warm-up and 4 timed frames,
    with every kernel's launch count read around exactly that run, then
-   one more frame under torch.profiler (device time by kernel, and the
-   device's busy share of the frame);
+   one more frame under torch.profiler (device time by kernel, the
+   traversal's and the a-trous kernel's, and the device's busy share of
+   the frame); then the a-trous kernel against the plain pass again, on
+   the inputs svgf_denoise hands its first pass in one more frame;
 4. correctness of the output: a Cornell box rendered on the card agrees
    with the same render on the CPU, and passes the physics checks of
    scripts/verify_drive.py at 256x256.
 
 It prints the card line, one JSON line of kernel results (time, plain
 time, bound and what sets it, launches per frame, ptxas registers,
-spills and shared memory, and for the traversal the work per ray), and
+spills and shared memory, for the traversal the work per ray, for
+a-trous the time at each step and of packing), and
 as its last line {"ok": true, "device": {...}}. It exits non-zero, with
 no result line, when there is no CUDA card or the port's package is
 missing.
@@ -53,8 +59,9 @@ ATRIUM_DETAIL = 1.5
 BENCH_RAYS = 1 << 17
 FRAME = dict(width=512, height=512, bounces=4, bsdf="disney",
              traversal="wavefront", light_sampling="tree", denoiser="svgf")
-# a-trous kernel vs plain: same arithmetic, but expf/powf on the card and
-# torch's exp/pow differ in the last ulps, which the normalised sums carry
+# a-trous kernel vs plain: the card's exp2 and seven squarings round
+# differently from torch's exp and pow in the last ulps, which the
+# normalised sums carry
 ATROUS_RTOL, ATROUS_ATOL = 1e-4, 1e-5
 FRAMES = 5              # phase 3 renders 1 warm-up + 4 timed frames
 
@@ -67,8 +74,9 @@ PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 OPS_NODE = 216   # cwbvh_core decode_row: 8 slots x (3 axes x 8 + 3)
 OPS_TRI = 53     # cwbvh_core tri_test: 6 msub/dot3 (27), 3 scalings,
                  # 3 subs, rcp + floor, 8 compares and sums
-OPS_ATROUS_PX = 740   # atrous.cu per pixel: 24 weighted taps x 29,
+OPS_ATROUS_PX = 740   # the plain pass per pixel: 24 weighted taps x 29,
                       # centre tap, prefilter, sigmas, normalisation
+ATROUS_STEPS = (1, 2, 4, 8, 16)   # svgf_denoise's five passes
 
 
 def log(*a):
@@ -117,45 +125,153 @@ def card_line() -> str:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def phase_atrous(results):
+def device_ms(fn, reps: int = 50) -> float:
+    """Mean device milliseconds of fn() over `reps` back-to-back calls,
+    free of the host's launch gaps: a device sleep holds the stream while
+    the host queues every call, and the events bracket only the calls.
+    The sleep grows until it outlasts the host's queueing."""
     import torch
-    from truetrace_tpu_torch.kernels.atrous_pallas import (
-        atrous_pass, atrous_pass_plain)
-    r = np.random.default_rng(7)
-    H = W = 512
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    while True:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / reps
+        check(cycles < 1 << 32, f"device_ms: queueing {reps} calls took "
+              f"{host_ms:.1f} ms")
+        cycles *= 4
+
+
+def atrous_inputs(H: int, W: int, seed: int = 7):
+    """Random colour, variance, unit normals and depths on the card."""
+    import torch
+    r = np.random.default_rng(seed)
     n = r.normal(size=(H, W, 3)).astype(np.float32)
     n /= np.linalg.norm(n, axis=-1, keepdims=True)
-    dev = DEVICE
-    color = torch.from_numpy(r.uniform(0, 3, (H, W, 3)).astype(
-        np.float32)).to(dev)
-    var = torch.from_numpy(r.uniform(0, 0.5, (H, W)).astype(
-        np.float32)).to(dev)
-    normal = torch.from_numpy(n).to(dev)
-    depth = torch.from_numpy(r.uniform(0.5, 10, (H, W)).astype(
-        np.float32)).to(dev)
-    err, ms, plain_ms = 0.0, [], []
-    for step in (1, 2, 4, 8, 16):
+    return tuple(torch.from_numpy(a).to(DEVICE) for a in (
+        r.uniform(0, 3, (H, W, 3)).astype(np.float32),
+        r.uniform(0, 0.5, (H, W)).astype(np.float32), n,
+        r.uniform(0.5, 10, (H, W)).astype(np.float32)))
+
+
+def atrous_close(a, b, what: str) -> float:
+    """Holds a against b to ATROUS_RTOL / ATROUS_ATOL; max |a - b|."""
+    d = (a - b).abs()
+    e = float(d.max())
+    check(bool((d <= ATROUS_ATOL + ATROUS_RTOL * b.abs()).all()),
+          f"{what}: max |diff| {e}")
+    return e
+
+
+def hold_atrous(label: str, color, var, normal, depth) -> float:
+    """The kernel against the plain pass at every step, and the packed
+    five-pass route (atrous_filter) against five plain passes, on the
+    same inputs; logs the share of pixels each pass moves by more than
+    1e-3 from their own colour (a pass that moves none checks no edge
+    weight). Returns the largest |diff|."""
+    import torch
+    from truetrace_tpu_torch.kernels.atrous_pallas import (
+        atrous_filter, atrous_pass, atrous_pass_plain)
+    H, W = depth.shape
+    err, moved = 0.0, []
+    for step in ATROUS_STEPS:
         c1, v1 = atrous_pass(color, var, normal, depth, step)
         c2, v2 = atrous_pass_plain(color, var, normal, depth, step)
         torch.cuda.synchronize()
-        for a, b in ((c1, c2), (v1, v2)):
-            d = (a - b).abs()
-            e = float(d.max())
-            check(bool((d <= ATROUS_ATOL + ATROUS_RTOL * b.abs()).all()),
-                  f"atrous_pass step {step}: max |diff| {e}")
-            err = max(err, e)
-        k = cuda_ms(lambda: atrous_pass(color, var, normal, depth, step), 20)
-        p = cuda_ms(lambda: atrous_pass_plain(color, var, normal, depth,
-                                              step), 3)
-        ms.append(k)
-        plain_ms.append(p)
-        log(f"atrous_pass 512x512 step {step}: kernel {k:.4f} ms, "
-            f"plain {p:.4f} ms, max |diff| {err:.3g}")
+        err = max(err, atrous_close(c1, c2, f"{label} step {step} colour"),
+                  atrous_close(v1, v2, f"{label} step {step} variance"))
+        moved.append(float(((c2 - color).abs().amax(-1) > 1e-3).float()
+                           .mean()))
+    pc, pv = color, var
+    for i, step in enumerate(ATROUS_STEPS):
+        pc, pv = atrous_pass_plain(pc, pv, normal, depth, step)
+        ph = pc if i == 0 else ph
+    fh, fc, fv = atrous_filter(color, var, normal, depth, len(ATROUS_STEPS))
+    for a, b, what in ((fh, ph, "first colour"), (fc, pc, "colour"),
+                       (fv, pv, "variance")):
+        err = max(err, atrous_close(a, b, f"{label} five passes, {what}"))
+    log(f"atrous {label} {H}x{W}: kernel within rtol {ATROUS_RTOL} / atol "
+        f"{ATROUS_ATOL} of plain at steps {ATROUS_STEPS} and over the "
+        f"five-pass route, max |diff| {err:.3g}; pixels moved > 1e-3 by "
+        f"each pass: {[round(m, 4) for m in moved]}")
+    return err
+
+
+def phase_atrous(results):
+    """The a-trous kernel on random inputs of the frame's size: held
+    against the plain pass, then timed per step (device time, no host
+    gaps), with the frame's packing and its whole five-pass route."""
+    from truetrace_tpu_torch.kernels.atrous_pallas import (
+        atrous_filter, atrous_pass_packed, atrous_pass_plain, pack)
+    H, W = FRAME["height"], FRAME["width"]
+    color, var, normal, depth = atrous_inputs(H, W)
+    err = hold_atrous("random", color, var, normal, depth)
+    cv, nz = pack(color, var), pack(normal, depth)
+    ms, plain_ms = {}, {}
+    for step in ATROUS_STEPS:
+        ms[step] = device_ms(lambda: atrous_pass_packed(cv, nz, step))
+        plain_ms[step] = cuda_ms(lambda: atrous_pass_plain(
+            color, var, normal, depth, step), 3)
+        log(f"atrous {H}x{W} step {step}: kernel {ms[step]:.5f} ms, plain "
+            f"{plain_ms[step]:.4f} ms")
+    pack_ms = device_ms(lambda: (pack(normal, depth), pack(color, var)))
+    filter_ms = device_ms(lambda: atrous_filter(color, var, normal, depth,
+                                                len(ATROUS_STEPS)))
+    log(f"atrous {H}x{W}: packing a frame's planes {pack_ms:.5f} ms; the "
+        f"five-pass route (packing, 5 passes, unpacked views) "
+        f"{filter_ms:.5f} ms")
     # in: colour, variance, normal, depth; out: colour, variance
     results["atrous_pass"] = dict(
-        max_abs_err=err, ms=sum(ms) / len(ms),
-        plain_ms=sum(plain_ms) / len(plain_ms),
+        max_abs_err=err, ms=sum(ms.values()) / len(ms),
+        plain_ms=sum(plain_ms.values()) / len(plain_ms),
+        ms_by_step={str(k): v for k, v in ms.items()},
+        plain_ms_by_step={str(k): v for k, v in plain_ms.items()},
+        pack_ms=pack_ms, filter_ms=filter_ms,
         **bound(OPS_ATROUS_PX * H * W, (8 + 4) * 4 * H * W))
+
+
+def phase_atrous_frame(results, r, state):
+    """The kernel against the plain pass on the atrium frame's own a-trous
+    inputs: the colour, variance, normal and depth that svgf_denoise hands
+    its first pass in one more frame (sky pixels with zero normal and
+    depth, zero-variance pixels included)."""
+    import torch
+    from truetrace_tpu_torch.kernels import atrous_pallas
+    seen = []
+    orig = atrous_pallas.atrous_filter
+
+    def grab(*args):
+        seen.append(args)
+        return orig(*args)
+
+    atrous_pallas.atrous_filter = grab
+    try:
+        r.step(state)
+    finally:
+        atrous_pallas.atrous_filter = orig
+    color, var, normal, depth, _ = seen[0]
+    for name, x in (("colour", color), ("variance", var),
+                    ("normal", normal), ("depth", depth)):
+        check(bool(torch.isfinite(x).all()), f"frame a-trous {name} not "
+              f"finite")
+    sky = float((depth == 0).float().mean())
+    flat = float((var == 0).float().mean())
+    log(f"frame a-trous inputs: {sky:.4f} of pixels sky (depth 0), "
+        f"{flat:.4f} zero variance, depth up to {float(depth.max()):.1f}")
+    err = hold_atrous("atrium frame", color, var, normal, depth)
+    res = results["atrous_pass"]
+    res["frame_max_abs_err"] = err
+    res["max_abs_err"] = max(res["max_abs_err"], err)
 
 
 def bench_rays(scene, cam, R):
@@ -378,7 +494,7 @@ def launch_counters():
     return {"closest_hit_wavefront": cwbvh_wavefront.closest_hit_wavefront,
             "any_hit_wavefront": cwbvh_wavefront.any_hit_wavefront,
             "step_core": step_pallas.step_core,
-            "atrous_pass": atrous_pallas.atrous_pass}
+            "atrous_pass": atrous_pallas.atrous_pass_packed}
 
 
 def phase_frame(results, scene, cam):
@@ -443,13 +559,15 @@ def phase_profile(r, state):
                and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in kernels) / 1e3
     n = sum(e.count for e in kernels)
-    trav = sum(dev_us(e) for e in kernels if "traverse_kernel" in e.key) / 1e3
+    of = lambda name: sum(dev_us(e) for e in kernels if name in e.key) / 1e3
+    trav, atr = of("traverse_kernel"), of("atrous_")
     log(f"profiled frame: wall {wall * 1e3:.1f} ms, {n} kernels, device "
         f"busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of wall), "
-        f"traversal {trav:.3f} ms ({100 * trav / busy:.1f}% of busy)")
+        f"traversal {trav:.3f} ms ({100 * trav / busy:.1f}% of busy), "
+        f"a-trous {atr:.3f} ms ({100 * atr / busy:.2f}% of busy)")
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
         log(f"  {dev_us(e) / 1e3:8.3f} ms  {e.count:6d}x  {e.key[:100]}")
-    return dict(kernels=n, busy_ms=busy, traversal_ms=trav)
+    return dict(kernels=n, busy_ms=busy, traversal_ms=trav, atrous_ms=atr)
 
 
 # ---------------------------------------------------------------------------
@@ -523,23 +641,25 @@ KERNELS = (
     ("step_core", "truetrace_tpu_torch/kernels/csrc/step_core.cu",
      "truetrace_tpu/kernels/step_pallas.py:120", "step_core_kernel"),
     ("atrous_pass", "truetrace_tpu_torch/kernels/csrc/atrous.cu",
-     "truetrace_tpu/kernels/atrous_pallas.py:110", "atrous_kernel"),
+     "truetrace_tpu/kernels/atrous_pallas.py:110",
+     "atrous_staged|atrous_direct"),
 )
 
 
 def ptxas_of(src: str, want: str) -> dict:
     """What ptxas reported in this run's build for the kernels of `src`
     named `want` ("traverse_kernel<6,0>" is one instantiation,
-    "atrous_kernel" every one): {name<template args>: registers, spills,
-    stack frame, static shared memory}."""
+    "atrous_staged|atrous_direct" every instantiation of both kernels):
+    {name<template args>: registers, spills, stack frame, static shared
+    memory}."""
     from truetrace_tpu_torch.kernels import _cuda
     base = want.split("<")[0]
     out = {}
     for mangled, info in _cuda.ptxas_report(os.path.basename(src)).items():
-        m = re.search(base + r"(I(?:L[a-z]\d+E)+E)?", mangled)
+        m = re.search(rf"({base})(I(?:L[a-z]\d+E)+E)?", mangled)
         if m:
-            args = re.findall(r"L[a-z](\d+)E", m.group(1) or "")
-            name = base + (f"<{','.join(args)}>" if args else "")
+            args = re.findall(r"L[a-z](\d+)E", m.group(2) or "")
+            name = m.group(1) + (f"<{','.join(args)}>" if args else "")
             if name == want or "<" not in want:
                 out[name] = info
     return out
@@ -569,8 +689,9 @@ def main() -> int:
     from truetrace_tpu_torch.kernels import _cuda
     t0 = time.perf_counter()
     _cuda.build_all()
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {' '.join(_cuda.NVCC_FLAGS[:3])})")
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    for src, flags in _cuda.NVCC_FLAGS.items():
+        log(f"  nvcc {src}: {' '.join(flags)}")
     ptxas = {name: ptxas_of(src, want) for name, src, _, want in KERNELS}
     for name, rep in ptxas.items():
         check(bool(rep), f"no ptxas report for {name}'s kernels")
@@ -601,6 +722,7 @@ def main() -> int:
     del scenes[3]
     launches, renderer, state = phase_frame(results, scenes[6], cam)
     results["profile"] = phase_profile(renderer, state)
+    phase_atrous_frame(results, renderer, state)
     del renderer, state
     phase_cornell()
 
@@ -612,7 +734,13 @@ def main() -> int:
         f"(median {results['frame']['median_ms']:.1f}); device busy "
         f"{results['profile']['busy_ms']:.1f} ms in "
         f"{results['profile']['kernels']} kernels, traversal "
-        f"{results['profile']['traversal_ms']:.3f} ms of it")
+        f"{results['profile']['traversal_ms']:.3f} ms and a-trous "
+        f"{results['profile']['atrous_ms']:.3f} ms of it")
+    a = results["atrous_pass"]
+    log("a-trous kernel ms by step: " + ", ".join(
+        f"{k}: {v:.5f}" for k, v in a["ms_by_step"].items())
+        + f"; mean {a['ms']:.5f} = {a['bound_ms'] / a['ms']:.3f} of the "
+        f"bound; packing {a['pack_ms']:.5f} ms a frame")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     # library_ms: no single PyTorch call computes any of these functions
@@ -626,8 +754,9 @@ def main() -> int:
             bound_ms=res["bound_ms"], bound_by=res["bound_by"],
             library_ms=None, launches_per_frame=launches[name] / FRAMES,
             share_of_bound=res["bound_ms"] / res["ms"],
-            ptxas=ptxas[name], **({"work": res["work"]} if "work" in res
-                                  else {}))
+            ptxas=ptxas[name], **{k: res[k] for k in (
+                "work", "ms_by_step", "plain_ms_by_step", "pack_ms",
+                "filter_ms", "frame_max_abs_err") if k in res})
     smem = _cuda.lib("traverse.cu").tt_traverse_smem(scenes[6].cw_stack)
     for name in ("closest_hit_wavefront", "any_hit_wavefront"):
         # the ring stack's dynamic shared memory, as the launch sizes it

@@ -1,11 +1,13 @@
 """Torch port, the CUDA kernels against their plain PyTorch twins on the
 card, at small sizes and on the edges the main path does not reach:
-frame sizes that are no multiple of the 16x16 tile, a-trous steps wider
-than the frame, every compiled leaf width (K = 3, 4, 5, 6, 8, 12; rows
-of 3 and 5 are no multiple of 16 bytes), a stack so shallow that pushes
-drop entries, dead lanes, ray counts that leave warps part empty or
-outnumber the resident lanes, back-to-back launches (the ray counter
-starts anew), and the wrappers' argument checks.
+frame sizes that are no multiple of the a-trous tiles, a-trous steps that
+do not divide the frame or are wider than it, every a-trous path, a
+frame's kind of G-buffer (sky, zero variance, far depths), every compiled
+leaf width (K = 3, 4, 5, 6, 8, 12; rows of 3 and 5 are no multiple of 16
+bytes), a stack so shallow that pushes drop entries, dead lanes, ray
+counts that leave warps part empty or outnumber the resident lanes,
+back-to-back launches (the ray counter starts anew), and the wrappers'
+argument checks.
 
 Needs an NVIDIA card and nvcc; skips elsewhere. It imports no JAX, so it
 runs on a machine without it (the JAX-side conftest is skipped):
@@ -16,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from truetrace_tpu_torch.kernels import atrous_pallas, cwbvh_wavefront as wf
+from truetrace_tpu_torch.kernels import _cuda, atrous_pallas
+from truetrace_tpu_torch.kernels import cwbvh_wavefront as wf
 from truetrace_tpu_torch.kernels import step_pallas
 from truetrace_tpu_torch.scene import atrium
 from truetrace_tpu_torch.scene.mesh import compile_scene
@@ -36,24 +39,74 @@ def _unit(r, n):
     return v / np.linalg.norm(v, axis=-1, keepdims=True)
 
 
+def _atrous_args(dev, h, w, inputs, seed):
+    """Colour, variance, normal and depth for the a-trous kernel: random
+    unit normals, or a frame's kind of G-buffer ("frame": normals that
+    mostly face one way, a patch of zero variance, depths of 1e4 and
+    above, and sky rows with zero normal and depth)."""
+    r = np.random.default_rng(seed)
+    color = r.uniform(0, 3, (h, w, 3)).astype(np.float32)
+    var = r.uniform(0, 0.5, (h, w)).astype(np.float32)
+    depth = r.uniform(0.5, 10, (h, w)).astype(np.float32)
+    if inputs == "random":
+        normal = _unit(r, h * w).reshape(h, w, 3)
+    else:
+        normal = r.normal(size=(h, w, 3)).astype(np.float32)
+        normal[..., 2] = np.abs(normal[..., 2]) + 2.0
+        normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+        var[: h // 2, : w // 3] = 0.0
+        depth[h // 2:, w // 2:] = r.uniform(1e4, 1e6, (h - h // 2,
+                                                     w - w // 2))
+        normal[-2:], depth[-2:] = 0.0, 0.0
+    return [torch.from_numpy(a).to(dev) for a in (color, var, normal, depth)]
+
+
+@pytest.mark.parametrize("inputs", ["random", "frame"])
 @pytest.mark.parametrize("h,w,step", [(37, 53, 1), (37, 53, 4), (37, 53, 8),
-                                      (24, 40, 16), (24, 40, 32), (5, 7, 2)])
-def test_atrous_kernel_matches_plain(dev, h, w, step):
-    """rtol 1e-4 / atol 1e-5: expf/powf on the card and torch's exp/pow
-    may differ in the last ulp, which the normalised sums carry."""
-    r = np.random.default_rng(h * w + step)
-    args = [torch.from_numpy(a).to(dev) for a in (
-        r.uniform(0, 3, (h, w, 3)).astype(np.float32),
-        r.uniform(0, 0.5, (h, w)).astype(np.float32),
-        _unit(r, h * w).reshape(h, w, 3),
-        r.uniform(0.5, 10, (h, w)).astype(np.float32))]
-    n0 = atrous_pallas.atrous_pass.launches
-    kc, kv = atrous_pallas.atrous_pass(*args, step)
+                                      (24, 40, 16), (24, 40, 32), (5, 7, 2),
+                                      (64, 96, 1), (64, 96, 2), (64, 96, 4),
+                                      (64, 96, 8), (64, 96, 16)])
+def test_atrous_kernel_matches_plain(dev, h, w, step, inputs):
+    """Both paths of the kernel against the plain pass, rtol 1e-4 /
+    atol 1e-5: the card's exp2 and seven squarings round differently from
+    torch's exp and pow in the last ulps, which the normalised sums carry.
+    The wrapper's launch, then each path on its own: the direct one (in
+    32x8 and 128x2 blocks) at every shape, the staged one wherever step
+    divides H and W (64x96 at every step)."""
+    args = _atrous_args(dev, h, w, inputs, h * w + step)
+    n0 = atrous_pallas.atrous_pass_packed.launches
+    outs = [atrous_pallas.atrous_pass(*args, step)]
+    assert atrous_pallas.atrous_pass_packed.launches == n0 + 1
+    cv, nz = atrous_pallas.pack(*args[:2]), atrous_pallas.pack(*args[2:])
+    staged_ok = _cuda.lib("atrous.cu").tt_atrous_staged_ok(h, w, step)
+    assert staged_ok == (h == 64 or step == 1)
+    paths = [atrous_pallas.DIRECT, atrous_pallas.DIRECT_WIDE]
+    for path in paths + [atrous_pallas.STAGED] * staged_ok:
+        outs.append(atrous_pallas.unpack(atrous_pallas._launch(cv, nz, step,
+                                                               path)))
     pc, pv = atrous_pallas.atrous_pass_plain(*args, step)
     torch.cuda.synchronize()
-    assert atrous_pallas.atrous_pass.launches == n0 + 1
-    torch.testing.assert_close(kc, pc, rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(kv, pv, rtol=1e-4, atol=1e-5)
+    for c, v in outs:
+        torch.testing.assert_close(c, pc, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(v, pv, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("h,w", [(64, 96), (37, 53)])
+def test_atrous_filter_matches_five_plain_passes(dev, h, w):
+    """The packed five-pass route svgf_denoise takes (steps 1-16, planes
+    packed once) against five plain passes: the first pass's colour, and
+    the last pass's colour and variance."""
+    args = _atrous_args(dev, h, w, "frame", 5)
+    n0 = atrous_pallas.atrous_pass_packed.launches
+    fh, fc, fv = atrous_pallas.atrous_filter(*args, 5)
+    pc, pv = args[:2]
+    for i in range(5):
+        pc, pv = atrous_pallas.atrous_pass_plain(pc, pv, *args[2:], 1 << i)
+        ph = pc if i == 0 else ph
+    torch.cuda.synchronize()
+    assert atrous_pallas.atrous_pass_packed.launches == n0 + 5
+    for a, b in ((fh, ph), (fc, pc), (fv, pv)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
 
 @pytest.fixture(scope="module")
@@ -169,6 +222,13 @@ def test_wrappers_reject_bad_arguments(scenes, dev):
         atrous_pallas.atrous_pass(torch.zeros((8, 8, 3), device=dev), x,
                                   torch.zeros((8, 8, 3), device=dev),
                                   x.double(), 1)
+    # packed planes: not contiguous, not 16-byte aligned
+    cv = torch.zeros((8, 8, 4), device=dev)
+    with pytest.raises(ValueError):
+        atrous_pallas.atrous_pass_packed(cv, cv.transpose(0, 1), 1)
+    shifted = torch.zeros(8 * 8 * 4 + 1, device=dev)[1:].view(8, 8, 4)
+    with pytest.raises(ValueError, match="aligned"):
+        atrous_pallas.atrous_pass_packed(shifted, cv, 1)
 
 
 @pytest.mark.parametrize("R", [1, 33, 262145])

@@ -14,6 +14,8 @@ from truetrace_tpu.scene import atrium as jatrium
 from truetrace_tpu.scene import cornell as jcornell
 from truetrace_tpu.scene.mesh import compile_scene as jcompile
 from truetrace_tpu_torch.kernels import cwbvh_wavefront as twf
+from truetrace_tpu_torch.post import pipeline as tpipe
+from truetrace_tpu_torch.post import svgf as tsvgf
 from truetrace_tpu_torch.scene import atrium as tatrium
 from truetrace_tpu_torch.scene import cornell as tcornell
 from truetrace_tpu_torch.scene import ir as tir
@@ -157,9 +159,13 @@ def test_unported_build_options_raise(opt):
 
 
 @pytest.mark.parametrize("fn", [tcompile, tir.Camera.look_at, tatrium.make,
-                                tcornell.make],
+                                tcornell.make, tsvgf.SVGFState.create,
+                                tpipe.Accumulator.create,
+                                tir.EnvMap.constant, tir.AnalyticLights.none],
                          ids=["compile_scene", "Camera.look_at",
-                              "atrium.make", "cornell.make"])
+                              "atrium.make", "cornell.make",
+                              "SVGFState.create", "Accumulator.create",
+                              "EnvMap.constant", "AnalyticLights.none"])
 def test_entry_points_default_to_the_card(fn):
     """The port's scene entry points build on the card unless the caller
     asks for the CPU (every CPU test passes device="cpu")."""

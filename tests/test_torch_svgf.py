@@ -71,7 +71,7 @@ def test_svgf_two_frames(emissive):
     em = np.zeros((H, W, 3), np.float32)
     em[3:6, 4:9] = 5.0
     js = jsvgf.SVGFState.create(H, W)
-    ts = tsvgf.SVGFState.create(H, W)
+    ts = tsvgf.SVGFState.create(H, W, device="cpu")
     for g in (g1, g2):
         kw_j = dict(emissive=jnp.asarray(em)) if emissive else {}
         kw_t = dict(emissive=_t(em)) if emissive else {}
@@ -120,7 +120,8 @@ def test_post_chain_matches():
         np.testing.assert_allclose(np.asarray(jh), th.numpy(), **tol)
     ja = jpipe.Accumulator.create(H, W).add(jnp.asarray(img)).add(
         jnp.asarray(hist))
-    ta = tpipe.Accumulator.create(H, W).add(_t(img)).add(_t(hist))
+    ta = tpipe.Accumulator.create(H, W, device="cpu").add(_t(img)).add(
+        _t(hist))
     np.testing.assert_allclose(np.asarray(ja.image), ta.image.numpy(), **tol)
     assert float(ta.count) == float(ja.count) == 2.0
 

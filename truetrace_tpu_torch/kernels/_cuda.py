@@ -3,13 +3,22 @@ ctypes).
 
 Each `csrc/*.cu` is compiled by its own nvcc process, all started
 together, into `truetrace_tpu_torch/_build/` (git-ignored) at first use,
-for sm_90a with `-O3 --fmad=false`. `--fmad=false` keeps every mul and
-add rounded on its own, so the kernels reproduce the plain PyTorch
-versions bit for bit; the few mul-adds that XLA contracts are written as
-explicit `__fmaf_rn` in the sources. The sources expose plain C entry
-points (no PyTorch headers, so a build takes seconds); every entry point
-launches on the stream it is given and returns `cudaGetLastError()`.
-Importing this module needs no nvcc.
+for sm_90a with `-O3` and the flags of its own (`NVCC_FLAGS[source]`):
+
+- `traverse.cu`, `step_core.cu`: `--fmad=false`. Their contract is
+  bitwise: every mul and add rounds on its own, as in the plain PyTorch
+  versions, and the few mul-adds that XLA contracts are written as
+  explicit `__fmaf_rn` in the sources.
+- `atrous.cu`: no `--fmad=false`. Its contract is a tolerance (rtol 1e-4,
+  atol 1e-5 against the plain pass), so nvcc contracts mul-adds; the few
+  roundings the tolerance cannot absorb are written `__fmul_rn` /
+  `__fadd_rn` in the source.
+
+A library's name carries a digest of its source, the shared header and
+its flags. The sources expose plain C entry points (no PyTorch headers,
+so a build takes seconds); every entry point launches on the stream it is
+given and returns `cudaGetLastError()`. Importing this module needs no
+nvcc.
 """
 from __future__ import annotations
 
@@ -25,11 +34,14 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("traverse.cu", "step_core.cu", "atrous.cu")
 HEADERS = ("cwbvh_core.cuh",)
-NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3",
-              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas=-v"]
+_BASE_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+BITWISE_FLAGS = _BASE_FLAGS + ["--fmad=false"]
+# source -> its nvcc flags (see the module docstring for why)
+NVCC_FLAGS = {"traverse.cu": BITWISE_FLAGS, "step_core.cu": BITWISE_FLAGS,
+              "atrous.cu": _BASE_FLAGS}
+SOURCES = tuple(NVCC_FLAGS)
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -48,7 +60,8 @@ _SIGNATURES = {
         "tt_step_core": [P, P, P, P, I, I, P],
     },
     "atrous.cu": {
-        "tt_atrous_pass": [P, P, P, P, P, P, I, I, I, P],
+        "tt_atrous_pass": [P, P, P, I, I, I, I, P],
+        "tt_atrous_staged_ok": [I, I, I],
     },
 }
 
@@ -63,28 +76,28 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _digest(src: str, csrc: str = CSRC) -> str:
+def _digest(src: str, csrc: str, flags: list) -> str:
     h = hashlib.sha256()
     for name in (src,) + HEADERS:
         with open(os.path.join(csrc, name), "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:12]
 
 
-def _so_path(src: str, csrc: str = CSRC) -> str:
+def _so_path(src: str, csrc: str, flags: list) -> str:
     stem = os.path.splitext(src)[0]
-    return os.path.join(BUILD_DIR, f"tt_{stem}_{_digest(src, csrc)}.so")
+    return os.path.join(BUILD_DIR, f"tt_{stem}_{_digest(src, csrc, flags)}.so")
 
 
-def _start(src: str, csrc: str = CSRC):
-    """Start nvcc on csrc/src unless its library is built; returns
-    (process, temporary output, library path) or None."""
-    so = _so_path(src, csrc)
+def _start(src: str, csrc: str, flags: list):
+    """Start nvcc on csrc/src with `flags` unless its library is built;
+    returns (process, temporary output, library path) or None."""
+    so = _so_path(src, csrc, flags)
     if os.path.exists(so):
         return None
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(csrc, src)]
+    cmd = [_nvcc(), *flags, "-o", tmp, os.path.join(csrc, src)]
     return (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT), tmp, so)
 
@@ -111,17 +124,19 @@ def _load(so: str) -> tuple:
     return ctypes.CDLL(so), log
 
 
-def build_file(csrc: str, src: str) -> tuple:
+def build_file(csrc: str, src: str, flags: list | None = None) -> tuple:
     """Build one source of another directory of kernel sources (an
-    earlier version of csrc/, to time against) with the same flags.
-    Returns (ctypes.CDLL, nvcc output); the caller sets its argtypes."""
+    earlier version of csrc/, to time against), with `flags` or else the
+    port's flags for a source of that name. Returns (ctypes.CDLL, nvcc
+    output); the caller sets its argtypes."""
+    flags = NVCC_FLAGS[src] if flags is None else flags
     os.makedirs(BUILD_DIR, exist_ok=True)
-    job = _start(src, csrc)
+    job = _start(src, csrc, flags)
     if job is not None:
         err = _finish(src, job)
         if err:
             raise RuntimeError(err)
-    return _load(_so_path(src, csrc))
+    return _load(_so_path(src, csrc, flags))
 
 
 def build_all() -> dict:
@@ -134,13 +149,14 @@ def build_all() -> dict:
             return _libs
         os.makedirs(BUILD_DIR, exist_ok=True)
         t0 = time.perf_counter()
-        jobs = {src: _start(src) for src in SOURCES}
+        jobs = {src: _start(src, CSRC, NVCC_FLAGS[src]) for src in SOURCES}
         errors = [_finish(src, job) for src, job in jobs.items()
                   if job is not None]
         if any(errors):
             raise RuntimeError("\n".join(e for e in errors if e))
         for src in SOURCES:
-            lib, build_log[src] = _load(_so_path(src))
+            lib, build_log[src] = _load(_so_path(src, CSRC,
+                                                  NVCC_FLAGS[src]))
             for fn, argtypes in _SIGNATURES[src].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int

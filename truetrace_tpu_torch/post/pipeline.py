@@ -51,7 +51,7 @@ class Accumulator:
     count: torch.Tensor   # [] float32 samples so far
 
     @staticmethod
-    def create(h: int, w: int, device="cpu") -> "Accumulator":
+    def create(h: int, w: int, device="cuda") -> "Accumulator":
         return Accumulator(image=torch.zeros((h, w, 3), device=device),
                            count=torch.zeros((), device=device))
 

@@ -2,7 +2,8 @@
 
 Port of `truetrace_tpu/post/svgf.py`. State is an explicit dataclass
 threaded through frames. The a-trous passes run the Hopper kernel on
-CUDA tensors at every frame size (kernels/atrous_pallas.py).
+CUDA tensors at every frame size, on planes packed once a frame
+(kernels/atrous_pallas.atrous_filter).
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ class SVGFState:
     depth: torch.Tensor      # [H,W]
 
     @staticmethod
-    def create(h: int, w: int, device="cpu") -> "SVGFState":
+    def create(h: int, w: int, device="cuda") -> "SVGFState":
         z = lambda *s: torch.zeros((h, w) + s, device=device)
         return SVGFState(color=z(3), moments=z(2), hist_len=z(),
                          normal=z(3), depth=z())
@@ -107,7 +108,7 @@ def svgf_denoise(noisy, albedo, normal, depth, state: SVGFState,
 
     motion: [H,W,2] pixel offsets (None = static); emissive: noise-free
     directly visible radiance, passed through unfiltered."""
-    from truetrace_tpu_torch.kernels.atrous_pallas import atrous_pass
+    from truetrace_tpu_torch.kernels.atrous_pallas import atrous_filter
     if emissive is not None:
         noisy = torch.clamp(noisy - emissive, min=0.0)
     # demodulate albedo (floor 0.05, the same floor as the re-modulation)
@@ -175,14 +176,8 @@ def svgf_denoise(noisy, albedo, normal, depth, state: SVGFState,
     var = torch.where(hist_len >= 4.0, var_t, var_sp)
 
     # ---- a-trous iterations; the first filtered result feeds the history
-    color_f = color_t.contiguous()
-    var = var.contiguous()
-    normal_c, depth_c = normal.contiguous(), depth.contiguous()
-    new_hist_color = color_t
-    for i in range(n_atrous):
-        color_f, var = atrous_pass(color_f, var, normal_c, depth_c, 1 << i)
-        if i == 0:
-            new_hist_color = color_f
+    new_hist_color, color_f, _ = atrous_filter(color_t, var, normal, depth,
+                                               n_atrous)
 
     out = color_f * torch.clamp(albedo, min=0.05)
     if emissive is not None:

@@ -47,8 +47,8 @@ def materials() -> List[HostMaterial]:
 
 def make(detail: float = 1.0, device="cuda",
          ) -> Tuple[List[HostMesh], List[HostMaterial], Camera, EnvMap]:
-    """Build the atrium; the camera lives on `device`. Returns (meshes,
-    materials, camera, env)."""
+    """Build the atrium; the camera and env live on `device`. Returns
+    (meshes, materials, camera, env)."""
     d = detail
     rs = np.random.default_rng(42)
     verts_list, idx_list, mat_list = [], [], []
@@ -158,5 +158,5 @@ def make(detail: float = 1.0, device="cuda",
     cam = Camera.look_at(eye=(-HALL_L / 2 + 2.0, 2.0, 0.0),
                          target=(HALL_L / 2, 4.5, 0.0), fov_y_deg=55.0,
                          device=device)
-    env = EnvMap.constant((0.4, 0.55, 0.8))   # sky through the open ends
+    env = EnvMap.constant((0.4, 0.55, 0.8), device)   # sky, open ends
     return [mesh], materials(), cam, env

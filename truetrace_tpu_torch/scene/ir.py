@@ -144,7 +144,7 @@ class AnalyticLights:
     z_rot: Optional[torch.Tensor] = None
 
     @staticmethod
-    def none(device="cpu") -> "AnalyticLights":
+    def none(device="cuda") -> "AnalyticLights":
         z3 = torch.zeros((0, 3), device=device)
         z2 = torch.zeros((0, 2), device=device)
         z1 = torch.zeros((0,), device=device)
@@ -169,7 +169,7 @@ class EnvMap:
     intensity: torch.Tensor
 
     @staticmethod
-    def constant(rgb=(0.0, 0.0, 0.0), device="cpu") -> "EnvMap":
+    def constant(rgb=(0.0, 0.0, 0.0), device="cuda") -> "EnvMap":
         f = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
         img = f(np.asarray(rgb, np.float32)).reshape(1, 1, 3)
         return EnvMap(image=img, cdf_x=f(np.ones((1, 1), np.float32)),
