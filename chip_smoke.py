@@ -27,14 +27,27 @@ Phases, each of which raises on a failed check:
    traversal's and the a-trous kernel's, and the device's busy share of
    the frame); then the a-trous kernel against the plain pass again, on
    the inputs svgf_denoise hands its first pass in one more frame;
-4. correctness of the output: a Cornell box rendered on the card agrees
+4. the sponza_like path (bench.py's headline scene): export it at detail
+   5 (269,260 triangles) into a temporary directory, load the OBJ, MTL and
+   PNG files with the port's loader (no Pillow), build it at K = 6 with the
+   texture atlas and the textured sky; bench.py's ray mix at its 131072
+   rays per class, every ray held bitwise against the plain traversal and
+   timed; `Renderer.step` at 512x512x4 with SVGF as in phase 3 (counts
+   set to 0 just before, read just after), its profile, and the a-trous
+   kernel on its own inputs (sky rows at zero normal); the golden
+   ladder's unbiasedness check (NEE + MIS against BSDF-only: at 3
+   bounces between BSDF-only at 3 and 4, at 6 converged means within
+   rtol 0.06 / atol 5e-3); one sample at 32x24 on the card against the
+   CPU;
+5. correctness of the output: a Cornell box rendered on the card agrees
    with the same render on the CPU, and passes the physics checks of
    scripts/verify_drive.py at 256x256.
 
 It prints the card line, one JSON line of kernel results (time, plain
 time, bound and what sets it, launches per frame, ptxas registers,
 spills and shared memory, for the traversal the work per ray, for
-a-trous the time at each step and of packing), and
+a-trous the time at each step and of packing; under "sponza" each
+kernel's launches, time and bound on the sponza_like path), and
 as its last line {"ok": true, "device": {...}}. It exits non-zero, with
 no result line, when there is no CUDA card or the port's package is
 missing.
@@ -46,6 +59,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -63,7 +77,18 @@ FRAME = dict(width=512, height=512, bounces=4, bsdf="disney",
 # differently from torch's exp and pow in the last ulps, which the
 # normalised sums carry
 ATROUS_RTOL, ATROUS_ATOL = 1e-4, 1e-5
-FRAMES = 5              # phase 3 renders 1 warm-up + 4 timed frames
+FRAMES = 5              # each frame phase: 1 warm-up + 4 timed frames
+SPONZA_DETAIL = 5.0     # bench.py's BENCH_DETAIL: 269,260 triangles
+SPONZA_TRIS = 269260
+# the golden ladder's soft wide sun (tests/test_golden.py), under which
+# the BSDF-only estimator converges at BSDF_SPP; its tolerance
+GOLDEN_SKY = dict(sun_dir=(0.3, 0.85, 0.44), sun_intensity=25.0,
+                  sun_angle_deg=18.0)
+NEE_SPP, BSDF_SPP = 1024, 16384
+NEE_RTOL, NEE_ATOL = 0.06, 5e-3
+# the bracket check at 3 bounces allows each end this many standard
+# errors of the difference of the two means (Monte Carlo noise only)
+NEE_SIGMAS = 4.0
 
 # Bounds: the least time the card could take for a kernel's work, the
 # larger of its f32 operations over the H100 SXM's 67 TFLOP/s outside the
@@ -240,11 +265,11 @@ def phase_atrous(results):
         **bound(OPS_ATROUS_PX * H * W, (8 + 4) * 4 * H * W))
 
 
-def phase_atrous_frame(results, r, state):
-    """The kernel against the plain pass on the atrium frame's own a-trous
-    inputs: the colour, variance, normal and depth that svgf_denoise hands
-    its first pass in one more frame (sky pixels with zero normal and
-    depth, zero-variance pixels included)."""
+def phase_atrous_frame(results, r, state, label: str):
+    """The kernel against the plain pass on a frame's own a-trous inputs:
+    the colour, variance, normal and depth that svgf_denoise hands its
+    first pass in one more frame (sky pixels with zero normal and depth,
+    zero-variance pixels included). Returns the packed planes."""
     import torch
     from truetrace_tpu_torch.kernels import atrous_pallas
     seen = []
@@ -265,13 +290,17 @@ def phase_atrous_frame(results, r, state):
         check(bool(torch.isfinite(x).all()), f"frame a-trous {name} not "
               f"finite")
     sky = float((depth == 0).float().mean())
+    zero_n = float((normal == 0).all(-1).float().mean())
     flat = float((var == 0).float().mean())
-    log(f"frame a-trous inputs: {sky:.4f} of pixels sky (depth 0), "
-        f"{flat:.4f} zero variance, depth up to {float(depth.max()):.1f}")
-    err = hold_atrous("atrium frame", color, var, normal, depth)
+    log(f"{label} frame a-trous inputs: {sky:.4f} of pixels sky (depth 0), "
+        f"{zero_n:.4f} at zero normal, {flat:.4f} zero variance, depth up to "
+        f"{float(depth.max()):.1f}")
+    err = hold_atrous(f"{label} frame", color, var, normal, depth)
     res = results["atrous_pass"]
-    res["frame_max_abs_err"] = err
+    res[f"{label}_frame_max_abs_err"] = err
+    res[f"{label}_frame_zero_normal_share"] = zero_n
     res["max_abs_err"] = max(res["max_abs_err"], err)
+    return color, var, normal, depth
 
 
 def bench_rays(scene, cam, R):
@@ -332,88 +361,117 @@ def traversal_work(counts: dict, R: int, W: int) -> dict:
                         4 * W * counts["rows_touched"] + 44 * R))
 
 
+def hold_closest(table, C, S, ro, rd, label: str):
+    """Closest hit: kernel against the plain traversal, bitwise in t, tri,
+    u and v; the plain run counts each ray's work. Returns (work, max
+    |t diff|, share of rays that hit)."""
+    from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
+        closest_hit_plain, closest_hit_wavefront)
+    R = ro.shape[0]
+    hk = closest_hit_wavefront(table, C, ro, rd, 1e30, S)
+    counts = {}
+    hp = closest_hit_plain(table, C, ro, rd, 1e30, S, counts)
+    for f in ("t", "tri", "u", "v"):
+        a, b = getattr(hk, f), getattr(hp, f)
+        check(torch_equal_bits(a, b), f"closest hit {label}: {f} differs on "
+              f"{int((a != b.to(a.dtype)).sum())} of {R} rays")
+    hit_share = float((hk.tri >= 0).float().mean())
+    work = traversal_work(counts, R, table.shape[1])
+    log(f"closest hit {label}: bitwise equal to plain (t, tri, u, v) on {R} "
+        f"rays; {hit_share:.3f} hit; {work_line(work)}")
+    return work, max_abs_diff(hk.t, hp.t), hit_share
+
+
+def hold_any(table, C, S, ro, rd, tm, label: str):
+    """Any hit: kernel occlusion equal to the plain traversal's. Returns
+    (work, max |diff|, share blocked)."""
+    import torch
+    from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
+        any_hit_plain, any_hit_wavefront)
+    R = ro.shape[0]
+    ok = any_hit_wavefront(table, C, ro, rd, tm, S)
+    counts = {}
+    op = any_hit_plain(table, C, ro, rd, tm, S, counts)
+    check(torch.equal(ok, op), f"any hit {label}: occlusion differs on "
+          f"{int((ok != op).sum())} of {R} rays")
+    blocked = float(ok.float().mean())
+    work = traversal_work(counts, R, table.shape[1])
+    log(f"any hit {label}: occlusion equal to plain on {R} rays; "
+        f"{blocked:.3f} blocked; {work_line(work)}")
+    return work, max_abs_diff(ok.float(), op.float()), blocked
+
+
+def time_mix(table, C, S, rays, n: int, label: str):
+    """Kernel ms per launch of each bench-mix class at n rays per class
+    (CUDA events over 20 launches) and the mix's Mrays/s."""
+    from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
+        any_hit_wavefront, closest_hit_wavefront)
+    ro_p, rd_p, ro_b, rd_b, tm_b = rays
+    t_cp = cuda_ms(lambda: closest_hit_wavefront(
+        table, C, ro_p[:n], rd_p[:n], 1e30, S), 20)
+    t_cb = cuda_ms(lambda: closest_hit_wavefront(
+        table, C, ro_b[:n], rd_b[:n], 1e30, S), 20)
+    t_an = cuda_ms(lambda: any_hit_wavefront(
+        table, C, ro_b[:n], rd_b[:n], tm_b[:n], S), 20)
+    mrays = 3 * n / ((t_cp + t_cb + t_an) * 1e-3) / 1e6
+    log(f"traversal {label} (bench mix, {n} rays per class): closest "
+        f"primary {t_cp:.4f} ms, closest bounce {t_cb:.4f} ms, any hit "
+        f"{t_an:.4f} ms -> {mrays:.2f} Mrays/s")
+    return dict(primary=t_cp, bounce=t_cb, shadow=t_an, mrays=mrays)
+
+
 def phase_traversal(results, scenes, cam):
     """Kernel against plain on the bench mix at the frame's lane count
     (512 x 512 rays per class, the shape Renderer.step hands the
     traversal); the plain run counts each ray's work, from which each
     class's bound follows; kernel times at that count and at bench.py's
     131072."""
-    import torch
     from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
-        any_hit_plain, any_hit_wavefront, closest_hit_plain,
-        closest_hit_wavefront)
+        any_hit_plain, closest_hit_plain)
     R = FRAME["width"] * FRAME["height"]
     for k, scene in scenes.items():
         table, C, S = scene.cw_table(), scene.cw_nodes.shape[0], \
             scene.cw_stack
-        W = table.shape[1]
-        ro_p, rd_p, ro_b, rd_b, tm_b = bench_rays(scene, cam, R)
+        rays = bench_rays(scene, cam, R)
+        ro_p, rd_p, ro_b, rd_b, tm_b = rays
         plain, err, work = {}, {}, {}
         for name, ro, rd in (("primary", ro_p, rd_p),
                              ("bounce", ro_b, rd_b)):
-            hk = closest_hit_wavefront(table, C, ro, rd, 1e30, S)
-            counts = {}
-            hp = closest_hit_plain(table, C, ro, rd, 1e30, S, counts)
-            for f in ("t", "tri", "u", "v"):
-                a, b = getattr(hk, f), getattr(hp, f)
-                check(torch_equal_bits(a, b),
-                      f"closest hit K={k} {name}: {f} differs on "
-                      f"{int((a != b.to(a.dtype)).sum())} of {R} rays")
-            err["closest"] = max(err.get("closest", 0.0),
-                                 max_abs_diff(hk.t, hp.t))
-            hit_share = float((hk.tri >= 0).float().mean())
+            work[name], e, hit_share = hold_closest(
+                table, C, S, ro, rd, f"K={k} {name}")
+            err["closest"] = max(err.get("closest", 0.0), e)
             check(hit_share > 0.5, f"closest hit K={k} {name}: only "
                   f"{hit_share:.3f} of rays hit")
-            work[name] = traversal_work(counts, R, W)
-            log(f"closest hit K={k} {name}: bitwise equal to plain "
-                f"(t, tri, u, v) on {R} rays; {hit_share:.3f} hit; "
-                f"{work_line(work[name])}")
             plain[name] = cuda_ms(lambda: closest_hit_plain(
                 table, C, ro, rd, 1e30, S), 1)
-        ok = any_hit_wavefront(table, C, ro_b, rd_b, tm_b, S)
-        counts = {}
-        op = any_hit_plain(table, C, ro_b, rd_b, tm_b, S, counts)
-        check(torch.equal(ok, op), f"any hit K={k}: occlusion differs on "
-              f"{int((ok != op).sum())} of {R} rays")
-        err["any"] = max_abs_diff(ok.float(), op.float())
-        work["shadow"] = traversal_work(counts, R, W)
-        log(f"any hit K={k} shadow: occlusion equal to plain on {R} rays; "
-            f"{float(ok.float().mean()):.3f} blocked; "
-            f"{work_line(work['shadow'])}")
+        work["shadow"], err["any"], _ = hold_any(table, C, S, ro_b, rd_b,
+                                                 tm_b, f"K={k} shadow")
         plain["any"] = cuda_ms(lambda: any_hit_plain(
             table, C, ro_b, rd_b, tm_b, S), 1)
 
         for n in (BENCH_RAYS, R):
-            t_cp = cuda_ms(lambda: closest_hit_wavefront(
-                table, C, ro_p[:n], rd_p[:n], 1e30, S), 20)
-            t_cb = cuda_ms(lambda: closest_hit_wavefront(
-                table, C, ro_b[:n], rd_b[:n], 1e30, S), 20)
-            t_an = cuda_ms(lambda: any_hit_wavefront(
-                table, C, ro_b[:n], rd_b[:n], tm_b[:n], S), 20)
-            mrays = 3 * n / ((t_cp + t_cb + t_an) * 1e-3) / 1e6
-            log(f"traversal K={k} (bench mix, {n} rays per class): closest "
-                f"primary {t_cp:.4f} ms, closest bounce {t_cb:.4f} ms, any "
-                f"hit {t_an:.4f} ms -> {mrays:.2f} Mrays/s")
-            results[f"traversal_k{k}_{n}"] = dict(mrays=mrays)
-        for name, t in (("primary", t_cp), ("bounce", t_cb),
-                        ("shadow", t_an)):
+            t = time_mix(table, C, S, rays, n, f"K={k}")
+            results[f"traversal_k{k}_{n}"] = dict(mrays=t["mrays"])
+        for name in ("primary", "bounce", "shadow"):
             w = work[name]
             log(f"traversal K={k} {name} at {R} rays: bound "
                 f"{w['bound_ms']:.4f} ms ({w['bound_by']}), kernel "
-                f"{t:.4f} ms = {w['bound_ms'] / t:.3f} of the bound")
+                f"{t[name]:.4f} ms = {w['bound_ms'] / t[name]:.3f} of the "
+                f"bound")
         log(f"traversal K={k} plain at {R} rays: closest primary "
             f"{plain['primary']:.1f} ms, closest bounce "
             f"{plain['bounce']:.1f} ms, any hit {plain['any']:.1f} ms")
         if k == 6:
             pb = [work["primary"], work["bounce"]]
             results["closest_hit_wavefront"] = dict(
-                max_abs_err=err["closest"], ms=(t_cp + t_cb) / 2,
+                max_abs_err=err["closest"],
+                ms=(t["primary"] + t["bounce"]) / 2,
                 plain_ms=(plain["primary"] + plain["bounce"]) / 2,
                 bound_ms=(pb[0]["bound_ms"] + pb[1]["bound_ms"]) / 2,
                 bound_by=max(pb, key=lambda b: b["bound_ms"])["bound_by"],
                 work={n: work[n] for n in ("primary", "bounce")})
             results["any_hit_wavefront"] = dict(
-                max_abs_err=err["any"], ms=t_an, plain_ms=plain["any"],
+                max_abs_err=err["any"], ms=t["shadow"], plain_ms=plain["any"],
                 bound_ms=work["shadow"]["bound_ms"],
                 bound_by=work["shadow"]["bound_by"],
                 work={"shadow": work["shadow"]})
@@ -497,7 +555,11 @@ def launch_counters():
             "atrous_pass": atrous_pallas.atrous_pass_packed}
 
 
-def phase_frame(results, scene, cam):
+def phase_frame(results, scene, cam, label: str):
+    """`Renderer.step` at FRAME: 1 warm-up and FRAMES - 1 timed frames,
+    with every kernel's launch count set to 0 just before and read just
+    after; the display must be finite and in [0, 1]. Results go under
+    `results[label]`."""
     import torch
     from truetrace_tpu_torch.renderer import Renderer, RendererConfig
     r = Renderer(scene, cam, RendererConfig(**FRAME))
@@ -527,15 +589,16 @@ def phase_frame(results, scene, cam):
     check(mean > 1e-3, f"radiance mean {mean}")
     ms = 1e3 * sum(times) / len(times)
     med = 1e3 * sorted(times)[len(times) // 2]
-    log(f"frame atrium {H}x{W}x{FRAME['bounces']} svgf: warm-up "
+    log(f"frame {label} {H}x{W}x{FRAME['bounces']} svgf: warm-up "
         f"{warm * 1e3:.1f} ms, frames {[round(t * 1e3, 1) for t in times]}"
         f" ms -> mean {ms:.1f} ms/frame, median {med:.1f}; radiance mean "
         f"{mean:.4f}")
-    log(f"launches over the {FRAMES} frames: {launches}")
+    log(f"launches over the {label} path's {FRAMES} frames: {launches}")
     for name in PATH_KERNELS:
-        check(launches[name] > 0, f"{name} never launched on the main path")
-    results["frame"] = dict(ms=ms, median_ms=med, warmup_ms=warm * 1e3,
-                            mean=mean)
+        check(launches[name] > 0, f"{name} never launched on the {label} "
+              f"path")
+    results[label] = dict(ms=ms, median_ms=med, warmup_ms=warm * 1e3,
+                          mean=mean)
     return launches, r, state
 
 
@@ -630,6 +693,258 @@ def phase_cornell():
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the sponza_like frame (textured, sky-lit, OBJ ingestion)
+# ---------------------------------------------------------------------------
+
+def phase_sponza_build(tmp: str):
+    """Export sponza_like at SPONZA_DETAIL into `tmp`, load it with the
+    port's OBJ/MTL/PNG loader and build it at K = 6 with the light BVH.
+    Returns (meshes, mats, atlas, rects, level_y, cam, env, scene)."""
+    import torch
+    from truetrace_tpu_torch.scene import sponza_like
+    from truetrace_tpu_torch.scene.mesh import compile_scene
+    t0 = time.perf_counter()
+    sponza_like.export(tmp, SPONZA_DETAIL)
+    t1 = time.perf_counter()
+    parts = sponza_like.make(SPONZA_DETAIL, assets_dir=tmp, device=DEVICE)
+    t2 = time.perf_counter()
+    meshes, mats, atlas, rects, level_y, cam, env = parts
+    scene = compile_scene(meshes, mats, env=env, atlas=atlas,
+                          atlas_rects=rects, atlas_level_y=level_y,
+                          with_cwbvh=True, with_light_bvh=True, device=DEVICE)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    k = scene.cw_leaf_rows.shape[1] // 10
+    files = sum(os.path.getsize(os.path.join(dp, f))
+                for dp, _, fs in os.walk(tmp) for f in fs)
+    log(f"sponza_like detail {SPONZA_DETAIL:g}: {scene.n_tris()} triangles, "
+        f"{scene.cw_nodes.shape[0]} nodes, {scene.cw_leaf_rows.shape[0]} "
+        f"leaf rows (K = {k}), stack {scene.cw_stack}, "
+        f"{scene.light_tris.tri_index.shape[0]} emissive triangles, "
+        f"{rects.shape[0]} textures, atlas {tuple(atlas.shape)} "
+        f"({atlas.nbytes / 2 ** 20:.1f} MiB, level_y {level_y.tolist()}), "
+        f"sky {tuple(env.image.shape)}; export {t1 - t0:.2f} s "
+        f"({files / 2 ** 20:.1f} MiB of files), load {t2 - t1:.2f} s, "
+        f"build {t3 - t2:.2f} s")
+    check(scene.n_tris() == SPONZA_TRIS, f"sponza_like has "
+          f"{scene.n_tris()} triangles, not {SPONZA_TRIS}")
+    check(k == 6, f"sponza_like built at K = {k}")
+    check(rects.shape[0] == 8 and scene.env.image.shape[0] > 1,
+          "sponza_like lost its textures or its sky")
+    return parts + (scene,)
+
+
+def phase_sponza_traversal(results, scene, cam):
+    """Kernel against plain on sponza_like's bench mix, at the frame's
+    lane count (512 x 512 rays per class, the shape Renderer.step hands
+    the traversal, with sponza's own stack) and at bench.py's R = 1 << 17
+    (its 1024 x 128 camera grid): every ray of both held bitwise; the
+    plain run counts the work that sets each class's bound. The kernel
+    row takes the frame's shape; Mrays/s at both."""
+    from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
+        any_hit_plain, closest_hit_plain)
+    R = FRAME["width"] * FRAME["height"]
+    table, C, S = scene.cw_table(), scene.cw_nodes.shape[0], scene.cw_stack
+    for n in (R, BENCH_RAYS):
+        rays = bench_rays(scene, cam, n)
+        ro_p, rd_p, ro_b, rd_b, tm_b = rays
+        work, err, plain = {}, {}, {}
+        for name, ro, rd in (("primary", ro_p, rd_p),
+                             ("bounce", ro_b, rd_b)):
+            work[name], e, hit_share = hold_closest(
+                table, C, S, ro, rd, f"sponza {name} ({n} rays)")
+            err["closest"] = max(err.get("closest", 0.0), e)
+            check(hit_share > 0.1, f"sponza {name}: only {hit_share:.3f} "
+                  f"of rays hit")
+            if n == R:
+                plain[name] = cuda_ms(lambda: closest_hit_plain(
+                    table, C, ro, rd, 1e30, S), 1)
+        work["shadow"], err["any"], _ = hold_any(
+            table, C, S, ro_b, rd_b, tm_b, f"sponza shadow ({n} rays)")
+        if n == R:
+            plain["shadow"] = cuda_ms(lambda: any_hit_plain(
+                table, C, ro_b, rd_b, tm_b, S), 1)
+        t = time_mix(table, C, S, rays, n, "sponza K=6")
+        for name in ("primary", "bounce", "shadow"):
+            w = work[name]
+            log(f"traversal sponza {name} at {n} rays: bound "
+                f"{w['bound_ms']:.4f} ms ({w['bound_by']}), kernel "
+                f"{t[name]:.4f} ms = {w['bound_ms'] / t[name]:.3f} of the "
+                f"bound" + (f"; plain {plain[name]:.1f} ms" if plain
+                            else ""))
+        key = "sponza_traversal" if n == R else "sponza_traversal_bench"
+        results[key] = dict(mix=t, work=work, err=err, plain=plain, rays=n)
+
+
+def phase_sponza_atrous(results, planes):
+    """The a-trous kernel timed per step on the sponza frame's own packed
+    planes (device time, no host gaps)."""
+    from truetrace_tpu_torch.kernels.atrous_pallas import (
+        atrous_pass_packed, atrous_pass_plain, pack)
+    color, var, normal, depth = planes
+    cv, nz = pack(color, var), pack(normal, depth)
+    ms = {st: device_ms(lambda: atrous_pass_packed(cv, nz, st))
+          for st in ATROUS_STEPS}
+    plain = {st: cuda_ms(lambda: atrous_pass_plain(color, var, normal,
+                                                   depth, st), 3)
+             for st in ATROUS_STEPS}
+    log("atrous sponza frame inputs, kernel ms by step: " + ", ".join(
+        f"{k}: {v:.5f}" for k, v in ms.items()))
+    res = results["atrous_pass"]
+    res["sponza"] = dict(ms=sum(ms.values()) / len(ms),
+                         plain_ms=sum(plain.values()) / len(plain),
+                         ms_by_step={str(k): v for k, v in ms.items()},
+                         max_abs_err=res["sponza_frame_max_abs_err"],
+                         zero_normal_share=res[
+                             "sponza_frame_zero_normal_share"])
+
+
+def phase_sponza_slots(results, state, scene, cam):
+    """The texture fetches the integrator skips: the sponza frame with
+    every TEX_SLOTS slot fetched, as the JAX block fetches them (a slot
+    no material sets selects the material's own value), gives the same
+    sample bit for bit at the frame's size, and one frame of it is
+    profiled beside the skipping frame's profile."""
+    import dataclasses
+    import torch
+    from truetrace_tpu_torch.integrate.pathtrace import (
+        RenderConfig, render_sample)
+    from truetrace_tpu_torch.renderer import Renderer, RendererConfig
+    from truetrace_tpu_torch.scene.ir import TEX_SLOTS
+    every = dataclasses.replace(scene, tex_slots=TEX_SLOTS)
+    cfg = RenderConfig(**{k: v for k, v in FRAME.items()
+                          if k != "denoiser"})
+    a = render_sample(scene, cam, cfg, 0)
+    b = render_sample(every, cam, cfg, 0)
+    check(torch_equal_bits(a, b), "sponza sample with every texture slot "
+          "fetched differs from the skipping one")
+    log(f"sponza texture slots some material sets: {scene.tex_slots}; "
+        f"with all {len(TEX_SLOTS)} fetched the {FRAME['width']}x"
+        f"{FRAME['height']} sample is bitwise the same; its frame:")
+    r = Renderer(every, cam, RendererConfig(**FRAME))
+    r.step(state)                                       # warm-up
+    torch.cuda.synchronize()
+    results["sponza_all_slots_profile"] = phase_profile(r, state)
+
+
+def render_mean(scene, cam, W: int, H: int, spp: int, **cfg):
+    """Mean RGB over a WxH image of `spp` samples per pixel, traced in
+    batches of 256 samples (sample ids are per-lane counters), and its
+    Monte Carlo standard error (from each pixel's sample variance); logs
+    the running mean at each power-of-two sample count (the convergence).
+    Returns (mean, standard error), each [3]."""
+    import torch
+    from truetrace_tpu_torch.integrate.pathtrace import (
+        RenderConfig, render_sample_with_stats)
+    c = RenderConfig(width=W, height=H, **cfg)
+    f64 = dict(dtype=torch.float64, device=scene.device)
+    s1 = torch.zeros((W * H, 3), **f64)
+    s2 = torch.zeros((W * H, 3), **f64)
+    seen = []
+    for s0 in range(0, spp, 256):
+        b = min(256, spp - s0)
+        pix = torch.arange(W * H, device=scene.device).repeat(b)
+        sid = torch.arange(s0, s0 + b, device=scene.device
+                           ).repeat_interleave(W * H)
+        rad, _ = render_sample_with_stats(scene, cam, c, pix, sid)
+        check(bool(torch.isfinite(rad).all()), "radiance not finite")
+        rad = rad.double().view(b, W * H, 3)
+        s1 += rad.sum(0)
+        s2 += (rad * rad).sum(0)
+        n = s0 + b
+        if n & (n - 1) == 0 or n == spp:
+            m = (s1.sum(0) / (W * H * n)).cpu().numpy()
+            seen.append(f"{n}: {np.round(m, 5)}")
+    var = (s2 - s1 * s1 / spp) / (spp - 1)
+    se = (var.sum(0) / spp).sqrt() / (W * H)
+    kind = "BSDF-only" if cfg.get("use_nee") is False else "NEE + MIS"
+    log(f"  {kind} running means by spp: " + ", ".join(seen)
+        + f"; standard error {np.round(se.cpu().numpy(), 6)}")
+    return (s1.sum(0) / (W * H * spp)).cpu().numpy(), se.cpu().numpy()
+
+
+def phase_sponza_unbiased(scene, cam):
+    """The golden ladder's check on the card (tests/test_golden.py): the
+    port's NEE + MIS (light tree over the lamps, env sampling over the
+    sky) against its BSDF-only render of the same sponza_like scene, under
+    the ladder's soft wide sun so that BSDF sampling converges.
+
+    The integrator does NEE at every vertex, the last one included, while
+    the BSDF-only estimator with the same bounce count never traces the
+    segment after the last vertex: NEE(B) holds the NEE-weighted share of
+    the light of paths with B + 1 segments on top of BSDF-only(B)
+    (scripts/torch_nee_ladder.py measures the ladder). So at the ladder's
+    3 bounces NEE(3) must lie between BSDF-only(3) and BSDF-only(4), and
+    at the renderer's default 6 bounces, where that share is below the
+    tolerance, the converged means agree within rtol 0.06 / atol 5e-3.
+    The bracket's ends move out by NEE_SIGMAS standard errors of the
+    difference of the means, and no more."""
+    import dataclasses
+    from truetrace_tpu_torch.build.env_cdf import (
+        build_env_cdf, procedural_sky)
+    soft = dataclasses.replace(scene, env=build_env_cdf(
+        procedural_sky(**GOLDEN_SKY), device=DEVICE))
+    W, H = 40, 30
+    kw = dict(bsdf="disney", traversal="wavefront", light_sampling="tree")
+    t0 = time.perf_counter()
+    m, se = {}, {}
+    for b, nee in ((3, True), (3, False), (4, False), (6, True),
+                   (6, False)):
+        m[b, nee], se[b, nee] = render_mean(
+            soft, cam, W, H, NEE_SPP if nee else BSDF_SPP, bounces=b,
+            use_nee=nee, **kw)
+    slack = lambda e: NEE_SIGMAS * np.hypot(se[3, True], e)
+    lo = m[3, False] - slack(se[3, False])
+    hi = m[4, False] + slack(se[4, False])
+    inside = bool(np.all(m[3, True] >= lo) and np.all(m[3, True] <= hi))
+    agree = np.allclose(m[6, True], m[6, False], rtol=NEE_RTOL,
+                        atol=NEE_ATOL)
+    rel = lambda a, b: float(np.max(np.abs(a - b) / b))
+    log(f"sponza {W}x{H}, NEE + MIS at {NEE_SPP} spp, BSDF-only at "
+        f"{BSDF_SPP} spp: B=3 NEE {np.round(m[3, True], 5)} within "
+        f"[BSDF-only(3) {np.round(m[3, False], 5)}, BSDF-only(4) "
+        f"{np.round(m[4, False], 5)}] widened by {NEE_SIGMAS:g} standard "
+        f"errors to [{np.round(lo, 5)}, {np.round(hi, 5)}]: {inside}; "
+        f"B=6 NEE {np.round(m[6, True], 5)} vs BSDF-only "
+        f"{np.round(m[6, False], 5)}: max rel diff "
+        f"{rel(m[6, True], m[6, False]):.4f} (rtol {NEE_RTOL}, atol "
+        f"{NEE_ATOL}); {time.perf_counter() - t0:.1f} s")
+    check(inside, "sponza NEE + MIS at 3 bounces outside [BSDF-only(3), "
+          "BSDF-only(4)]")
+    check(agree, "sponza NEE + MIS and BSDF-only renders disagree at 6 "
+          "bounces")
+
+
+def phase_sponza_card_vs_cpu(parts, scene, cam):
+    """One sample of a 32x24 sponza frame on the card and, from its own
+    build, on the CPU: the same counters, the same traversal; the card
+    only rounds transcendentals differently."""
+    import torch
+    from truetrace_tpu_torch.integrate.pathtrace import (
+        RenderConfig, render_sample)
+    from truetrace_tpu_torch.scene.mesh import compile_scene
+    meshes, mats, atlas, rects, level_y, _, env = parts
+    t0 = time.perf_counter()
+    sc_cpu = compile_scene(meshes, mats, env=env.to("cpu"), atlas=atlas,
+                           atlas_rects=rects, atlas_level_y=level_y,
+                           with_cwbvh=True, with_light_bvh=True,
+                           device="cpu")
+    small = RenderConfig(width=32, height=24, bounces=3, bsdf="disney",
+                         traversal="wavefront", light_sampling="tree")
+    a = render_sample(scene, cam, small, 0).cpu()
+    b = render_sample(sc_cpu, cam.to("cpu"), small, 0)
+    close = ((a - b).abs() <= 1e-3 + 1e-3 * b.abs()).all(-1)
+    share = float(close.float().mean())
+    rel = abs(float(a.mean()) - float(b.mean())) / float(b.mean())
+    log(f"sponza 32x24 card vs CPU: {share:.4f} of pixels within 1e-3, "
+        f"mean rel diff {rel:.2e}; {time.perf_counter() - t0:.1f} s with "
+        f"the CPU build")
+    check(bool(torch.isfinite(a).all()), "sponza card render not finite")
+    check(share >= 0.98 and rel < 1e-3, "sponza card and CPU renders "
+          "disagree")
+
+
+# ---------------------------------------------------------------------------
 
 # (name, source, TPU kernel replaced, the kernel instantiations of the
 # source whose ptxas report goes into the row)
@@ -720,22 +1035,49 @@ def main() -> int:
     phase_step_core(results, scenes[3], cam)
     phase_traversal(results, scenes, cam)
     del scenes[3]
-    launches, renderer, state = phase_frame(results, scenes[6], cam)
+    launches, renderer, state = phase_frame(results, scenes[6], cam,
+                                            "atrium")
     results["profile"] = phase_profile(renderer, state)
-    phase_atrous_frame(results, renderer, state)
+    phase_atrous_frame(results, renderer, state, "atrium")
+    smem = _cuda.lib("traverse.cu").tt_traverse_smem(scenes[6].cw_stack)
+    del renderer, state, scenes
+
+    with tempfile.TemporaryDirectory(prefix="sponza_like_") as tmp:
+        parts = phase_sponza_build(tmp)
+    sponza, s_cam = parts[-1], parts[5]
+    phase_sponza_traversal(results, sponza, s_cam)
+    s_launches, renderer, state = phase_frame(results, sponza, s_cam,
+                                              "sponza")
+    results["sponza_profile"] = phase_profile(renderer, state)
+    phase_sponza_slots(results, state, sponza, s_cam)
+    phase_sponza_atrous(results, phase_atrous_frame(results, renderer, state,
+                                                    "sponza"))
     del renderer, state
+    phase_sponza_unbiased(sponza, s_cam)
+    phase_sponza_card_vs_cpu(parts[:-1], sponza, s_cam)
+    del parts, sponza
     phase_cornell()
 
     for k in (6, 3):
         log(f"traversal Mrays/s (bench mix, atrium K={k}): " + ", ".join(
             f"{results[f'traversal_k{k}_{n}']['mrays']:.2f} at {n} rays"
             for n in (BENCH_RAYS, FRAME["width"] * FRAME["height"])))
-    log(f"frame 512x512x4 svgf: {results['frame']['ms']:.1f} ms "
-        f"(median {results['frame']['median_ms']:.1f}); device busy "
-        f"{results['profile']['busy_ms']:.1f} ms in "
-        f"{results['profile']['kernels']} kernels, traversal "
-        f"{results['profile']['traversal_ms']:.3f} ms and a-trous "
-        f"{results['profile']['atrous_ms']:.3f} ms of it")
+    for key in ("sponza_traversal_bench", "sponza_traversal"):
+        st = results[key]
+        log(f"traversal Mrays/s (bench mix, sponza_like K=6): "
+            f"{st['mix']['mrays']:.2f} at {st['rays']} rays; ms per launch "
+            f"primary {st['mix']['primary']:.4f}, bounce "
+            f"{st['mix']['bounce']:.4f}, shadow {st['mix']['shadow']:.4f}")
+    for label, prof in (("atrium", "profile"), ("sponza", "sponza_profile")):
+        f, p = results[label], results[prof]
+        log(f"frame {label} {FRAME['width']}x{FRAME['height']}x"
+            f"{FRAME['bounces']} svgf: {f['ms']:.1f} ms (median "
+            f"{f['median_ms']:.1f}); device busy {p['busy_ms']:.1f} ms in "
+            f"{p['kernels']} kernels, traversal {p['traversal_ms']:.3f} ms "
+            f"and a-trous {p['atrous_ms']:.3f} ms of it")
+    p = results["sponza_all_slots_profile"]
+    log(f"frame sponza with every texture slot fetched: device busy "
+        f"{p['busy_ms']:.1f} ms in {p['kernels']} kernels")
     a = results["atrous_pass"]
     log("a-trous kernel ms by step: " + ", ".join(
         f"{k}: {v:.5f}" for k, v in a["ms_by_step"].items())
@@ -756,8 +1098,8 @@ def main() -> int:
             share_of_bound=res["bound_ms"] / res["ms"],
             ptxas=ptxas[name], **{k: res[k] for k in (
                 "work", "ms_by_step", "plain_ms_by_step", "pack_ms",
-                "filter_ms", "frame_max_abs_err") if k in res})
-    smem = _cuda.lib("traverse.cu").tt_traverse_smem(scenes[6].cw_stack)
+                "filter_ms", "atrium_frame_max_abs_err") if k in res})
+        rows[name]["sponza"] = sponza_row(name, results, s_launches)
     for name in ("closest_hit_wavefront", "any_hit_wavefront"):
         # the ring stack's dynamic shared memory, as the launch sizes it
         rows[name]["smem_dynamic"] = smem
@@ -770,6 +1112,42 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def sponza_row(name: str, results: dict, launches: dict) -> dict:
+    """A kernel's numbers on the sponza_like path: its launches over that
+    path's frames, and its time, plain time and bound on sponza's own
+    inputs (the traversal at the frame's 512 x 512 lanes with the bound
+    from this run's counted work per ray, and its time at bench.py's R;
+    a-trous on the sponza frame's planes)."""
+    row = dict(launches=launches[name],
+               launches_per_frame=launches[name] / FRAMES)
+    st = results["sponza_traversal"]
+    if name in ("closest_hit_wavefront", "any_hit_wavefront"):
+        cls = ("primary", "bounce") if name.startswith("closest") \
+            else ("shadow",)
+        ms = sum(st["mix"][c] for c in cls) / len(cls)
+        bd = sum(st["work"][c]["bound_ms"] for c in cls) / len(cls)
+        row.update(rays=st["rays"], ms=ms, bound_ms=bd,
+                   bound_by=max((st["work"][c] for c in cls),
+                                key=lambda w: w["bound_ms"])["bound_by"],
+                   share_of_bound=bd / ms,
+                   plain_ms=sum(st["plain"][c] for c in cls) / len(cls),
+                   max_abs_err=max(results[k]["err"][
+                       "closest" if len(cls) == 2 else "any"] for k in (
+                           "sponza_traversal", "sponza_traversal_bench")),
+                   work={c: st["work"][c] for c in cls})
+        sb = results["sponza_traversal_bench"]
+        row["bench_mix"] = dict(
+            rays=sb["rays"], ms=sum(sb["mix"][c] for c in cls) / len(cls),
+            bound_ms=sum(sb["work"][c]["bound_ms"] for c in cls) / len(cls),
+            mrays=sb["mix"]["mrays"])
+    elif name == "atrous_pass":
+        a = results["atrous_pass"]
+        row.update(a["sponza"], bound_ms=a["bound_ms"],
+                   bound_by=a["bound_by"],
+                   share_of_bound=a["bound_ms"] / a["sponza"]["ms"])
+    return row
 
 
 if __name__ == "__main__":

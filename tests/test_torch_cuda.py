@@ -7,7 +7,9 @@ leaf width (K = 3, 4, 5, 6, 8, 12; rows of 3 and 5 are no multiple of 16
 bytes), a stack so shallow that pushes drop entries, dead lanes, ray
 counts that leave warps part empty or outnumber the resident lanes,
 back-to-back launches (the ray counter starts anew), and the wrappers'
-argument checks.
+argument checks; and the textured, sky-lit sponza_like scene: the bench
+mix's rays bitwise, a-trous on a frame with sky rows, and its SVGF frames
+on the card against the CPU.
 
 Needs an NVIDIA card and nvcc; skips elsewhere. It imports no JAX, so it
 runs on a machine without it (the JAX-side conftest is skipped):
@@ -280,3 +282,109 @@ def test_traversal_kernel_repeats_bitwise(scenes):
                            getattr(b, f).view(torch.int32)), f
     assert torch.equal(wf.any_hit_wavefront(table, C, ro, rd, tm, S),
                        wf.any_hit_wavefront(table, C, ro, rd, tm, S))
+
+
+# ---------------------------------------------------------------------------
+# sponza_like: the textured, sky-lit scene
+# ---------------------------------------------------------------------------
+
+_SPONZA = {}
+
+
+def _sponza(dev, tmp_path_factory, detail):
+    """sponza_like exported, loaded and built on the card (K = 6, light
+    BVH) and on the CPU, once per detail."""
+    if detail not in _SPONZA:
+        from truetrace_tpu_torch.scene import sponza_like
+        d = str(tmp_path_factory.mktemp(f"sponza_{detail:g}"))
+        parts = sponza_like.make(detail, assets_dir=d, device=dev)
+        m, mats, atlas, rects, level_y, cam, env = parts
+        kw = dict(atlas=atlas, atlas_rects=rects, atlas_level_y=level_y,
+                  with_cwbvh=True, with_light_bvh=True)
+        _SPONZA[detail] = (
+            compile_scene(m, mats, env=env, device=dev, **kw),
+            compile_scene(m, mats, env=env.to("cpu"), device="cpu", **kw)
+            if detail < 1 else None, cam)
+    return _SPONZA[detail]
+
+
+@pytest.mark.parametrize("detail", [0.5, 5.0])
+def test_traversal_kernel_bitwise_on_sponza(dev, tmp_path_factory, detail):
+    """bench.py's mix on sponza_like (primary camera rays, many of which
+    leave through the open roof, cosine bounce rays from their hits, and
+    shadow rays along those): closest hit bitwise and occlusion equal to
+    the plain traversal."""
+    import chip_smoke
+    sc, _, cam = _sponza(dev, tmp_path_factory, detail)
+    assert sc.cw_leaf_rows.shape[1] == 60
+    ro_p, rd_p, ro_b, rd_b, tm_b = chip_smoke.bench_rays(sc, cam, 1 << 14)
+    hk = _check_both(sc, ro_p, rd_p, torch.full_like(tm_b, 1e30))
+    assert 0.05 < float((hk.tri >= 0).float().mean()) < 0.999
+    _check_both(sc, ro_b, rd_b, tm_b)
+
+
+def _svgf_inputs(sc, cam, w, h):
+    """The colour, variance, normal and depth svgf_denoise hands its
+    first a-trous pass in the second Renderer.step frame."""
+    from truetrace_tpu_torch.renderer import Renderer, RendererConfig
+    r = Renderer(sc, cam, RendererConfig(
+        width=w, height=h, bounces=3, denoiser="svgf"))
+    seen, orig = [], atrous_pallas.atrous_filter
+
+    def grab(*args):
+        seen.append(args)
+        return orig(*args)
+    st = r.init_state()
+    _, _, st = r.step(st)
+    atrous_pallas.atrous_filter = grab
+    try:
+        r.step(st)
+    finally:
+        atrous_pallas.atrous_filter = orig
+    return seen[0][:4]
+
+
+def test_atrous_kernel_on_sponza_frame(dev, tmp_path_factory):
+    """The a-trous kernel at every step and over the five-pass route on a
+    sponza frame's own inputs, whose open roof leaves sky rows with zero
+    normal and depth in the guide: rtol 1e-4 / atol 1e-5 against the
+    plain pass."""
+    sc, _, cam = _sponza(dev, tmp_path_factory, 0.5)
+    color, var, normal, depth = _svgf_inputs(sc, cam, 96, 64)
+    sky = (normal == 0).all(-1)
+    assert 0.01 < float(sky.float().mean()) < 0.9
+    for step in (1, 2, 4, 8, 16):
+        c1, v1 = atrous_pallas.atrous_pass(color, var, normal, depth, step)
+        c2, v2 = atrous_pallas.atrous_pass_plain(color, var, normal, depth,
+                                                 step)
+        torch.testing.assert_close(c1, c2, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(v1, v2, rtol=1e-4, atol=1e-5)
+    fh, fc, fv = atrous_pallas.atrous_filter(color, var, normal, depth, 5)
+    pc, pv = color, var
+    for i in range(5):
+        pc, pv = atrous_pallas.atrous_pass_plain(pc, pv, normal, depth,
+                                                 1 << i)
+    torch.testing.assert_close(fc, pc, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(fv, pv, rtol=1e-4, atol=1e-5)
+
+
+def test_sponza_renderer_card_matches_cpu(dev, tmp_path_factory):
+    """Two SVGF Renderer.step frames of sponza_like at 32x24 on the card
+    and on the CPU from the same build: the same counters and traversal,
+    so >= 98% of display pixels agree to 1e-3 and the means to 1e-3
+    (the card rounds transcendentals differently)."""
+    from truetrace_tpu_torch.renderer import Renderer, RendererConfig
+    sc, sc_cpu, cam = _sponza(dev, tmp_path_factory, 0.5)
+    kw = dict(width=32, height=24, bounces=3, denoiser="svgf")
+    rg = Renderer(sc, cam, RendererConfig(**kw))
+    rc = Renderer(sc_cpu, cam.to("cpu"), RendererConfig(**kw))
+    st_g, st_c = rg.init_state(), rc.init_state()
+    for _ in range(2):
+        dg, _, st_g = rg.step(st_g)
+        dc, _, st_c = rc.step(st_c)
+        dg = dg.cpu()
+        assert bool(torch.isfinite(dg).all())
+        close = ((dg - dc).abs() <= 1e-3).all(-1).float().mean()
+        assert float(close) >= 0.98
+        assert abs(float(dg.mean()) - float(dc.mean())) <= 1e-3 * float(
+            dc.mean())

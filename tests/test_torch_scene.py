@@ -13,12 +13,14 @@ import truetrace_tpu.kernels.cwbvh_wavefront as jwf
 from truetrace_tpu.scene import atrium as jatrium
 from truetrace_tpu.scene import cornell as jcornell
 from truetrace_tpu.scene.mesh import compile_scene as jcompile
+from truetrace_tpu_torch.build import env_cdf as tenv_cdf
 from truetrace_tpu_torch.kernels import cwbvh_wavefront as twf
 from truetrace_tpu_torch.post import pipeline as tpipe
 from truetrace_tpu_torch.post import svgf as tsvgf
 from truetrace_tpu_torch.scene import atrium as tatrium
 from truetrace_tpu_torch.scene import cornell as tcornell
 from truetrace_tpu_torch.scene import ir as tir
+from truetrace_tpu_torch.scene import sponza_like as tsponza
 from truetrace_tpu_torch.scene.ir import Scene
 from truetrace_tpu_torch.scene.mesh import compile_scene as tcompile
 
@@ -146,7 +148,7 @@ def _raises(fn):
 
 
 @pytest.mark.parametrize("opt", ["presplit", "hot_order", "bvh2_only",
-                                 "cache_dir", "atlas"])
+                                 "cache_dir", "lights", "terrain"])
 def test_unported_build_options_raise(opt):
     m, mats, _ = tcornell.make(device="cpu")
     kw = dict(with_cwbvh=True, device="cpu")
@@ -154,18 +156,21 @@ def test_unported_build_options_raise(opt):
                    hot_order=dict(hot_order=True),
                    bvh2_only=dict(with_cwbvh=False),
                    cache_dir=dict(cache_dir="x"),
-                   atlas=dict(atlas=np.zeros((4, 4, 4), np.float32)))[opt])
+                   lights=dict(lights=tir.AnalyticLights.none("cpu")),
+                   terrain=dict(terrain=object()))[opt])
     _raises(lambda: tcompile(m, mats, **kw))
 
 
 @pytest.mark.parametrize("fn", [tcompile, tir.Camera.look_at, tatrium.make,
                                 tcornell.make, tsvgf.SVGFState.create,
                                 tpipe.Accumulator.create,
-                                tir.EnvMap.constant, tir.AnalyticLights.none],
+                                tir.EnvMap.constant, tir.AnalyticLights.none,
+                                tenv_cdf.build_env_cdf, tsponza.make],
                          ids=["compile_scene", "Camera.look_at",
                               "atrium.make", "cornell.make",
                               "SVGFState.create", "Accumulator.create",
-                              "EnvMap.constant", "AnalyticLights.none"])
+                              "EnvMap.constant", "AnalyticLights.none",
+                              "build_env_cdf", "sponza_like.make"])
 def test_entry_points_default_to_the_card(fn):
     """The port's scene entry points build on the card unless the caller
     asks for the CPU (every CPU test passes device="cpu")."""

@@ -109,3 +109,35 @@ def fma(a, b, c):
     fix = (err != 0) & ((bits & 1) == 0)
     step = torch.where((err > 0) == (s > 0), 1, -1)
     return torch.where(fix, bits + step, bits).view(torch.float64).float()
+
+
+def hue_rotate(rgb, degrees):
+    """Rotate RGB hue around the grey axis by `degrees` [...] (the
+    reference's Unity_Hue_Degrees, RayTracingShader.compute:640)."""
+    th = torch.deg2rad(degrees)
+    c = torch.cos(th)
+    s = torch.sin(th)
+    one3 = (1.0 - c) / 3.0
+    rt3s = torch.sqrt(torch.tensor(1.0 / 3.0, dtype=torch.float32,
+                                   device=rgb.device)) * s
+    m00 = c + one3
+    m01 = one3 - rt3s
+    m02 = one3 + rt3s
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    return torch.stack([m00 * r + m01 * g + m02 * b,
+                        m02 * r + m00 * g + m01 * b,
+                        m01 * r + m02 * g + m00 * b], -1)
+
+
+def adjust_color(rgb, hue_deg, brightness, saturation, contrast,
+                 blend_color, blend_factor):
+    """The reference's albedo adjustment chain (kernel_shade,
+    RayTracingShader.compute:630-649): hue -> brightness -> saturation ->
+    contrast -> saturate -> blend toward a flat colour."""
+    c = hue_rotate(rgb, hue_deg)
+    c = c * brightness[..., None]
+    lum = luminance(c)[..., None]
+    c = lum + (c - lum) * saturation[..., None]
+    c = (c - 0.5) * contrast[..., None] + 0.5
+    c = torch.clamp(c, 0.0, 1.0)
+    return c + (blend_color - c) * blend_factor[..., None]

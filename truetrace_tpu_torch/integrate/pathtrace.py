@@ -6,10 +6,11 @@ masked dead lanes; NEE with MIS (power heuristic) against the emissive
 triangles, by light-tree cut selection or the power CDF; Disney or
 Lambert BSDF; Russian roulette; primary-hit G-buffer.
 
-What the port covers is the opaque single-BLAS scene with a constant
-environment, traversed by the CWBVH wavefront kernels. Everything else
-raises NotImplementedError naming its ROADMAP.md item, never silently
-ignored.
+What the port covers is the opaque single-BLAS scene under a constant
+or textured environment (env NEE + MIS), with atlas textures fetched at
+ray-cone mip levels, traversed by the CWBVH wavefront kernels. Everything
+else raises NotImplementedError naming its ROADMAP.md item, never
+silently ignored.
 """
 from __future__ import annotations
 
@@ -89,12 +90,8 @@ def check_supported(scene: Scene, cfg: RenderConfig) -> None:
     if scene.tri_shadow is not None or scene.has_media:
         _todo("cutout / transmissive materials (transmit_wavefront, media)",
               "A.9")
-    if scene.env.image.shape[0] > 1:
-        _todo("textured environment maps", "A.6")
     if scene.lights.position.shape[0] > 0:
         _todo("analytic lights", "A.8")
-    if scene.atlas_rects.shape[0] > 0:
-        _todo("texture atlas", "A.7")
     if scene.terrain is not None:
         _todo("heightmap terrain", "A.14")
 
@@ -249,12 +246,135 @@ def render_sample_with_stats(scene: Scene, cam: Camera, cfg: RenderConfig,
     lens_u = rng.uniform2(pixel, rng.u32(sample_id, pixel.device)
                           + 0x9E3779B9, rng.DIM_CAMERA_JITTER)
     ro, rd = camera_rays(cam, W, H, pixel, jit2, lens_u=lens_u)
-    return trace_rays(scene, ro, rd, cfg, pixel, sample_id, cam=cam)
+    # per-pixel ray-cone spread (texture LOD; ray cones stand in for the
+    # reference's hardware-derivative texture fetches)
+    spread0 = 2.0 * torch.tan(cam.fov_y * 0.5) / H
+    return trace_rays(scene, ro, rd, cfg, pixel, sample_id, cam=cam,
+                      cone_spread=spread0)
+
+
+# the slots read at the uv2_scale transform
+_UV2_SLOTS = {"tex_normal", "tex_rough_metal", "tex_metallic",
+              "tex_roughness", "tex_alpha"}
+
+
+def _pick(sel, new, old):
+    """Lane-wise strategy select; `sel` None means every lane."""
+    if sel is None:
+        return new
+    return torch.where(sel[..., None] if new.dim() > sel.dim() else sel,
+                       new, old)
+
+
+def _textures(scene: Scene, mat, used, tid, hit, w, rd, gn, sn, hit_ok,
+              cone_w, cone_s, cam, b):
+    """The texture fetches of one bounce (reference kernel_shade atlas
+    reads, RayTracingShader.compute:129-159, 623-662): UV transforms,
+    tangent-space normal map, albedo with ray-cone mips and the colour
+    adjustment chain, rough/metal, metallic, roughness, alpha, emission,
+    and the matcap at the primary hit. Updates `mat` in place and returns
+    the (possibly normal-mapped) shading normal. `used` names the texture
+    slots some material sets; the others would only select their
+    untextured value and are skipped."""
+    from truetrace_tpu_torch.core.math import adjust_color
+    from truetrace_tpu_torch.scene.atlas import sample_atlas, transform_uv
+    at, rects = scene.atlas, scene.atlas_rects
+    uv0 = scene.tri_uv[tid]
+    uv = (uv0[:, 0] * w[..., None] + uv0[:, 1] * hit.u[..., None]
+          + uv0[:, 2] * hit.v[..., None])
+    # albedo/emission/matcap use uv_scale; normal/metallic/roughness use
+    # uv2_scale with the shared offset (reference AlignUV call sites,
+    # RayTracingShader.compute:623-627)
+    uv_a = transform_uv(uv, mat.uv_scale, mat.uv_rot)
+    if used & _UV2_SLOTS:
+        uv_s = transform_uv(uv, torch.cat([mat.uv2_scale,
+                                           mat.uv_scale[:, 2:4]], 1),
+                            mat.uv_rot)
+    if "tex_normal" in used:
+        nm = sample_atlas(at, rects, mat.tex_normal, uv_s)
+        tan = scene.tri_tan[tid]
+        tan_ok = dot(tan, tan) > 1e-8
+        t_ = tan - sn * dot(tan, sn)[..., None]
+        t_ = t_ / torch.clamp(torch.linalg.norm(t_, dim=-1, keepdim=True),
+                              min=1e-8)
+        b_ = cross(sn, t_)
+        # NormalStrength scales the tangent-plane deflection (reference
+        # RayTracingShader.compute:134); z is rebuilt to renormalise
+        n_xy = (nm[:, 0:2] * 2.0 - 1.0) * mat.normal_strength[:, None]
+        n_z = torch.sqrt(torch.clamp(
+            1.0 - (n_xy[:, 0:1] * n_xy[:, 0:1] + n_xy[:, 1:2] * n_xy[:, 1:2]),
+            min=0.0025))
+        sn_m = normalize(t_ * n_xy[:, 0:1] + b_ * n_xy[:, 1:2] + sn * n_z)
+        use_nm = (mat.tex_normal >= 0) & tan_ok & hit_ok
+        sn = torch.where(use_nm[..., None], sn_m, sn)
+    if "tex_albedo" in used:
+        width = cone_w + hit.t * cone_s
+        lod = (scene.tri_lod[tid] + torch.log2(torch.clamp(width, min=1e-12))
+               - torch.log2(torch.clamp(dot(rd, gn).abs(), min=0.05)))
+        alb = sample_atlas(at, rects, mat.tex_albedo, uv_a, lod=lod,
+                           level_y=scene.atlas_level_y)
+        tex_col = adjust_color(mat.base_color * alb[:, :3], mat.hue,
+                               mat.brightness, mat.saturation, mat.contrast,
+                               mat.blend_color, mat.blend_factor)
+        has = mat.tex_albedo >= 0
+        mat.base_color = torch.where(has[..., None], tex_col, mat.base_color)
+        # texture-driven cutout alpha (reference AdvancedAlphaMapped)
+        mat.alpha = torch.where(has, mat.alpha * alb[:, 3], mat.alpha)
+    if "tex_rough_metal" in used:
+        rm = sample_atlas(at, rects, mat.tex_rough_metal, uv_s)
+        has = mat.tex_rough_metal >= 0
+        mat.roughness = torch.where(has, mat.roughness * rm[:, 1],
+                                    mat.roughness)
+        mat.metallic = torch.where(has, mat.metallic * rm[:, 2],
+                                   mat.metallic)
+    if "tex_metallic" in used:
+        # single-channel overrides (reference MetallicTex / RoughnessTex,
+        # RayTracingShader.compute:654-657): metallic gated off for full
+        # spec_trans, roughness optionally inverted smoothness
+        mtl = sample_atlas(at, rects, mat.tex_metallic, uv_s)
+        mat.metallic = torch.where(
+            (mat.tex_metallic >= 0) & (mat.spec_trans < 1.0), mtl[:, 0],
+            mat.metallic)
+    if "tex_roughness" in used:
+        rgh = sample_atlas(at, rects, mat.tex_roughness, uv_s)[:, 0]
+        rgh = torch.where(mat.rough_tex_invert > 0.5, 1.0 - rgh, rgh)
+        mat.roughness = torch.where(mat.tex_roughness >= 0,
+                                    torch.clamp(rgh, 0.0, 1.0),
+                                    mat.roughness)
+    if "tex_alpha" in used:
+        # dedicated alpha texture (reference AlphaTex cutout fetch,
+        # IntersectionKernels.compute:38-39)
+        alp = sample_atlas(at, rects, mat.tex_alpha, uv_s)
+        mat.alpha = torch.where(mat.tex_alpha >= 0, mat.alpha * alp[:, 0],
+                                mat.alpha)
+    if "tex_emission" in used:
+        em = sample_atlas(at, rects, mat.tex_emission, uv_a)
+        mat.emission = torch.where((mat.tex_emission >= 0)[..., None],
+                                   mat.emission * em[:, :3], mat.emission)
+    if "tex_matcap" in used and cam is not None and b == 0:
+        # matcap: view-space-normal lookup modulating the base colour at
+        # the primary hit; MatCapMask lerps base -> matcap by the mask,
+        # no mask keeps the multiply blend (RayTracingShader.compute:129-159)
+        vx = dot(sn, cam.c2w[0, :3])
+        vy = dot(sn, cam.c2w[1, :3])
+        uv_m = transform_uv(torch.stack([vx, vy], -1) * 0.5 + 0.5,
+                            mat.uv_scale, mat.uv_rot)
+        mc = sample_atlas(at, rects, mat.tex_matcap, uv_m)
+        mk = sample_atlas(at, rects, mat.tex_matcap_mask, uv_a)
+        bc = mat.base_color
+        mc_col = torch.where((mat.tex_matcap_mask >= 0)[..., None],
+                             bc + (mc[:, :3] - bc) * mk[:, 0:1],
+                             bc * mc[:, :3])
+        mat.base_color = torch.where((mat.tex_matcap >= 0)[..., None],
+                                     mc_col, bc)
+    return sn
 
 
 def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
-               cam: Optional[Camera] = None):
-    """Path-trace explicit primary rays. Returns (radiance [R,3], stats)."""
+               cam: Optional[Camera] = None, cone_spread=None):
+    """Path-trace explicit primary rays. Returns (radiance [R,3], stats).
+    cone_spread: the primary rays' cone spread angle per unit distance
+    (texture LOD); None = 0.002."""
     check_supported(scene, cfg)
     dev = ro.device
     R = ro.shape[0]
@@ -274,21 +394,41 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
     r_emit0 = torch.zeros((R, 3), **f32)
     prev_pdf = torch.zeros((R,), **f32)   # 0 => previous bounce not MIS-able
     prev_n = torch.zeros((R, 3), **f32)
+    # ray cones for texture LOD: width at the origin + spread per unit t
+    cone_w = torch.zeros((R,), **f32)
+    cone_s = (cone_spread if cone_spread is not None
+              else torch.tensor(0.002, **f32)).expand(R).to(**f32)
     n_trace = torch.zeros((), **f32)
     n_shadow = torch.zeros((), **f32)
     use_tree = (cfg.light_sampling == "tree"
                 and scene.lbvh_pairs.shape[0] > 0)
+    # NEE strategy mix (the reference picks a light group per shade,
+    # RayTracingShader.compute:328-344): mesh emitters and the env map
     has_mesh = scene.light_tris.tri_index.shape[0] > 0
-    n_groups = int(has_mesh) if cfg.use_nee else 0
+    has_env_tex = scene.env.image.shape[0] > 1
+    n_groups = (int(has_mesh) + int(has_env_tex)) if cfg.use_nee else 0
     p_group = 1.0 / n_groups if n_groups else 1.0
-    env_rgb = scene.env.image[0, 0] * scene.env.intensity
+    if not has_env_tex:
+        env_rgb = scene.env.image[0, 0] * scene.env.intensity
+    used = set(scene.tex_slots)
+    # cutout pass-through is possible only where a texture lowers alpha
+    # (materials with alpha < 1 raise in check_supported)
+    cutout = bool(used & {"tex_albedo", "tex_alpha"})
 
     for b in range(cfg.bounces):
         n_trace = n_trace + alive.float().sum()
         hit = _trace(scene, ro, rd, alive)
         hit_ok = (hit.tri >= 0) & alive
 
-        # ---- miss: constant environment
+        # ---- miss: environment (MIS against env NEE when it is active)
+        if has_env_tex:
+            from truetrace_tpu_torch.kernels.envmap import env_eval, env_pdf
+            env_rgb = env_eval(scene.env, rd)
+            if cfg.use_nee and b > 0:
+                e_pdf = env_pdf(scene.env, rd) * p_group
+                w_env = torch.where(prev_pdf <= 0.0, 1.0,
+                                    power_heuristic(prev_pdf, e_pdf))
+                env_rgb = env_rgb * w_env[..., None]
         radiance = radiance + torch.where(
             (alive & ~(hit.tri >= 0))[..., None], throughput * env_rgb, 0.0)
 
@@ -307,6 +447,9 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
 
         mid = scene.tri_mat[tid]
         mat = scene.materials.gather(mid)
+        if used:
+            sn = _textures(scene, mat, used, tid, hit, w, rd, gn, sn, hit_ok,
+                           cone_w, cone_s, cam, b)
         # roughness/metallic remap ranges ((0,1) = identity)
         mat.roughness = torch.clamp(
             mat.rough_remap[:, 0] + mat.roughness
@@ -314,6 +457,14 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
         mat.metallic = torch.clamp(
             mat.metal_remap[:, 0] + mat.metallic
             * (mat.metal_remap[:, 1] - mat.metal_remap[:, 0]), 0.0, 1.0)
+
+        # ---- cutout alpha: stochastically pass straight through partial
+        # surfaces (reference alpha-mapped closest-hit skips,
+        # IntersectionKernels.compute:264-498); the lane keeps flying
+        if cutout:
+            u_cut = u1(rng.path_dim(b, rng.DIM_AUX))
+            passthru = hit_ok & (mat.alpha < 1.0) & (u_cut >= mat.alpha)
+            hit_ok = hit_ok & ~passthru
 
         # ---- primary-hit G-buffer
         if b == 0:
@@ -343,7 +494,7 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
             # denoiser passes it through unfiltered
             r_emit0 = radiance
 
-        # ---- NEE against the mesh lights
+        # ---- NEE: one strategy {mesh, env} per lane
         wo = -rd
         if n_groups > 0:
             u_sel = u1(rng.path_dim(b, rng.DIM_LIGHT_SELECT))
@@ -352,17 +503,40 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
                                  0, n_groups - 1)
             u_resc = torch.clamp(u_sel * n_groups - g_pick.float(),
                                  0.0, 1.0 - 1e-7)
-            ls = sample_light_tris(scene, p, u_resc, u_l2, sn=sn,
-                                   use_tree=use_tree,
-                                   approx_mis=cfg.nee_mis == "approx")
-            to_l = ls.pos - p
-            d_m = torch.linalg.norm(to_l, dim=-1)
-            wi_l = to_l / torch.clamp(d_m, min=1e-12)[..., None]
-            dist_l = d_m
-            rad_l = ls.radiance
-            pdf_l = ls.pdf_sa * p_group
-            pdfw_l = ls.pdf_w * p_group
-            valid_l = ls.valid
+            # strategy results, selected lane-wise (no select with one)
+            wi_l = torch.zeros((R, 3), **f32)
+            dist_l = torch.zeros((R,), **f32)
+            rad_l = torch.zeros((R, 3), **f32)
+            pdf_l = torch.zeros((R,), **f32)    # solid-angle pdf * p_group
+            pdfw_l = torch.zeros((R,), **f32)   # MIS weighting pdf
+            valid_l = torch.zeros((R,), dtype=torch.bool, device=dev)
+            gi = 0
+            if has_mesh:
+                ls = sample_light_tris(scene, p, u_resc, u_l2, sn=sn,
+                                       use_tree=use_tree,
+                                       approx_mis=cfg.nee_mis == "approx")
+                to_l = ls.pos - p
+                d_m = torch.linalg.norm(to_l, dim=-1)
+                sel = None if n_groups == 1 else g_pick == gi
+                wi_l = _pick(sel, to_l / torch.clamp(d_m, min=1e-12)[
+                    ..., None], wi_l)
+                dist_l = _pick(sel, d_m, dist_l)
+                rad_l = _pick(sel, ls.radiance, rad_l)
+                pdf_l = _pick(sel, ls.pdf_sa * p_group, pdf_l)
+                pdfw_l = _pick(sel, ls.pdf_w * p_group, pdfw_l)
+                valid_l = _pick(sel, ls.valid, valid_l)
+                gi += 1
+            if has_env_tex:
+                from truetrace_tpu_torch.kernels.envmap import env_sample
+                d_env, p_env, r_env = env_sample(scene.env, u_l2)
+                sel = None if n_groups == 1 else g_pick == gi
+                wi_l = _pick(sel, d_env, wi_l)
+                dist_l = _pick(sel, torch.full_like(dist_l, 1e30), dist_l)
+                rad_l = _pick(sel, r_env, rad_l)
+                pdf_l = _pick(sel, p_env * p_group, pdf_l)
+                pdfw_l = _pick(sel, p_env * p_group, pdfw_l)
+                valid_l = _pick(sel, p_env > 1e-12, valid_l)
+                gi += 1
 
             f_l, pdf_b = bsdf_eval(mat, sn, wo, wi_l)
             cos_s = torch.clamp(dot(wi_l, sn), min=0.0)
@@ -406,11 +580,24 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
             survive = torch.ones_like(ok)
 
         alive = ok & survive & (new_tp.amax(-1) > 0.0)
+        if "tex_albedo" in used:       # the cones feed the albedo LOD only
+            cone_w = torch.where(hit_ok, cone_w + hit.t * cone_s, cone_w)
+            cone_s = torch.where(hit_ok, cone_s + 0.25 * mat.roughness ** 2,
+                                 cone_s)
         side = torch.where(dot(wi, gn) >= 0.0, 1.0, -1.0)
-        ro = (p + gn * (SHADOW_EPS * side[..., None])).contiguous()
-        rd = wi.contiguous()
-        throughput = torch.where(alive[..., None], new_tp, throughput)
-        prev_pdf = torch.where(alive, pdf, 0.0)
+        ro_n = p + gn * (SHADOW_EPS * side[..., None])
+        tp_n = torch.where(alive[..., None], new_tp, throughput)
+        pdf_n = torch.where(alive, pdf, 0.0)
+        if cutout:
+            # pass-through lanes keep flying unperturbed
+            alive = alive | passthru
+            ro_n = torch.where(passthru[..., None], p + rd * SHADOW_EPS, ro_n)
+            wi = torch.where(passthru[..., None], rd, wi)
+            tp_n = torch.where(passthru[..., None], throughput, tp_n)
+            pdf_n = torch.where(passthru, prev_pdf, pdf_n)
+            sn = torch.where(passthru[..., None], prev_n, sn)
+        ro, rd = ro_n.contiguous(), wi.contiguous()
+        throughput, prev_pdf = tp_n, pdf_n
         prev_n = sn
 
     stats = {"n_trace": n_trace, "n_shadow": n_shadow, "albedo": g_albedo,

@@ -159,8 +159,12 @@ class AnalyticLights:
 
 @dataclass
 class EnvMap:
-    """Equirect environment (the port renders the constant one: a 1x1
-    image; textured envs are ROADMAP.md A.6)."""
+    """Equirect environment with its 2-D CDF importance tables
+    (build/env_cdf.py; reference CDFCreator.compute + SampleLI,
+    CommonData.cginc:1437-1464). A 1x1 image is the constant env: no
+    tables, no env NEE. image [H,W,3], cdf_x [H,W] per-row inclusive
+    CDFs, cdf_y [H] marginal CDF (sin-theta weighted), total, rotation
+    and intensity 0-d."""
     image: torch.Tensor
     cdf_x: torch.Tensor
     cdf_y: torch.Tensor
@@ -187,6 +191,12 @@ class EnvMap:
                          for f in dataclasses.fields(self)})
 
 
+# the texture slots the integrator's texture block reads (tex_matcap_mask
+# is read with tex_matcap)
+TEX_SLOTS = ("tex_albedo", "tex_normal", "tex_emission", "tex_rough_metal",
+             "tex_matcap", "tex_metallic", "tex_roughness", "tex_alpha")
+
+
 @dataclass
 class Scene:
     """The render-ready single-BLAS scene (the fields the port's frame
@@ -206,7 +216,14 @@ class Scene:
     cw_nodes: torch.Tensor
     cw_tri_index: torch.Tensor
     cw_leaf_rows: torch.Tensor
+    # texture atlas (scene/atlas.py; no rects = no textures): [AHm,AW,4]
+    # f32 with the mip chain stacked below level 0, rects [NT,4] (x, y,
+    # w, h in level-0 texels), each level's row origin, and the base
+    # texture LOD per triangle (0.5 log2 of texel over world area)
+    atlas: torch.Tensor
     atlas_rects: torch.Tensor
+    atlas_level_y: torch.Tensor
+    tri_lod: torch.Tensor
     materials: MaterialTable
     light_tris: LightTris
     lights: AnalyticLights
@@ -228,6 +245,9 @@ class Scene:
     inst_rows: Optional[torch.Tensor] = None
     cw_stack: int = 16
     has_media: bool = True
+    # the TEX_SLOTS some material sets, fixed when the scene is built
+    # (empty without an atlas): the integrator fetches only these
+    tex_slots: tuple = ()
     # the traversal's unified [C+L, 10K] node + leaf-row table, built at
     # first use (kernels/cwbvh_wavefront.py pack_table)
     _cw_table: Optional[torch.Tensor] = field(default=None, repr=False)
@@ -279,9 +299,13 @@ class Scene:
     def from_parts(d: dict, materials, light_tris, lights, env,
                    device) -> "Scene":
         """Scene from numpy table leaves plus already-built parts."""
+        slots = ()
+        if np.asarray(d["atlas_rects"]).shape[0] > 0:
+            slots = tuple(k for k in TEX_SLOTS
+                          if bool((getattr(materials, k) >= 0).any()))
         return _from_dict(Scene, d, device, bits=("cw_nodes", "lbvh_trail"),
                           materials=materials, light_tris=light_tris,
-                          lights=lights, env=env)
+                          lights=lights, env=env, tex_slots=slots)
 
 
 @dataclass

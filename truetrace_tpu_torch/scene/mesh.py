@@ -2,9 +2,10 @@
 
 Port of `truetrace_tpu/scene/mesh.py` for the single-BLAS CWBVH scene:
 numpy in, a `Scene` of tensors on `device` out. The tables are bitwise
-equal to the JAX package's (tests/test_torch_scene.py). Presplit, the
-on-disk build cache, the MXU brute-force tables, the texture atlas and
-heat-ordered leaf rows are not ported and raise.
+equal to the JAX package's (tests/test_torch_scene.py), the texture
+atlas and per-triangle texture LOD included (tests/test_torch_sponza.py).
+Presplit, the on-disk build cache, the MXU brute-force tables, analytic
+lights, terrain and heat-ordered leaf rows are not ported and raise.
 """
 from __future__ import annotations
 
@@ -206,6 +207,27 @@ def shadow_tint_table(mats: List[HostMaterial], tri_mat: np.ndarray):
     return np.clip(tint[tri_mat], 0.0, 1.0)
 
 
+def texture_lod(tris, mats: List[HostMaterial], atlas_rects) -> np.ndarray:
+    """Base texture LOD per triangle [T]: 0.5 * log2(albedo texel area /
+    world area) for albedo-textured triangles, else 0 (the ray-cone mip
+    selection adds the cone's width to it; the reference derives LOD from
+    hardware derivatives)."""
+    T = tris["p0"].shape[0]
+    if atlas_rects is None or len(atlas_rects) == 0:
+        return np.zeros((T,), np.float32)
+    alb = np.array([m.tex_albedo for m in mats], np.int32)[tris["mat"]]
+    rect = np.asarray(atlas_rects)[np.maximum(alb, 0)]
+    texels = np.maximum(rect[:, 2] * rect[:, 3], 1).astype(np.float64)
+    duv1 = tris["uv"][:, 1] - tris["uv"][:, 0]
+    duv2 = tris["uv"][:, 2] - tris["uv"][:, 0]
+    uv_area = 0.5 * np.abs(duv1[:, 0] * duv2[:, 1]
+                           - duv2[:, 0] * duv1[:, 1])
+    w_area = 0.5 * np.linalg.norm(np.cross(tris["e1"], tris["e2"]), axis=-1)
+    dens = uv_area * texels / np.maximum(w_area, 1e-12)
+    return np.where(alb >= 0, 0.5 * np.log2(np.maximum(dens, 1e-12)),
+                    0.0).astype(np.float32)
+
+
 def compile_scene(meshes: List[HostMesh], mats: List[HostMaterial],
                   env: Optional[EnvMap] = None,
                   lights: Optional[AnalyticLights] = None,
@@ -216,15 +238,16 @@ def compile_scene(meshes: List[HostMesh], mats: List[HostMaterial],
                   cache_dir: Optional[str] = None, hot_order: bool = False,
                   device="cuda") -> Scene:
     """Build the render-ready single-BLAS Scene on `device` (the card
-    unless the caller asks for the CPU).
+    unless the caller asks for the CPU). `env` may be constant or
+    textured (build/env_cdf.py); `atlas`, `atlas_rects` and
+    `atlas_level_y` come from AtlasBuilder.build (scene/obj_loader.py
+    load_obj_scene returns them).
 
     leaf_k: triangles per CWBVH leaf row (any K; rows are 10K words).
     None picks the JAX package's rule (6 up to 400k triangles, else 12),
     so both packages build the same scene; the port's own default on the
     H100 is open (ROADMAP.md)."""
-    for name, val, item in (("atlas", atlas, "A.7"),
-                            ("atlas_rects", atlas_rects, "A.7"),
-                            ("lights", lights, "A.8"),
+    for name, val, item in (("lights", lights, "A.8"),
                             ("terrain", terrain, "A.14"),
                             ("cache_dir", cache_dir, "A.18")):
         if val is not None:
@@ -260,6 +283,7 @@ def compile_scene(meshes: List[HostMesh], mats: List[HostMaterial],
         tris["p0"], tris["e1"], tris["e2"], k=leaf_k)
 
     light_tris = _emissive_light_tris(tris, mats, device)
+    tri_lod = texture_lod(tris, mats, atlas_rects)
 
     lb_np = dict(lbvh_nodes=np.zeros((0, 12), np.float32),
                  lbvh_info=np.zeros((0, 2), np.int32),
@@ -287,7 +311,14 @@ def compile_scene(meshes: List[HostMesh], mats: List[HostMaterial],
         tri_n=tris["n"], tri_uv=tris["uv"], tri_tan=tris["tan"],
         tri_mat=tris["mat"], bvh2_box=bvh.box, bvh2_left=bvh.left,
         bvh2_count=bvh.count, cw_nodes=nodes2, cw_tri_index=cw.tri_index,
-        cw_leaf_rows=rows, atlas_rects=np.zeros((0, 4), np.int32),
+        cw_leaf_rows=rows,
+        atlas=np.asarray(atlas, np.float32) if atlas is not None
+        else np.zeros((1, 1, 4), np.float32),
+        atlas_rects=np.asarray(atlas_rects, np.int32)
+        if atlas_rects is not None else np.zeros((0, 4), np.int32),
+        atlas_level_y=np.asarray(atlas_level_y, np.int32)
+        if atlas_level_y is not None else np.zeros((1,), np.int32),
+        tri_lod=tri_lod,
         tri_shadow=tint, cw_stack=int(cw.depth) + 1,
         has_media=any(m.spec_trans > 0.0 and m.thin < 0.5 for m in mats),
         **lb_np)
