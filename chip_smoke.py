@@ -12,7 +12,8 @@ Phases, each of which raises on a failed check:
    the main path's shapes: the a-trous pass at 512x512 for steps 1-16
    and the packed five-pass route against five plain passes, timed per
    step on the device alone (no host launch gaps); the traversal step
-   core at R = 65536 (K = 3 rows of the atrium); and
+   core at R = 65536 and at the frame's 262144 lanes (K = 3 rows of the
+   atrium, write_uv both ways), timed on the device alone too; and
    closest / any hit on the 293k-triangle atrium at K = 6 and K = 3 with
    bench.py's ray mix (primary, cosine-bounce and shadow rays) at the
    frame's 262144 rays per class, and Mrays/s at that count and at
@@ -22,18 +23,25 @@ Phases, each of which raises on a failed check:
    its f32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s;
 3. the main path: `Renderer.step` on the atrium, 512x512, 4 bounces,
    Disney BSDF, light-tree NEE and SVGF; 1 warm-up and 4 timed frames,
-   with every kernel's launch count read around exactly that run, then
-   one more frame under torch.profiler (device time by kernel, the
-   traversal's and the a-trous kernel's, and the device's busy share of
-   the frame); then the a-trous kernel against the plain pass again, on
-   the inputs svgf_denoise hands its first pass in one more frame;
+   with every kernel's launch count read around exactly that run; two
+   frames under torch.cuda.set_sync_debug_mode("error") (the second
+   moving the camera with cam_moved=True), which raises at any blocking
+   host copy or sync; one more frame under torch.profiler (device time
+   by kernel, the traversal's and the a-trous kernel's, the device's
+   busy share of the frame, and the frame's host copies and syncs, which
+   must be none); the a-trous kernel against the plain pass again, on
+   the inputs svgf_denoise hands its first pass in one more frame; then
+   the frame as CUDA graphs (Renderer.graph_step): replayed frames bit
+   for bit the eager ones over a camera move, eager and replayed frames
+   timed in turns, replays under the sync debug mode and the profiler;
 4. the sponza_like path (bench.py's headline scene): export it at detail
    5 (269,260 triangles) into a temporary directory, load the OBJ, MTL and
    PNG files with the port's loader (no Pillow), build it at K = 6 with the
    texture atlas and the textured sky; bench.py's ray mix at its 131072
    rays per class, every ray held bitwise against the plain traversal and
    timed; `Renderer.step` at 512x512x4 with SVGF as in phase 3 (counts
-   set to 0 just before, read just after), its profile, and the a-trous
+   set to 0 just before, read just after; the sync-free frames, the
+   profile and the CUDA graphs as there), and the a-trous
    kernel on its own inputs (sky rows at zero normal); the golden
    ladder's unbiasedness check (NEE + MIS against BSDF-only: at 3
    bounces between BSDF-only at 3 and 4, at 6 converged means within
@@ -47,8 +55,10 @@ It prints the card line, one JSON line of kernel results (time, plain
 time, bound and what sets it, launches per frame, ptxas registers,
 spills and shared memory, for the traversal the work per ray, for
 a-trous the time at each step and of packing; under "sponza" each
-kernel's launches, time and bound on the sponza_like path), and
-as its last line {"ok": true, "device": {...}}. It exits non-zero, with
+kernel's launches, time and bound on the sponza_like path; under
+"frames" each scene's eager and replayed frame times, device busy,
+kernel counts and host copies), and as its last line
+{"ok": true, "device": {...}}. It exits non-zero, with
 no result line, when there is no CUDA card or the port's package is
 missing.
 """
@@ -102,6 +112,8 @@ OPS_TRI = 53     # cwbvh_core tri_test: 6 msub/dot3 (27), 3 scalings,
 OPS_ATROUS_PX = 740   # the plain pass per pixel: 24 weighted taps x 29,
                       # centre tap, prefilter, sigmas, normalisation
 ATROUS_STEPS = (1, 2, 4, 8, 16)   # svgf_denoise's five passes
+# step_core's lanes: the Pallas contract's R, and the frame's 512 x 512
+STEP_CORE_LANES = (65536, 262144)
 
 
 def log(*a):
@@ -484,16 +496,14 @@ def work_line(w: dict) -> str:
             f"{w['rows_touched']} table rows touched")
 
 
-def phase_step_core(results, scene3, cam):
-    """step_core at R = 65536 on rows of the K = 3 atrium table: leaf
-    lanes get the leaf row holding the triangle a traversal found for the
-    same ray (so Moller tests hit), node lanes a random node row."""
+def step_core_inputs(scene3, cam, R: int):
+    """step_core's rowt [32,R], ray9 [9,R] and st5 [5,R] on rows of the
+    K = 3 atrium table: leaf lanes get the leaf row holding the triangle
+    a traversal found for the same ray (so Moller tests hit), node lanes a
+    random node row; bench.py's bounce rays."""
     import torch
     from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
         closest_hit_wavefront)
-    from truetrace_tpu_torch.kernels.step_pallas import (
-        step_core, step_core_plain)
-    R = 65536
     dev = scene3.device
     table, C = scene3.cw_table(), scene3.cw_nodes.shape[0]
     L = table.shape[0] - C
@@ -520,26 +530,65 @@ def phase_step_core(results, scene3, cam):
                        torch.zeros((R,), dtype=torch.int32, device=dev),
                        torch.zeros((R,), dtype=torch.int32, device=dev),
                        leaf_lane.to(torch.int32)]).contiguous()
-    out_k = step_core(rowt, ray9, st5)
-    out_p = step_core_plain(rowt, ray9, st5)
-    check(torch.equal(out_k, out_p),
-          f"step_core: {int((out_k != out_p).any(0).sum())} of {R} lanes "
-          f"differ")
-    n_hit = int((out_k[1] >= 0).sum())
-    check(n_hit > R // 8, f"step_core: only {n_hit} Moller hits")
-    # t, u, v rows as float32; tri and the hits group as integers
-    f_rows = [0, 2, 3]
-    err = max(max_abs_diff(out_k[f_rows].view(torch.float32),
-                           out_p[f_rows].view(torch.float32)),
-              max_abs_diff(out_k, out_p))
-    k = cuda_ms(lambda: step_core(rowt, ray9, st5), 50)
-    p = cuda_ms(lambda: step_core_plain(rowt, ray9, st5), 3)
-    log(f"step_core R={R}: bitwise equal to plain ({n_hit} hits); "
-        f"kernel {k:.4f} ms, plain {p:.3f} ms")
-    # rows [32,R], rays [9,R], state [5,R] in; [7,R] out
-    results["step_core"] = dict(max_abs_err=err, ms=k, plain_ms=p,
-                                **bound((3 * OPS_TRI + OPS_NODE) * R,
-                                        (32 + 9 + 5 + 7) * 4 * R))
+    return rowt, ray9, st5
+
+
+def step_core_bound(R: int) -> dict:
+    """step_core's bound at R lanes: rows [32,R], rays [9,R] and state
+    [5,R] in, [7,R] out; three triangle tests and one node decode a
+    lane."""
+    return bound((3 * OPS_TRI + OPS_NODE) * R, (32 + 9 + 5 + 7) * 4 * R)
+
+
+def hold_step_core(fn, rowt, ray9, st5, what: str) -> float:
+    """fn (a step_core launch) bitwise against step_core_plain with
+    write_uv true and false; checks that Moller tests hit. Returns the
+    largest |diff| (0 when bitwise)."""
+    import torch
+    from truetrace_tpu_torch.kernels.step_pallas import step_core_plain
+    R = rowt.shape[1]
+    err = 0.0
+    for write_uv in (True, False):
+        out_k = fn(rowt, ray9, st5, write_uv)
+        out_p = step_core_plain(rowt, ray9, st5, write_uv)
+        check(torch.equal(out_k, out_p),
+              f"{what} R={R} write_uv={write_uv}: "
+              f"{int((out_k != out_p).any(0).sum())} of {R} lanes differ")
+        # t, u, v rows as float32; tri and the hits group as integers
+        f_rows = [0, 2, 3]
+        err = max(err, max_abs_diff(out_k[f_rows].view(torch.float32),
+                                    out_p[f_rows].view(torch.float32)),
+                  max_abs_diff(out_k, out_p))
+    n_hit = int((out_p[1] >= 0).sum())
+    check(n_hit > R // 8, f"{what} R={R}: only {n_hit} Moller hits")
+    return err
+
+
+def phase_step_core(results, scene3, cam):
+    """step_core at the Pallas contract's R = 65536 and at the frame's
+    262144 lanes (STEP_CORE_LANES): bitwise against the plain version
+    with write_uv both ways, then timed on the device alone (device_ms:
+    no host launch gaps) beside the plain version and the bound."""
+    from truetrace_tpu_torch.kernels.step_pallas import (
+        step_core, step_core_plain)
+    by_lanes, err = {}, 0.0
+    for R in STEP_CORE_LANES:
+        rowt, ray9, st5 = step_core_inputs(scene3, cam, R)
+        err = max(err, hold_step_core(step_core, rowt, ray9, st5,
+                                      "step_core"))
+        k = device_ms(lambda: step_core(rowt, ray9, st5))
+        p = cuda_ms(lambda: step_core_plain(rowt, ray9, st5), 3)
+        b = step_core_bound(R)
+        by_lanes[str(R)] = dict(ms=k, plain_ms=p, **b,
+                                share_of_bound=b["bound_ms"] / k)
+        log(f"step_core R={R}: bitwise equal to plain (write_uv both "
+            f"ways); kernel {k:.5f} ms = {b['bound_ms'] / k:.3f} of the "
+            f"{b['bound_ms']:.5f} ms bound ({b['bound_by']}), plain "
+            f"{p:.3f} ms")
+    del rowt, ray9, st5
+    results["step_core"] = dict(max_abs_err=err,
+                                **by_lanes[str(STEP_CORE_LANES[0])],
+                                by_lanes=by_lanes)
 
 
 # ---------------------------------------------------------------------------
@@ -602,35 +651,166 @@ def phase_frame(results, scene, cam, label: str):
     return launches, r, state
 
 
-def phase_profile(r, state):
-    """One more frame under torch.profiler: device time by kernel, the
-    number of kernels, and the device's busy share of the frame's wall
-    time (one stream, so kernel times do not overlap). The profiler's
-    own overhead inflates the wall time; the busy time is the kernels'."""
+def phase_profile(r, state, frame=None, label: str = "frame"):
+    """One more frame under torch.profiler (`r.step(state)`, or `frame()`
+    where given): device time by kernel, the number of kernels, the
+    device's busy share of the frame's wall time (one stream, so kernel
+    times do not overlap), and the frame's host copies and syncs: its
+    `Memcpy HtoD` / `DtoH` device events and its cudaStreamSynchronize
+    and blocking cudaMemcpy runtime calls (the final
+    cudaDeviceSynchronize that ends the window is the profiler's, not the
+    frame's); beside them its copies on the device (`Memcpy DtoD`, no
+    sync: a replay's camera and state hand-over). The profiler's own
+    overhead inflates the wall time; the busy time is the kernels'."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    frame = frame or (lambda: r.step(state))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        r.step(state)
+        frame()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
                and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in kernels) / 1e3
     n = sum(e.count for e in kernels)
     of = lambda name: sum(dev_us(e) for e in kernels if name in e.key) / 1e3
     trav, atr = of("traverse_kernel"), of("atrous_")
-    log(f"profiled frame: wall {wall * 1e3:.1f} ms, {n} kernels, device "
+    count = lambda pred: sum(e.count for e in events if pred(e.key))
+    copies = dict(
+        memcpy_htod=count(lambda k: "Memcpy HtoD" in k),
+        memcpy_dtoh=count(lambda k: "Memcpy DtoH" in k),
+        stream_syncs=count(lambda k: k.startswith("cudaStreamSynchronize")),
+        blocking_memcpy_calls=count(lambda k: k in ("cudaMemcpy",
+                                                    "cudaMemcpy2D")),
+        memcpy_dtod=count(lambda k: "Memcpy DtoD" in k))
+    log(f"profiled {label}: wall {wall * 1e3:.1f} ms, {n} kernels, device "
         f"busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of wall), "
         f"traversal {trav:.3f} ms ({100 * trav / busy:.1f}% of busy), "
-        f"a-trous {atr:.3f} ms ({100 * atr / busy:.2f}% of busy)")
+        f"a-trous {atr:.3f} ms ({100 * atr / busy:.2f}% of busy); host "
+        f"copies and syncs: {copies}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
         log(f"  {dev_us(e) / 1e3:8.3f} ms  {e.count:6d}x  {e.key[:100]}")
-    return dict(kernels=n, busy_ms=busy, traversal_ms=trav, atrous_ms=atr)
+    return dict(kernels=n, busy_ms=busy, wall_ms=wall * 1e3,
+                traversal_ms=trav, atrous_ms=atr, **copies)
+
+
+def moved_camera(cam):
+    """cam with its eye 0.05 along x (made on the card)."""
+    from truetrace_tpu_torch.scene.ir import Camera
+    c2w = cam.c2w.clone()
+    c2w[3, 0] += 0.05
+    return Camera(c2w=c2w, fov_y=cam.fov_y, aperture=cam.aperture,
+                  focus_dist=cam.focus_dist)
+
+
+def phase_sync_free(r, state, cam, label: str):
+    """Two more frames under torch.cuda.set_sync_debug_mode("error"),
+    which raises at any blocking copy between host and card and any
+    stream or device sync: one as it is, one moving the camera with
+    cam_moved=True. Returns the state after them."""
+    import torch
+    moved = moved_camera(cam)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, state = r.step(state)
+        _, _, state = r.step(state, cam=moved, cam_moved=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"{label}: two frames (the second moving the camera, cam_moved="
+        f"True) under set_sync_debug_mode('error'): no host copy or sync")
+    return state
+
+
+def phase_graph(results, scene, cam, label: str):
+    """The frame as CUDA graphs (Renderer.graph_step) against the eager
+    Renderer.step on the same scene, at FRAME:
+
+    1. parity: two fresh renderers, four frames each: as they are, as
+       they are, moving the camera (cam_moved=True; its own graph) and
+       with the moved camera (cam_moved=False; the first graph again, fed
+       the second's state). The first frame runs eagerly on both paths,
+       the other three replay; display, radiance and every state tensor
+       bit for bit equal to the eager ones;
+    2. time: FRAMES - 1 eager frames and as many replays, in turns, on
+       the host clock around a synchronised frame, and each replay's
+       device time (CUDA events around it: kernels and the gaps between
+       them inside the graph);
+    3. two replays under set_sync_debug_mode("error"), and one replay
+       under the profiler.
+    Results under results[label + "_graph"]."""
+    import torch
+    from truetrace_tpu_torch.renderer import Renderer, RendererConfig
+    cfg = RendererConfig(**FRAME)
+    moved = moved_camera(cam)
+    re, rg = Renderer(scene, cam, cfg), Renderer(scene, cam, cfg)
+    gs, gm = rg.graph_step(cam_moved=False), rg.graph_step(cam_moved=True)
+    se, sg = re.init_state(), rg.init_state()
+    t0 = time.perf_counter()
+    for i, (c, moved_now, frame) in enumerate((
+            (None, None, gs), (None, None, gs), (moved, True, gm),
+            (moved, False, gs))):
+        de, ae, se = re.step(se, cam=c, cam_moved=moved_now)
+        dg, ag, sg = frame(sg, cam=c)
+        pairs = [("display", de, dg), ("radiance", ae, ag),
+                 ("accum count", se.accum.count, sg.accum.count),
+                 ("taa history", se.taa_history, sg.taa_history)] + [
+            (f"svgf {k}", getattr(se.svgf, k), getattr(sg.svgf, k))
+            for k in ("color", "moments", "hist_len", "normal", "depth")]
+        for what, a, b in pairs:
+            check(torch_equal_bits(a, b), f"{label} frame {i + 1}: the "
+                  f"replayed {what} differs from the eager one")
+    torch.cuda.synchronize()
+    parity_s = time.perf_counter() - t0
+    check((gs.captures, gm.captures) == (1, 1),
+          f"{label}: graph captures {gs.captures}, {gm.captures}")
+    log(f"{label} graph: four frames (a camera move among them; the "
+        f"first eager, three replayed from two graphs) bit for bit equal "
+        f"to Renderer.step's display, radiance and state; {parity_s:.1f} s "
+        f"with both captures")
+    eager, replay, replay_dev = [], [], []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for _ in range(FRAMES - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, se = re.step(se)
+        torch.cuda.synchronize()
+        eager.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ev[0].record()
+        _, _, sg = gs(sg)
+        ev[1].record()
+        torch.cuda.synchronize()
+        replay.append(time.perf_counter() - t0)
+        replay_dev.append(ev[0].elapsed_time(ev[1]))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, sg = gm(sg, cam=cam)
+        _, _, sg = gs(sg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # a steady replay: the state is the graph's own, only the cameras
+    # are copied in
+    prof = phase_profile(None, None, lambda: gs(sg), f"{label} replay")
+    ms = lambda xs: 1e3 * sum(xs) / len(xs)
+    res = dict(eager_ms=ms(eager), replay_ms=ms(replay),
+               replay_device_ms=sum(replay_dev) / len(replay_dev),
+               eager_frames_ms=[1e3 * t for t in eager],
+               replay_frames_ms=[1e3 * t for t in replay],
+               profile=prof)
+    log(f"{label} {FRAME['width']}x{FRAME['height']}x{FRAME['bounces']} "
+        f"svgf, in turns: eager {res['eager_ms']:.1f} ms/frame, replayed "
+        f"{res['replay_ms']:.1f} ms/frame (device "
+        f"{res['replay_device_ms']:.1f} ms), "
+        f"{res['eager_ms'] / res['replay_ms']:.2f} times; two "
+        f"replays under set_sync_debug_mode('error')")
+    results[f"{label}_graph"] = res
 
 
 # ---------------------------------------------------------------------------
@@ -824,7 +1004,8 @@ def phase_sponza_slots(results, state, scene, cam):
     r = Renderer(every, cam, RendererConfig(**FRAME))
     r.step(state)                                       # warm-up
     torch.cuda.synchronize()
-    results["sponza_all_slots_profile"] = phase_profile(r, state)
+    results["sponza_all_slots_profile"] = phase_profile(
+        r, state, label="sponza frame, every slot")
 
 
 def render_mean(scene, cam, W: int, H: int, spp: int, **cfg):
@@ -981,6 +1162,9 @@ def ptxas_of(src: str, want: str) -> dict:
 
 
 PATH_KERNELS = ("closest_hit_wavefront", "any_hit_wavefront", "atrous_pass")
+# a profiled frame's host copies and syncs (phase_profile)
+COPY_KEYS = ("memcpy_htod", "memcpy_dtoh", "stream_syncs",
+             "blocking_memcpy_calls", "memcpy_dtod")
 
 
 def main() -> int:
@@ -1037,8 +1221,10 @@ def main() -> int:
     del scenes[3]
     launches, renderer, state = phase_frame(results, scenes[6], cam,
                                             "atrium")
-    results["profile"] = phase_profile(renderer, state)
+    state = phase_sync_free(renderer, state, cam, "atrium")
+    results["profile"] = phase_profile(renderer, state, label="atrium frame")
     phase_atrous_frame(results, renderer, state, "atrium")
+    phase_graph(results, scenes[6], cam, "atrium")
     smem = _cuda.lib("traverse.cu").tt_traverse_smem(scenes[6].cw_stack)
     del renderer, state, scenes
 
@@ -1048,11 +1234,14 @@ def main() -> int:
     phase_sponza_traversal(results, sponza, s_cam)
     s_launches, renderer, state = phase_frame(results, sponza, s_cam,
                                               "sponza")
-    results["sponza_profile"] = phase_profile(renderer, state)
+    state = phase_sync_free(renderer, state, s_cam, "sponza")
+    results["sponza_profile"] = phase_profile(renderer, state,
+                                              label="sponza frame")
     phase_sponza_slots(results, state, sponza, s_cam)
     phase_sponza_atrous(results, phase_atrous_frame(results, renderer, state,
                                                     "sponza"))
     del renderer, state
+    phase_graph(results, sponza, s_cam, "sponza")
     phase_sponza_unbiased(sponza, s_cam)
     phase_sponza_card_vs_cpu(parts[:-1], sponza, s_cam)
     del parts, sponza
@@ -1078,6 +1267,23 @@ def main() -> int:
     p = results["sponza_all_slots_profile"]
     log(f"frame sponza with every texture slot fetched: device busy "
         f"{p['busy_ms']:.1f} ms in {p['kernels']} kernels")
+    frames = {}
+    for label, prof in (("atrium", "profile"), ("sponza", "sponza_profile")):
+        g, p = results[f"{label}_graph"], results[prof]
+        gp = g["profile"]
+        log(f"frame {label}: eager {g['eager_ms']:.1f} ms, replayed "
+            f"{g['replay_ms']:.1f} ms (device {g['replay_device_ms']:.1f} ms,"
+            f" busy {gp['busy_ms']:.1f} ms in {gp['kernels']} kernels); "
+            f"eager frame's host copies and syncs "
+            f"{ {k: p[k] for k in COPY_KEYS} }, replayed frame's "
+            f"{ {k: gp[k] for k in COPY_KEYS} }")
+        frames[label] = dict(
+            eager_ms=g["eager_ms"], replay_ms=g["replay_ms"],
+            replay_device_ms=g["replay_device_ms"],
+            eager_busy_ms=p["busy_ms"], eager_kernels=p["kernels"],
+            replay_busy_ms=gp["busy_ms"], replay_kernels=gp["kernels"],
+            eager_copies={k: p[k] for k in COPY_KEYS},
+            replay_copies={k: gp[k] for k in COPY_KEYS})
     a = results["atrous_pass"]
     log("a-trous kernel ms by step: " + ", ".join(
         f"{k}: {v:.5f}" for k, v in a["ms_by_step"].items())
@@ -1098,7 +1304,8 @@ def main() -> int:
             share_of_bound=res["bound_ms"] / res["ms"],
             ptxas=ptxas[name], **{k: res[k] for k in (
                 "work", "ms_by_step", "plain_ms_by_step", "pack_ms",
-                "filter_ms", "atrium_frame_max_abs_err") if k in res})
+                "filter_ms", "atrium_frame_max_abs_err", "by_lanes")
+                if k in res})
         rows[name]["sponza"] = sponza_row(name, results, s_launches)
     for name in ("closest_hit_wavefront", "any_hit_wavefront"):
         # the ring stack's dynamic shared memory, as the launch sizes it
@@ -1107,7 +1314,8 @@ def main() -> int:
     # the traversal kernel; its own launch is held against its plain
     # version above but is not on the main path ("off_path").
     print(json.dumps({"kernels": [rows[n] for n in PATH_KERNELS],
-                      "off_path": [rows["step_core"]]}), flush=True)
+                      "off_path": [rows["step_core"]], "frames": frames}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

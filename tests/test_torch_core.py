@@ -49,6 +49,31 @@ def test_uniform_bitwise(fn):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
+@pytest.mark.parametrize("fn", ["uniform1", "uniform2", "uniform3"])
+def test_uniform_int_ids_match_tensor_ids(fn):
+    """Python-int sample and dim ids (kept as masked Python ints, so a
+    draw makes no device tensor from host data) draw the bits of the same
+    ids as int64 tensors, 0-d and per lane, and the JAX package's: the
+    low 32 bits of a product do not depend on whether the int was exact
+    or wrapped. Ids at and past 2^32 wrap; a negative one wraps too."""
+    pix = np.arange(2000, dtype=np.int64) * 2654435761 % (1 << 32)
+    pt = _t(pix)
+    for sample, dim in ((0, 0), (0xFFFFFFFF, 0xFFFFFFFE),
+                        ((1 << 32) + 5, rng_dim(5, 7)), (-3, 0x9E3779B9)):
+        a = getattr(trng, fn)(pt, sample, dim)
+        b = getattr(trng, fn)(pt, torch.tensor(sample & 0xFFFFFFFF),
+                              torch.tensor(dim))
+        c = getattr(trng, fn)(pt, torch.full((pix.size,), sample & 0xFFFFFFFF),
+                              torch.full((pix.size,), dim))
+        j = getattr(jrng, fn)(jnp.asarray(pix.astype(np.uint32)),
+                              jnp.uint32(sample & 0xFFFFFFFF),
+                              jnp.uint32(dim))
+        for x in (b, c):
+            assert torch.equal(a.view(torch.int32), x.view(torch.int32))
+        np.testing.assert_array_equal(np.asarray(j), a.numpy())
+    assert trng.u32(-1) == 0xFFFFFFFF and trng.u32((1 << 40) + 7) == 7
+
+
 def rng_dim(bounce, slot):
     assert trng.path_dim(bounce, slot) == int(jrng.path_dim(bounce, slot))
     return trng.path_dim(bounce, slot)

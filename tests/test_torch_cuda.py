@@ -9,7 +9,9 @@ counts that leave warps part empty or outnumber the resident lanes,
 back-to-back launches (the ray counter starts anew), and the wrappers'
 argument checks; and the textured, sky-lit sponza_like scene: the bench
 mix's rays bitwise, a-trous on a frame with sky rows, and its SVGF frames
-on the card against the CPU.
+on the card against the CPU; and the frame itself on both scenes: no host
+copy or sync inside Renderer.step, and Renderer.graph_step's replayed
+CUDA graphs bit for bit the eager frames.
 
 Needs an NVIDIA card and nvcc; skips elsewhere. It imports no JAX, so it
 runs on a machine without it (the JAX-side conftest is skipped):
@@ -171,29 +173,53 @@ def test_traversal_kernel_bitwise(scenes, k, stack):
     assert 0.05 < float(ok.float().mean()) < 0.95
 
 
-def test_step_core_kernel_bitwise(scenes, dev):
+def _misaligned(x):
+    """A contiguous copy of x whose data start 4 bytes past a 16-byte
+    boundary."""
+    y = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = y[1:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 == 4
+    return y
+
+
+@pytest.mark.parametrize("R", [1000, 4096, 65539])
+@pytest.mark.parametrize("layout", ["aligned", "misaligned"])
+def test_step_core_kernel_bitwise(scenes, dev, R, layout):
     """The standalone step_core launch on random rows of the K = 3 table
-    (leaf and node lanes) at a lane count that is no multiple of the
-    block, against step_core_plain."""
-    out, ro, rd, _ = scenes
+    (leaf and node lanes) against step_core_plain, with write_uv true and
+    false: at lane counts that are no multiple of 4 or of a tile (1000,
+    65539) and one that is (4096), on inputs that start 16-byte aligned
+    and on views that start 4 bytes past (every row segment misaligned
+    for 16-byte copies)."""
+    out = scenes[0]
     sc = out[3]
     table = sc.cw_table()
-    R = 1000
+    r = np.random.default_rng(R)
+    lo = sc.tri_p0.amin(0).cpu().numpy()
+    hi = sc.tri_p0.amax(0).cpu().numpy()
+    ro = torch.from_numpy(r.uniform(lo, hi, (R, 3)).astype(np.float32))
+    rd = torch.from_numpy(_unit(r, R))
+    ro, rd = ro.to(dev), rd.to(dev)
     g = torch.Generator().manual_seed(4)
     idx = torch.randint(0, table.shape[0], (R,), generator=g).to(dev)
     C = sc.cw_nodes.shape[0]
     rowt = torch.nn.functional.pad(table[idx], (0, 2)).t().contiguous()
-    inv = wf._inv_dir(rd[:R])
-    ray9 = torch.cat([ro[:R].t(), rd[:R].t(), inv.t()]).contiguous()
+    inv = wf._inv_dir(rd)
+    ray9 = torch.cat([ro.t(), rd.t(), inv.t()]).contiguous()
     st5 = torch.stack([torch.full((R,), 1e30, device=dev).view(torch.int32),
                        torch.full((R,), -1, dtype=torch.int32, device=dev),
                        torch.zeros(R, dtype=torch.int32, device=dev),
                        torch.zeros(R, dtype=torch.int32, device=dev),
                        (idx >= C).to(torch.int32)]).contiguous()
+    if layout == "misaligned":
+        rowt, ray9, st5 = (_misaligned(x) for x in (rowt, ray9, st5))
+    n0 = step_pallas.step_core.launches
     for write_uv in (True, False):
         a = step_pallas.step_core(rowt, ray9, st5, write_uv)
         b = step_pallas.step_core_plain(rowt, ray9, st5, write_uv)
         assert torch.equal(a, b)
+    assert step_pallas.step_core.launches == n0 + 2
 
 
 def test_wrappers_reject_bad_arguments(scenes, dev):
@@ -388,3 +414,89 @@ def test_sponza_renderer_card_matches_cpu(dev, tmp_path_factory):
         assert float(close) >= 0.98
         assert abs(float(dg.mean()) - float(dc.mean())) <= 1e-3 * float(
             dc.mean())
+
+
+# ---------------------------------------------------------------------------
+# the frame: no host copy or sync inside Renderer.step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("scene", ["atrium", "sponza_like"])
+def test_frame_makes_no_host_sync(dev, tmp_path_factory, scene):
+    """Renderer.step (Disney, light-tree NEE, SVGF) after a warm-up frame:
+    one more frame, then one that moves the camera with cam_moved=True,
+    under torch.cuda.set_sync_debug_mode("error"), which raises at any
+    blocking copy between host and card and at any stream or device
+    sync. The moved frame restarts accumulation."""
+    from truetrace_tpu_torch.renderer import Renderer, RendererConfig
+    from truetrace_tpu_torch.scene.ir import Camera
+    if scene == "atrium":
+        meshes, mats, cam, env = atrium.make(detail=0.2, device=dev)
+        sc = compile_scene(meshes, mats, env=env, with_cwbvh=True,
+                           with_light_bvh=True, device=dev)
+    else:
+        sc, _, cam = _sponza(dev, tmp_path_factory, 0.5)
+    assert sc.lbvh_pairs.shape[0] > 0
+    r = Renderer(sc, cam, RendererConfig(
+        width=64, height=48, bounces=4, bsdf="disney",
+        traversal="wavefront", light_sampling="tree", denoiser="svgf"))
+    st = r.init_state()
+    _, _, st = r.step(st)
+    c2w = cam.c2w.clone()
+    c2w[3, :3] += 0.05                                  # the eye moves
+    moved = Camera(c2w=c2w, fov_y=cam.fov_y, aperture=cam.aperture,
+                   focus_dist=cam.focus_dist)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, st = r.step(st)
+        disp, _, st = r.step(st, cam=moved, cam_moved=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(st.accum.count) == 1.0
+    assert bool(torch.isfinite(disp).all())
+
+
+@pytest.mark.parametrize("scene", ["atrium", "sponza_like"])
+def test_graph_frames_match_eager(dev, tmp_path_factory, scene):
+    """Renderer.graph_step against Renderer.step on fresh renderers, four
+    SVGF frames each: as they are (the first runs eagerly on both paths,
+    the second is captured and replayed), moving the camera
+    (cam_moved=True, its own graph) and with the moved camera
+    (cam_moved=False, the first graph fed the second's state). Display,
+    radiance and every state tensor are bit for bit the eager ones; two
+    more replays run under set_sync_debug_mode("error")."""
+    import chip_smoke
+    from truetrace_tpu_torch.renderer import Renderer, RendererConfig
+    if scene == "atrium":
+        meshes, mats, cam, env = atrium.make(detail=0.2, device=dev)
+        sc = compile_scene(meshes, mats, env=env, with_cwbvh=True,
+                           with_light_bvh=True, device=dev)
+    else:
+        sc, _, cam = _sponza(dev, tmp_path_factory, 0.5)
+    cfg = RendererConfig(width=64, height=48, bounces=4, bsdf="disney",
+                         traversal="wavefront", light_sampling="tree",
+                         denoiser="svgf")
+    moved = chip_smoke.moved_camera(cam)
+    re, rg = Renderer(sc, cam, cfg), Renderer(sc, cam, cfg)
+    gs, gm = rg.graph_step(cam_moved=False), rg.graph_step(cam_moved=True)
+    se, sg = re.init_state(), rg.init_state()
+    for c, moved_now, frame in ((None, None, gs), (None, None, gs),
+                                (moved, True, gm), (moved, False, gs)):
+        de, ae, se = re.step(se, cam=c, cam_moved=moved_now)
+        dg, ag, sg = frame(sg, cam=c)
+        pairs = [(de, dg), (ae, ag), (se.accum.count, sg.accum.count),
+                 (se.taa_history, sg.taa_history)] + [
+            (getattr(se.svgf, k), getattr(sg.svgf, k))
+            for k in ("color", "moments", "hist_len", "normal", "depth")]
+        assert all(chip_smoke.torch_equal_bits(a, b) for a, b in pairs)
+        assert sg.sample == se.sample
+    assert (gs.captures, gm.captures) == (1, 1)
+    assert float(sg.accum.count) == 2.0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, sg = gs(sg)
+        dg, _, sg = gm(sg, cam=cam)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(dg).all()) and float(sg.accum.count) == 1.0

@@ -94,6 +94,95 @@ def test_renderer_three_svgf_frames_match_jax(cornell_pair):
     assert torch.equal(back.svgf.hist_len, tst.svgf.hist_len)
 
 
+def test_step_cam_moved_resets_accumulation(cornell_pair):
+    """Renderer.step takes cam_moved as the JAX step does: with a camera
+    passed, True restarts accumulation and False keeps it although the
+    camera moved; None compares the cameras by value (the same one keeps
+    it, a moved one restarts); with no camera passed it does nothing. A
+    restart makes the accumulation that frame alone. graph_step, the CUDA
+    graph path, refuses a scene on the CPU."""
+    _, _, ts, tcam = cornell_pair
+    # one bounce without shadow rays: the frames' contents do not matter
+    # here, only which of them accumulate
+    r = Renderer(ts, tcam, RendererConfig(width=8, height=8, bounces=1,
+                                          use_nee=False,
+                                          **{k: v for k, v in FRAME.items()
+                                             if k != "bounces"}))
+    c2w = tcam.c2w.clone()
+    c2w[3, 0] += 0.1                                    # the eye moves
+    moved = Camera(c2w=c2w, fov_y=tcam.fov_y, aperture=tcam.aperture,
+                   focus_dist=tcam.focus_dist)
+    st = r.init_state()
+    counts = []
+    for cam, cam_moved in ((None, None), (None, True), (tcam, None),
+                           (moved, False), (moved, True), (tcam, None),
+                           (tcam, None)):
+        _, _, st = r.step(st, cam=cam, cam_moved=cam_moved)
+        counts.append(float(st.accum.count))
+    assert counts == [1, 2, 3, 4, 1, 1, 2]
+    assert st.sample == 7 and torch.equal(r.cam.c2w, tcam.c2w)
+    with pytest.raises(ValueError, match="CUDA"):
+        r.graph_step(cam_moved=True)(st)
+
+
+def _flat(out):
+    """The tensors of a nested tuple / dict, in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    items = out.values() if isinstance(out, dict) else out
+    return [t for x in items for t in _flat(x)]
+
+
+def test_graph_step_state_flow_matches_step(cornell_pair, monkeypatch):
+    """graph_step's bookkeeping on the CPU, with the CUDA capture replaced
+    by what a replay amounts to (run the captured function again and
+    copy its results into the tensors the capture returned): four SVGF
+    frames, the first eager, then the graphs of both cam_moved values,
+    the first moving the camera, each fed the other's state, and a
+    replay fed its own state; equal bit for bit to Renderer.step's
+    display, radiance and state."""
+    import truetrace_tpu_torch.renderer as rmod
+
+    def capture(fn, device):
+        out = fn()
+
+        class Replay:
+            def replay(self):
+                for a, b in zip(_flat(out), _flat(fn())):
+                    a.copy_(b)
+        return Replay(), out
+
+    monkeypatch.setattr(rmod, "_capture", capture)
+    monkeypatch.setattr(rmod, "_check_device", lambda device: None)
+    _, _, ts, tcam = cornell_pair
+    cfg = RendererConfig(width=8, height=8, denoiser="svgf", bounces=1,
+                         use_nee=False, **{k: v for k, v in FRAME.items()
+                                           if k != "bounces"})
+    c2w = tcam.c2w.clone()
+    c2w[3, 0] += 0.1                                    # the eye moves
+    moved = Camera(c2w=c2w, fov_y=tcam.fov_y, aperture=tcam.aperture,
+                   focus_dist=tcam.focus_dist)
+    re, rg = Renderer(ts, tcam, cfg), Renderer(ts, tcam, cfg)
+    gs, gm = rg.graph_step(cam_moved=False), rg.graph_step(cam_moved=True)
+    se, sg = re.init_state(), rg.init_state()
+    for cam, moved_now, frame in ((None, None, gs), (moved, True, gm),
+                                  (moved, False, gs), (None, None, gs)):
+        de, ae, se = re.step(se, cam=cam, cam_moved=moved_now)
+        dg, ag, sg = frame(sg, cam=cam)
+        got = _flat((dg, ag, sg.accum.image, sg.accum.count,
+                     sg.svgf.__dict__, sg.taa_history, sg.prev_cam.__dict__))
+        want = _flat((de, ae, se.accum.image, se.accum.count,
+                      se.svgf.__dict__, se.taa_history,
+                      se.prev_cam.__dict__))
+        assert all(torch.equal(a.view(torch.int32) if a.is_floating_point()
+                               else a, b.view(torch.int32)
+                               if b.is_floating_point() else b)
+                   for a, b in zip(got, want))
+        assert sg.sample == se.sample
+    assert float(sg.accum.count) == 3.0
+    assert (gs.captures, gm.captures) == (1, 1)
+
+
 def _render(scene, cam, W, spp, **cfg):
     """[H,W,3] mean of spp samples, all traced as one batch (sample ids
     are per-lane counters, so this equals spp separate samples)."""

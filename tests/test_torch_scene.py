@@ -3,6 +3,7 @@ copies of the builders and scene generators) against the JAX package's,
 table for table and bit for bit; the traversal table (expand_nodes,
 pack_table); the carry-across constructors; and the options the slice
 does not port, which must raise; and the entry points' device defaults."""
+import dataclasses
 import inspect
 
 import numpy as np
@@ -126,6 +127,25 @@ def test_scene_from_numpy_carries_across():
     assert torch.equal(cs.light_tris.rows, ts.light_tris.rows)
     assert cs.cw_stack == ts.cw_stack and cs.has_media == ts.has_media
     assert torch.equal(cs.cw_table(), ts.cw_table())
+
+
+@pytest.mark.parametrize("name,detail,k", [CASES[2], CASES[0]])
+def test_lbvh_depth_fixed_at_build(name, detail, k):
+    """Scene.lbvh_depth, the bound of the light-tree descent loops, is a
+    plain int field set when the scene is built (reading it copies
+    nothing from the device), equal to a walk over the light BVH's node
+    rows, and Scene.from_numpy gives the same."""
+    js, ts = _pair(name, detail, k)
+    assert "lbvh_depth" in {f.name for f in dataclasses.fields(Scene)}
+    assert type(ts.lbvh_depth) is int
+    info = ts.lbvh_info.numpy()
+    depth, frontier = 0, [0]
+    while frontier:
+        frontier = [c for n in frontier if info[n, 1] < 0
+                    for c in (info[n, 0], -info[n, 1])]
+        depth += 1
+    assert ts.lbvh_depth == min(depth, 32) > 1
+    assert Scene.from_numpy(leaves(js), "cpu").lbvh_depth == ts.lbvh_depth
 
 
 def test_pack_leaf_rows_layout():

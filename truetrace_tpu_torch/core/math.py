@@ -111,6 +111,11 @@ def fma(a, b, c):
     return torch.where(fix, bits + step, bits).view(torch.float64).float()
 
 
+# sqrt(1/3) rounded to float32, made once on the CPU: an exact float32
+# value, so `_SQRT_THIRD * s` rounds as the 0-d tensor product did
+_SQRT_THIRD = float(torch.sqrt(torch.tensor(1.0 / 3.0, dtype=torch.float32)))
+
+
 def hue_rotate(rgb, degrees):
     """Rotate RGB hue around the grey axis by `degrees` [...] (the
     reference's Unity_Hue_Degrees, RayTracingShader.compute:640)."""
@@ -118,8 +123,7 @@ def hue_rotate(rgb, degrees):
     c = torch.cos(th)
     s = torch.sin(th)
     one3 = (1.0 - c) / 3.0
-    rt3s = torch.sqrt(torch.tensor(1.0 / 3.0, dtype=torch.float32,
-                                   device=rgb.device)) * s
+    rt3s = _SQRT_THIRD * s
     m00 = c + one3
     m01 = one3 - rt3s
     m02 = one3 + rt3s

@@ -8,6 +8,13 @@ code path serves both devices: values are uint32 bit patterns held in
 int64 and masked with 0xFFFFFFFF after every operation. A wrapped int64
 product keeps its low 32 bits exact, so the results are bitwise equal to
 the uint32 ones.
+
+A Python-int counter (a sample or dimension id) stays a Python int,
+masked to 32 bits, and broadcasts against the pixel tensor: making a
+device tensor of it would be a host-to-device copy, and a stream sync,
+at every draw. Python int products are exact, so they are masked before
+they meet a tensor (an int64 scalar); the low 32 bits, all that is kept,
+are those of the wrapped product.
 """
 from __future__ import annotations
 
@@ -18,31 +25,37 @@ _M = 1664525
 _A = 1013904223
 
 
-def u32(x, device=None) -> torch.Tensor:
-    """Any integer tensor or Python int -> int64 tensor of uint32 bits."""
+def u32(x):
+    """An integer tensor -> int64 tensor of its uint32 bits; a Python int
+    -> a Python int in [0, 2^32)."""
     if not isinstance(x, torch.Tensor):
-        x = torch.tensor(int(x) & M32, dtype=torch.int64, device=device)
+        return int(x) & M32
     return x.to(torch.int64) & M32
+
+
+def _mul(a, b):
+    """a * b, masked first where both are Python ints."""
+    p = a * b
+    return p & M32 if isinstance(p, int) else p
 
 
 def pcg3d(v0, v1, v2):
     """3-D PCG hash (Jarzynski & Olano 2020): three uint32 counters -> three
-    decorrelated uint32, each as int64 bits."""
-    dev = next((v.device for v in (v0, v1, v2)
-                if isinstance(v, torch.Tensor)), None)
-    x, y, z = u32(v0, dev), u32(v1, dev), u32(v2, dev)
+    decorrelated uint32, each as int64 bits (Python ints where every
+    counter is one)."""
+    x, y, z = u32(v0), u32(v1), u32(v2)
     x = (x * _M + _A) & M32
     y = (y * _M + _A) & M32
     z = (z * _M + _A) & M32
-    x = (x + y * z) & M32
-    y = (y + z * x) & M32
-    z = (z + x * y) & M32
+    x = (x + _mul(y, z)) & M32
+    y = (y + _mul(z, x)) & M32
+    z = (z + _mul(x, y)) & M32
     x = x ^ (x >> 16)
     y = y ^ (y >> 16)
     z = z ^ (z >> 16)
-    x = (x + y * z) & M32
-    y = (y + z * x) & M32
-    z = (z + x * y) & M32
+    x = (x + _mul(y, z)) & M32
+    y = (y + _mul(z, x)) & M32
+    z = (z + _mul(x, y)) & M32
     return x, y, z
 
 

@@ -243,8 +243,8 @@ def render_sample_with_stats(scene: Scene, cam: Camera, cfg: RenderConfig,
     W, H = cfg.width, cfg.height
     pixel = pixel.to(torch.int64)
     jit2 = rng.uniform2(pixel, sample_id, rng.DIM_CAMERA_JITTER)
-    lens_u = rng.uniform2(pixel, rng.u32(sample_id, pixel.device)
-                          + 0x9E3779B9, rng.DIM_CAMERA_JITTER)
+    lens_u = rng.uniform2(pixel, rng.u32(sample_id) + 0x9E3779B9,
+                          rng.DIM_CAMERA_JITTER)
     ro, rd = camera_rays(cam, W, H, pixel, jit2, lens_u=lens_u)
     # per-pixel ray-cone spread (texture LOD; ray cones stand in for the
     # reference's hardware-derivative texture fetches)
@@ -396,8 +396,8 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
     prev_n = torch.zeros((R, 3), **f32)
     # ray cones for texture LOD: width at the origin + spread per unit t
     cone_w = torch.zeros((R,), **f32)
-    cone_s = (cone_spread if cone_spread is not None
-              else torch.tensor(0.002, **f32)).expand(R).to(**f32)
+    cone_s = (cone_spread.expand(R).to(**f32) if cone_spread is not None
+              else torch.full((R,), 0.002, **f32))
     n_trace = torch.zeros((), **f32)
     n_shadow = torch.zeros((), **f32)
     use_tree = (cfg.light_sampling == "tree"

@@ -430,8 +430,10 @@ def _launch(table, n_nodes, ro, rd, t_max, any_hit: bool,
                          f"aligned")
     if not 1 <= max_stack <= MAX_STACK_CUDA:
         raise ValueError(f"max_stack {max_stack} outside 1..{MAX_STACK_CUDA}")
-    tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
-    tm = tm.expand(R).contiguous()
+    if isinstance(t_max, torch.Tensor):
+        tm = t_max.to(device=dev, dtype=torch.float32).expand(R).contiguous()
+    else:
+        tm = torch.full((R,), float(t_max), dtype=torch.float32, device=dev)
     t = torch.empty((R,), dtype=torch.float32, device=dev)
     tri = torch.empty((R,), dtype=torch.int32, device=dev)
     u = torch.empty((R,), dtype=torch.float32, device=dev)

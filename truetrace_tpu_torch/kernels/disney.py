@@ -92,10 +92,11 @@ def _sample_vndf(wo, ax, ay, u2):
                                wo[..., 2]], -1))
     lensq = v[..., 0] ** 2 + v[..., 1] ** 2
     inv = 1.0 / torch.sqrt(_cmax(lensq, 1e-12))
+    zero = torch.zeros_like(inv)
     t1 = torch.where(lensq[..., None] > 1e-9,
-                     torch.stack([-v[..., 1] * inv, v[..., 0] * inv,
-                                  torch.zeros_like(inv)], -1),
-                     torch.tensor([1.0, 0.0, 0.0], device=v.device))
+                     torch.stack([-v[..., 1] * inv, v[..., 0] * inv, zero],
+                                 -1),
+                     torch.stack([torch.ones_like(inv), zero, zero], -1))
     t2 = cross(v, t1)
     r = torch.sqrt(u2[..., 0])
     phi = 2.0 * PI * u2[..., 1]

@@ -19,6 +19,12 @@ ALPHA_MOMENTS = 0.2
 SIGMA_Z = 1.0
 SIGMA_N = 128.0
 SIGMA_L = 4.0
+# the 7x7 spatial-variance weights exp(-r2 / 8) by squared radius r2, in
+# float32, made once on the CPU; exact float32 values, so `x * k` rounds
+# as the product with a 0-d float32 tensor did
+_SPATIAL_W = {r2: float(torch.exp(torch.tensor(-0.5 * r2 / 4.0,
+                                                 dtype=torch.float32)))
+              for r2 in range(19)}
 
 
 @dataclass
@@ -167,8 +173,7 @@ def svgf_denoise(noisy, albedo, normal, depth, state: SVGFState,
     sp_w = torch.zeros_like(lum)
     for dy in range(-3, 4):
         for dx in range(-3, 4):
-            k = torch.exp(torch.tensor(-0.5 * (dy * dy + dx * dx) / 4.0,
-                                       device=lum.device))
+            k = _SPATIAL_W[dy * dy + dx * dx]
             sp_m = sp_m + _shift(mom, dy, dx) * k
             sp_w = sp_w + k
     sp_m = sp_m / sp_w[..., None]

@@ -3,9 +3,12 @@
 Port of `truetrace_tpu/renderer.py` for the frame the slice covers: trace
 one sample per pixel, denoise with SVGF (or not at all), clamp fireflies,
 accumulate, post-process. Per-frame state is an explicit `FrameState`
-threaded through `Renderer.step`; everything runs eagerly on the scene's
-device (there is no counterpart of the JAX `jit_step`). Options outside
-the slice raise NotImplementedError naming their ROADMAP.md item.
+threaded through `Renderer.step`, which runs eagerly on the scene's
+device. `Renderer.graph_step` is the counterpart of the JAX `jit_step`:
+on a CUDA card it captures the frame once as a CUDA graph and replays it,
+so the device runs the frame's kernels without the host launching each
+one. Options outside the slice raise NotImplementedError naming their
+ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -123,25 +126,43 @@ class Renderer:
         return replace(state, accum=state.accum.reset())
 
     def step(self, state: FrameState, cam: Optional[Camera] = None,
-             scene: Optional[Scene] = None):
+             scene: Optional[Scene] = None,
+             cam_moved: Optional[bool] = None):
         """One frame: trace, denoise, clamp fireflies, accumulate, post.
         Returns (display [H,W,3] in [0,1], accumulated radiance [H,W,3],
-        new_state). Passing `cam` moves the camera (accumulation restarts
-        when it changed; temporal passes reproject with motion vectors);
-        passing `scene` swaps the geometry and restarts accumulation."""
-        cfg = self.cfg
+        new_state). Passing `cam` moves the camera: accumulation restarts
+        when `cam_moved` is true, or, with `cam_moved` None, when the
+        camera differs from the last one by value (a compare that reads
+        the card back; pass `cam_moved` to keep the frame free of host
+        syncs). Temporal passes reproject with motion vectors. Passing
+        `scene` swaps the geometry and restarts accumulation."""
         if scene is not None:
             self.scene = scene
             state = self.reset_accumulation(state)
         if cam is not None:
             cam = cam.to(self.scene.device)
-            if not torch.allclose(cam.c2w, self.cam.c2w, atol=1e-7):
+            if cam_moved is None:
+                cam_moved = not torch.allclose(cam.c2w, self.cam.c2w,
+                                               atol=1e-7)
+            if cam_moved:
                 state = self.reset_accumulation(state)
             self.cam = cam
+        display, accum, svgf, taa_hist = self._frame(state, self.cam,
+                                                     state.sample)
+        new_state = FrameState(accum=accum, sample=state.sample + 1,
+                               svgf=svgf, taa_history=taa_hist,
+                               prev_cam=self.cam)
+        return display, accum.image, new_state
+
+    def _frame(self, state: FrameState, cam: Camera, sid):
+        """The device work of one frame from `state`, seen by `cam`, with
+        sample id `sid` (a Python int, or a 0-d int64 tensor on the card,
+        as graph_step captures it): (display, accumulator, SVGF state,
+        TAA history)."""
+        cfg = self.cfg
         h, w = cfg.height, cfg.width
-        sid = state.sample
         pixel = torch.arange(h * w, device=self.scene.device)
-        rad, st = render_sample_with_stats(self.scene, self.cam, self.rcfg,
+        rad, st = render_sample_with_stats(self.scene, cam, self.rcfg,
                                            pixel, sid)
         frame = rad.reshape(h, w, 3)
         albedo = st["albedo"].reshape(h, w, 3)
@@ -151,7 +172,7 @@ class Renderer:
         motion = None
         if state.prev_cam is not None:
             from truetrace_tpu_torch.post.motion import motion_vectors
-            motion = motion_vectors(state.prev_cam, self.cam, depth)
+            motion = motion_vectors(state.prev_cam, cam, depth)
 
         svgf = state.svgf
         if cfg.denoiser == "svgf":
@@ -162,6 +183,155 @@ class Renderer:
         accum = state.accum.add(frame)
         display, taa_hist = postprocess(accum.image, cfg.post,
                                         state.taa_history, motion=motion)
-        new_state = FrameState(accum=accum, sample=sid + 1, svgf=svgf,
-                               taa_history=taa_hist, prev_cam=self.cam)
-        return display, accum.image, new_state
+        return display, accum, svgf, taa_hist
+
+    def graph_step(self, cam_moved: bool = False) -> "GraphFrame":
+        """The frame as CUDA graphs, the counterpart of the JAX
+        `jit_step`: returns `frame(state, cam=None) -> (display,
+        radiance, new_state)` (see GraphFrame). `cam_moved` is fixed per
+        frame function, as JAX's static argument: True restarts
+        accumulation every frame, False never does. Needs a scene on a
+        CUDA card."""
+        return GraphFrame(self, cam_moved)
+
+
+_CAM = ("c2w", "fov_y", "aperture", "focus_dist")
+_SVGF = ("color", "moments", "hist_len", "normal", "depth")
+
+
+def _tensors(state: FrameState) -> list:
+    """(name, tensor) of a frame state's tensors besides its cameras:
+    the accumulator, the SVGF and the TAA histories."""
+    out = [("accum.image", state.accum.image),
+           ("accum.count", state.accum.count)]
+    if state.svgf is not None:
+        out += [(f"svgf.{k}", getattr(state.svgf, k)) for k in _SVGF]
+    if state.taa_history is not None:
+        out.append(("taa_history", state.taa_history))
+    return out
+
+
+def _cams(name: str, cam: Camera) -> list:
+    return [(f"{name}.{k}", getattr(cam, k)) for k in _CAM]
+
+
+def _state(t: dict, sample: int, prev: str) -> FrameState:
+    """FrameState of the named tensors in `t`, its previous camera the
+    one named `prev` ("prev_cam" or "cam")."""
+    return FrameState(
+        accum=Accumulator(image=t["accum.image"], count=t["accum.count"]),
+        sample=sample,
+        svgf=SVGFState(**{k: t[f"svgf.{k}"] for k in _SVGF})
+        if "svgf.color" in t else None,
+        taa_history=t.get("taa_history"),
+        prev_cam=Camera(**{k: t[f"{prev}.{k}"] for k in _CAM}))
+
+
+def _capture(fn, device):
+    """Capture fn() as a CUDA graph on `device`, after one run on a side
+    stream (torch's recipe: lazy set-up happens outside the capture).
+    Returns (graph, what fn returned during the capture: tensors in the
+    graph's memory, which every replay writes anew)."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def _check_device(device):
+    if device.type != "cuda":
+        raise ValueError("graph_step captures CUDA graphs and needs a scene "
+                         f"on a CUDA card; Renderer.step runs on {device}")
+
+
+class _Captured:
+    """The frame captured as a CUDA graph: the buffers it reads (state,
+    previous camera, camera, sample id), the graph, its display."""
+
+    def __init__(self, r: Renderer, state: FrameState, cam_moved: bool):
+        self.scene = r.scene
+        self.sid = torch.zeros((), dtype=torch.int64, device=r.scene.device)
+        self.buf = {k: v.clone() for k, v in self._inputs(state, r.cam)}
+        st_in = _state(self.buf, 0, "prev_cam")
+        cam_in = Camera(**{k: self.buf[f"cam.{k}"] for k in _CAM})
+
+        def body():
+            st = r.reset_accumulation(st_in) if cam_moved else st_in
+            display, accum, svgf, taa = r._frame(st, cam_in, self.sid)
+            # the new state goes back into the buffers the next replay
+            # reads
+            new = FrameState(accum=accum, sample=0, svgf=svgf,
+                             taa_history=taa, prev_cam=cam_in)
+            for k, v in _tensors(new):
+                self.buf[k].copy_(v)
+            return display
+
+        self.sid.fill_(state.sample)
+        self.graph, self.display = _capture(body, r.scene.device)
+
+    @staticmethod
+    def _inputs(state: FrameState, cam: Camera) -> list:
+        # the previous camera before the camera: a state this graph
+        # returned has the camera buffers as its previous camera
+        return (_tensors(state) + _cams("prev_cam", state.prev_cam)
+                + _cams("cam", cam))
+
+    def run(self, state: FrameState, cam: Camera):
+        """Set the sample id, copy in what the buffers do not hold
+        already (device to device), replay."""
+        self.sid.fill_(state.sample)
+        for k, v in self._inputs(state, cam):
+            if v is not self.buf[k]:
+                self.buf[k].copy_(v)
+        self.graph.replay()
+        return (self.display, self.buf["accum.image"],
+                _state(self.buf, state.sample + 1, "cam"))
+
+
+class GraphFrame:
+    """`Renderer.step` as a CUDA graph (made by `Renderer.graph_step`).
+
+    `frame(state, cam=None)` returns (display, radiance, new_state) as
+    `step` does, with the camera moved to `cam` when one is passed, and
+    accumulation restarted every frame when `cam_moved` is true and never
+    otherwise. A frame without a previous camera or TAA history (the
+    first after `init_state`) runs eagerly. The next one is captured
+    (`torch.cuda.CUDAGraph`; again after the renderer's scene changes)
+    and every later one replays it: the device runs the frame's kernels
+    back to back with no host work between them.
+
+    The graph reads buffers of its own and, as its last work, writes the
+    new state back into them. Before a replay the sample id is set by a
+    fill kernel (the value travels as a launch argument), and the
+    cameras and any state the buffers do not already hold are copied in
+    on the device: a replay makes no host copy and no sync. What a replay
+    returns (display, radiance and the new state) is the graph's own
+    memory, which the next replay of this frame function overwrites:
+    clone what must outlive it. The kernel wrappers' launch counters
+    count eager launches only.
+    """
+
+    def __init__(self, renderer: Renderer, cam_moved: bool):
+        self.r = renderer
+        self.cam_moved = bool(cam_moved)
+        self.captures = 0
+        self._captured: Optional[_Captured] = None
+
+    def __call__(self, state: FrameState, cam: Optional[Camera] = None):
+        r = self.r
+        _check_device(r.scene.device)
+        if cam is not None:
+            r.cam = cam.to(r.scene.device)
+        if state.prev_cam is None or state.taa_history is None:
+            if self.cam_moved:
+                state = r.reset_accumulation(state)
+            return r.step(state)
+        if self._captured is None or self._captured.scene is not r.scene:
+            self._captured = _Captured(r, state, self.cam_moved)
+            self.captures += 1
+        return self._captured.run(state, r.cam)

@@ -248,6 +248,9 @@ class Scene:
     # the TEX_SLOTS some material sets, fixed when the scene is built
     # (empty without an atlas): the integrator fetches only these
     tex_slots: tuple = ()
+    # levels of internal nodes in the light BVH, fixed when the scene is
+    # built: the bound on every light-tree descent loop
+    lbvh_depth: int = 0
     # the traversal's unified [C+L, 10K] node + leaf-row table, built at
     # first use (kernels/cwbvh_wavefront.py pack_table)
     _cw_table: Optional[torch.Tensor] = field(default=None, repr=False)
@@ -258,21 +261,6 @@ class Scene:
     @property
     def device(self) -> torch.device:
         return self.tri_p0.device
-
-    @property
-    def lbvh_depth(self) -> int:
-        """Levels of internal nodes in the light BVH: the bound on every
-        descent loop (the JAX package's while_loops stop at the same
-        depth or at 32)."""
-        info = self.lbvh_info.cpu().numpy()
-        if info.shape[0] == 0:
-            return 0
-        depth, frontier = 0, [0]
-        while frontier:
-            frontier = [c for n in frontier if info[n, 1] < 0
-                        for c in (info[n, 0], -info[n, 1])]
-            depth += 1
-        return min(depth, 32)
 
     def cw_table(self) -> torch.Tensor:
         if self._cw_table is None:
@@ -305,7 +293,23 @@ class Scene:
                           if bool((getattr(materials, k) >= 0).any()))
         return _from_dict(Scene, d, device, bits=("cw_nodes", "lbvh_trail"),
                           materials=materials, light_tris=light_tris,
-                          lights=lights, env=env, tex_slots=slots)
+                          lights=lights, env=env, tex_slots=slots,
+                          lbvh_depth=light_bvh_depth(d["lbvh_info"]))
+
+
+def light_bvh_depth(info) -> int:
+    """Levels of internal nodes in a light BVH of node rows `info` [N,2]
+    (child, -sibling where internal), capped at 32: the depth at which
+    the JAX package's descent while_loops stop."""
+    info = np.asarray(info)
+    if info.shape[0] == 0:
+        return 0
+    depth, frontier = 0, [0]
+    while frontier:
+        frontier = [c for n in frontier if info[n, 1] < 0
+                    for c in (info[n, 0], -info[n, 1])]
+        depth += 1
+    return min(depth, 32)
 
 
 @dataclass
