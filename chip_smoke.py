@@ -34,7 +34,13 @@ Phases, each of which raises on a failed check:
    the frame as CUDA graphs (Renderer.graph_step): replayed frames bit
    for bit the eager ones over a camera move, eager and replayed frames
    timed in turns, replays under the sync debug mode and the profiler;
-4. the sponza_like path (bench.py's headline scene): export it at detail
+3b. the composed production frame (COMPOSED: phase 3's frame with the
+   ReSTIR DI prepass, the radiance cache with query bounce 2, ReSTIR GI)
+   on the same atrium: its frames, sync-free frames, profile (host copies
+   and syncs must be none; the cache's index_put sort and sums) and CUDA
+   graphs as phase 3's, every state tensor (reservoirs and cache tables
+   included) bit for bit; the cache update on a frame's own records, bit
+   for bit twice and from a CUDA graph, and its device time; (bench.py's headline scene): export it at detail
    5 (269,260 triangles) into a temporary directory, load the OBJ, MTL and
    PNG files with the port's loader (no Pillow), build it at K = 6 with the
    texture atlas and the textured sky; bench.py's ray mix at its 131072
@@ -49,15 +55,20 @@ Phases, each of which raises on a failed check:
    CPU;
 5. correctness of the output: a Cornell box rendered on the card agrees
    with the same render on the CPU, and passes the physics checks of
-   scripts/verify_drive.py at 256x256.
+   scripts/verify_drive.py at 256x256; the JAX package's statistical
+   gates of the composed frame's parts on the card (ReSTIR DI unbiased,
+   the composed frame's energy, cache probing under contention); two
+   composed Cornell frames at 16x16 on the card against the CPU.
 
 It prints the card line, one JSON line of kernel results (time, plain
 time, bound and what sets it, launches per frame, ptxas registers,
 spills and shared memory, for the traversal the work per ray, for
 a-trous the time at each step and of packing; under "sponza" each
-kernel's launches, time and bound on the sponza_like path; under
-"frames" each scene's eager and replayed frame times, device busy,
-kernel counts and host copies), and as its last line
+kernel's launches, time and bound on the sponza_like path, under
+"composed" its launches on the composed frame; under "frames" each
+path's eager and replayed frame times, device busy, kernel counts and
+host copies, and the composed frame's cache numbers and gates), and as
+its last line
 {"ok": true, "device": {...}}. It exits non-zero, with
 no result line, when there is no CUDA card or the port's package is
 missing.
@@ -83,6 +94,11 @@ ATRIUM_DETAIL = 1.5
 BENCH_RAYS = 1 << 17
 FRAME = dict(width=512, height=512, bounces=4, bsdf="disney",
              traversal="wavefront", light_sampling="tree", denoiser="svgf")
+# the JAX package's composed production frame (scripts/profile_composed.py
+# full_composed): FRAME with the radiance cache (query bounce 2), ReSTIR
+# GI and ReSTIR DI
+COMPOSED = dict(FRAME, use_radiance_cache=True, cache_query_bounce=2,
+                cache_capacity=1 << 20, use_restir=True, use_restir_di=True)
 # a-trous kernel vs plain: the card's exp2 and seven squarings round
 # differently from torch's exp and pow in the last ulps, which the
 # normalised sums carry
@@ -604,14 +620,14 @@ def launch_counters():
             "atrous_pass": atrous_pallas.atrous_pass_packed}
 
 
-def phase_frame(results, scene, cam, label: str):
-    """`Renderer.step` at FRAME: 1 warm-up and FRAMES - 1 timed frames,
+def phase_frame(results, scene, cam, label: str, cfg: dict = FRAME):
+    """`Renderer.step` at `cfg`: 1 warm-up and FRAMES - 1 timed frames,
     with every kernel's launch count set to 0 just before and read just
     after; the display must be finite and in [0, 1]. Results go under
     `results[label]`."""
     import torch
     from truetrace_tpu_torch.renderer import Renderer, RendererConfig
-    r = Renderer(scene, cam, RendererConfig(**FRAME))
+    r = Renderer(scene, cam, RendererConfig(**cfg))
     counters = launch_counters()
     for fn in counters.values():
         fn.launches = 0
@@ -628,7 +644,7 @@ def phase_frame(results, scene, cam, label: str):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = {name: fn.launches for name, fn in counters.items()}
-    H, W = FRAME["height"], FRAME["width"]
+    H, W = cfg["height"], cfg["width"]
     check(tuple(display.shape) == (H, W, 3), f"display {display.shape}")
     check(bool(torch.isfinite(display).all()), "display not finite")
     check(float(display.min()) >= 0.0 and float(display.max()) <= 1.0,
@@ -638,7 +654,8 @@ def phase_frame(results, scene, cam, label: str):
     check(mean > 1e-3, f"radiance mean {mean}")
     ms = 1e3 * sum(times) / len(times)
     med = 1e3 * sorted(times)[len(times) // 2]
-    log(f"frame {label} {H}x{W}x{FRAME['bounces']} svgf: warm-up "
+    log(f"frame {label} {H}x{W}x{cfg['bounces']} {cfg['denoiser']}: "
+        f"warm-up "
         f"{warm * 1e3:.1f} ms, frames {[round(t * 1e3, 1) for t in times]}"
         f" ms -> mean {ms:.1f} ms/frame, median {med:.1f}; radiance mean "
         f"{mean:.4f}")
@@ -681,6 +698,9 @@ def phase_profile(r, state, frame=None, label: str = "frame"):
     n = sum(e.count for e in kernels)
     of = lambda name: sum(dev_us(e) for e in kernels if name in e.key) / 1e3
     trav, atr = of("traverse_kernel"), of("atrous_")
+    # the radiance cache's sums: index_put_'s sort path (a radix sort of
+    # the slots, then one segmented sum a slot)
+    scatter = of("indexing_backward") + of("RadixSort")
     count = lambda pred: sum(e.count for e in events if pred(e.key))
     copies = dict(
         memcpy_htod=count(lambda k: "Memcpy HtoD" in k),
@@ -692,12 +712,16 @@ def phase_profile(r, state, frame=None, label: str = "frame"):
     log(f"profiled {label}: wall {wall * 1e3:.1f} ms, {n} kernels, device "
         f"busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of wall), "
         f"traversal {trav:.3f} ms ({100 * trav / busy:.1f}% of busy), "
-        f"a-trous {atr:.3f} ms ({100 * atr / busy:.2f}% of busy); host "
-        f"copies and syncs: {copies}")
+        f"a-trous {atr:.3f} ms ({100 * atr / busy:.2f}% of busy), "
+        f"index_put sort and sums {scatter:.3f} ms; host copies and syncs: "
+        f"{copies}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
         log(f"  {dev_us(e) / 1e3:8.3f} ms  {e.count:6d}x  {e.key[:100]}")
+    for k in COPY_KEYS[:4]:
+        check(copies[k] == 0, f"profiled {label}: {copies[k]} {k}")
     return dict(kernels=n, busy_ms=busy, wall_ms=wall * 1e3,
-                traversal_ms=trav, atrous_ms=atr, **copies)
+                traversal_ms=trav, atrous_ms=atr, scatter_ms=scatter,
+                **copies)
 
 
 def moved_camera(cam):
@@ -728,16 +752,18 @@ def phase_sync_free(r, state, cam, label: str):
     return state
 
 
-def phase_graph(results, scene, cam, label: str):
+def phase_graph(results, scene, cam, label: str, cfg: dict = FRAME):
     """The frame as CUDA graphs (Renderer.graph_step) against the eager
-    Renderer.step on the same scene, at FRAME:
+    Renderer.step on the same scene, at `cfg`:
 
     1. parity: two fresh renderers, four frames each: as they are, as
        they are, moving the camera (cam_moved=True; its own graph) and
        with the moved camera (cam_moved=False; the first graph again, fed
        the second's state). The first frame runs eagerly on both paths,
        the other three replay; display, radiance and every state tensor
-       bit for bit equal to the eager ones;
+       (accumulation, TAA and SVGF histories, and the reservoirs and
+       cache tables where `cfg` has them) bit for bit equal to the eager
+       ones;
     2. time: FRAMES - 1 eager frames and as many replays, in turns, on
        the host clock around a synchronised frame, and each replay's
        device time (CUDA events around it: kernels and the gaps between
@@ -746,8 +772,10 @@ def phase_graph(results, scene, cam, label: str):
        under the profiler.
     Results under results[label + "_graph"]."""
     import torch
-    from truetrace_tpu_torch.renderer import Renderer, RendererConfig
-    cfg = RendererConfig(**FRAME)
+    from truetrace_tpu_torch.renderer import (
+        Renderer, RendererConfig, _tensors)
+    shape = f"{cfg['width']}x{cfg['height']}x{cfg['bounces']}"
+    cfg = RendererConfig(**cfg)
     moved = moved_camera(cam)
     re, rg = Renderer(scene, cam, cfg), Renderer(scene, cam, cfg)
     gs, gm = rg.graph_step(cam_moved=False), rg.graph_step(cam_moved=True)
@@ -758,11 +786,10 @@ def phase_graph(results, scene, cam, label: str):
             (moved, False, gs))):
         de, ae, se = re.step(se, cam=c, cam_moved=moved_now)
         dg, ag, sg = frame(sg, cam=c)
-        pairs = [("display", de, dg), ("radiance", ae, ag),
-                 ("accum count", se.accum.count, sg.accum.count),
-                 ("taa history", se.taa_history, sg.taa_history)] + [
-            (f"svgf {k}", getattr(se.svgf, k), getattr(sg.svgf, k))
-            for k in ("color", "moments", "hist_len", "normal", "depth")]
+        te, tg = dict(_tensors(se)), dict(_tensors(sg))
+        check(te.keys() == tg.keys(), f"{label}: state fields differ")
+        pairs = [("display", de, dg), ("radiance", ae, ag)] + [
+            (k, te[k], tg[k]) for k in te]
         for what, a, b in pairs:
             check(torch_equal_bits(a, b), f"{label} frame {i + 1}: the "
                   f"replayed {what} differs from the eager one")
@@ -804,13 +831,248 @@ def phase_graph(results, scene, cam, label: str):
                eager_frames_ms=[1e3 * t for t in eager],
                replay_frames_ms=[1e3 * t for t in replay],
                profile=prof)
-    log(f"{label} {FRAME['width']}x{FRAME['height']}x{FRAME['bounces']} "
-        f"svgf, in turns: eager {res['eager_ms']:.1f} ms/frame, replayed "
+    log(f"{label} {shape}, in turns: eager {res['eager_ms']:.1f} ms/frame, replayed "
         f"{res['replay_ms']:.1f} ms/frame (device "
         f"{res['replay_device_ms']:.1f} ms), "
         f"{res['eager_ms'] / res['replay_ms']:.2f} times; two "
         f"replays under set_sync_debug_mode('error')")
     results[f"{label}_graph"] = res
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the composed production frame
+# ---------------------------------------------------------------------------
+
+def phase_composed_cache(results, r, state):
+    """The radiance cache's update on the records one composed frame
+    hands it (its inputs grabbed on the way): twice on the same inputs
+    and once replayed from a CUDA graph, all bit for bit equal (the sums
+    go through index_put_'s sort path, not atomics), and its device time
+    (device_ms: no host gaps)."""
+    import torch
+    from truetrace_tpu_torch.integrate import radiance_cache as rc
+    seen = []
+    orig = rc.cache_update
+
+    def grab(*a, **k):
+        seen.append((a, k))
+        return orig(*a, **k)
+
+    rc.cache_update = grab
+    try:
+        r.step(state)
+    finally:
+        rc.cache_update = orig
+    a, k = seen[0]
+    live = int((a[4] > 0).sum())
+    outs = [orig(*a, **k) for _ in range(2)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        orig(*a, **k)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs.append(orig(*a, **k))
+    graph.replay()
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        for f in ("key", "rad", "count", "age", "cellw0", "cellw1"):
+            check(torch_equal_bits(getattr(outs[0], f), getattr(out, f)),
+                  f"cache_update: {f} differs between runs")
+    # ~50 kernels a call: few calls, so the launch queue never fills
+    ms = device_ms(lambda: orig(*a, **k), reps=4)
+    occupied = int((outs[0].key != 0).sum())
+    log(f"composed cache_update on a frame's {a[1].shape[0]} records "
+        f"({live} live) into {outs[0].capacity} slots ({occupied} occupied "
+        f"after): bit for bit equal twice and from a CUDA graph; "
+        f"{ms:.4f} ms on the device")
+    results["composed_cache"] = dict(update_ms=ms, records=live,
+                                     occupied=occupied)
+
+
+def cornell_scene(device: str):
+    from truetrace_tpu_torch.scene import cornell
+    from truetrace_tpu_torch.scene.mesh import compile_scene
+    meshes, mats, cam = cornell.make(device="cpu")
+    return compile_scene(meshes, mats, with_cwbvh=True, with_light_bvh=True,
+                         device=device), cam.to(device)
+
+
+def phase_composed_gates(results):
+    """The JAX package's statistical gates of the composed frame's parts,
+    on the card through the port (the wavefront traversal, the port's
+    only):
+
+    * ReSTIR DI is unbiased (tests/test_restir_di.py:19-44): 48
+      restir_di_step frames of the Cornell box at 32x32, 1 bounce,
+      Lambert, 4 candidates and 1 spatial pass, against `render` at 192
+      spp: interior means within rel 0.05, each channel within 0.08;
+    * the composed frame keeps the energy (tests/test_composition.py:
+      88-110): 8 frames of the cache + DI + GI at 24x24, 2 bounces,
+      Lambert, CDF light sampling, against `render` at 96 spp: rel
+      < 0.3; with SVGF, 3 frames finite and in [0, 1];
+    * probing survives contention (tests/test_radiance_cache.py:
+      95-123): at ~50% occupancy of 4096 slots, two frames of inserts,
+      queries hit > 0.9."""
+    import torch
+    from truetrace_tpu_torch.integrate import radiance_cache as rc
+    from truetrace_tpu_torch.integrate.pathtrace import RenderConfig, render
+    from truetrace_tpu_torch.integrate.restir_di import (
+        ReSTIRDIState, restir_di_step)
+    from truetrace_tpu_torch.renderer import Renderer, RendererConfig
+    t0 = time.perf_counter()
+    sc, cam = cornell_scene(DEVICE)
+    cfg = RenderConfig(width=32, height=32, bounces=1, bsdf="lambert",
+                       traversal="wavefront")
+    ref = render(sc, cam, cfg, spp=192).cpu().numpy()
+    st = ReSTIRDIState.create(32, 32, DEVICE)
+    acc = torch.zeros((32, 32, 3), device=DEVICE)
+    for s in range(48):
+        img, st, _ = restir_di_step(sc, cam, cfg, st, s, n_candidates=4,
+                                    n_spatial=1)
+        acc += img
+    a, b = (acc / 48).cpu().numpy()[4:-4, 4:-4], ref[4:-4, 4:-4]
+    rel = abs(a.mean() - b.mean()) / max(b.mean(), 1e-6)
+    relc = [abs(a[..., c].mean() - b[..., c].mean())
+            / max(b[..., c].mean(), 1e-6) for c in range(3)]
+    log(f"ReSTIR DI unbiased (Cornell 32x32, 48 frames vs 192 spp): rel "
+        f"{rel:.4f} (< 0.05), per channel {np.round(relc, 4)} (< 0.08)")
+    check(rel < 0.05 and max(relc) < 0.08, "ReSTIR DI is biased")
+
+    kw = dict(width=24, height=24, bounces=2, bsdf="lambert",
+              traversal="wavefront", light_sampling="cdf", use_restir=True,
+              use_restir_di=True, use_radiance_cache=True,
+              cache_capacity=1 << 12)
+    r = Renderer(sc, cam, RendererConfig(**kw))
+    st = r.init_state()
+    vals = []
+    for _ in range(8):
+        _, rad, st = r.step(st)
+        vals.append(float(rad.mean()))
+    ref = render(sc, cam, RenderConfig(width=24, height=24, bounces=2,
+                                       bsdf="lambert", traversal="wavefront"),
+                 spp=96).cpu().numpy()
+    e_rel = abs(np.mean(vals) - ref.mean()) / max(ref.mean(), 1e-6)
+    r = Renderer(sc, cam, RendererConfig(denoiser="svgf", **kw))
+    st = r.init_state()
+    for _ in range(3):
+        d, _, st = r.step(st)
+    d = d.cpu().numpy()
+    log(f"composed energy (Cornell 24x24x2, 8 frames vs 96 spp): mean "
+        f"{np.mean(vals):.5f} vs {ref.mean():.5f}, rel {e_rel:.4f} (< 0.3); "
+        f"with SVGF: display in [{d.min():.3f}, {d.max():.3f}]")
+    check(e_rel < 0.3, "the composed frame loses or gains energy")
+    check(bool(np.isfinite(d).all()) and d.min() >= 0 and d.max() <= 1,
+          "the composed SVGF display is not finite in [0, 1]")
+
+    g = np.random.default_rng(11)
+    C = 1 << 12
+    N = C // 2
+    pos = torch.from_numpy(g.uniform(-50, 50, (N, 3)).astype(np.float32)
+                           ).to(DEVICE)
+    nrm = torch.zeros((N, 3), device=DEVICE)
+    nrm[:, 1] = 1.0
+    cam0 = torch.zeros(3, device=DEVICE)
+    h, key = rc.cache_cell(pos, nrm, cam0)
+    cache = rc.RadianceCache.create(C, DEVICE)
+    for _ in range(2):
+        cache = rc.cache_update(cache, h, key, torch.ones((N, 3),
+                                                          device=DEVICE),
+                                torch.full((N,), rc.CONFIDENT_COUNT,
+                                           device=DEVICE))
+    _, hit = rc.cache_query(cache, pos, nrm, cam0)
+    rate = float(hit.float().mean())
+    log(f"cache contention (4096 slots, 2048 cells, two frames): hit rate "
+        f"{rate:.4f} (> 0.9); gates {time.perf_counter() - t0:.1f} s")
+    check(rate > 0.9, "cache probing loses entries under contention")
+    results["composed_gates"] = dict(
+        di_rel=float(rel), di_rel_channels=[float(x) for x in relc],
+        energy_rel=float(e_rel), cache_hit_rate=rate)
+
+
+def phase_composed_card_vs_cpu(results):
+    """Two composed Cornell frames at 16x16 (Disney, light tree, SVGF, the
+    cache with query bounce 1, ReSTIR GI and DI; the second moving the
+    camera) on the card and on the CPU. The reservoirs keep a sample
+    where u * wsum < w, which the card's rounding can flip: a lane may
+    hold another sample only near a pick within 1e-5 of its threshold
+    (or a spatial tap away from one), on at most 1% of the lanes, as
+    tests/test_torch_composed.py holds the port against JAX; the
+    displays agree within 1e-3 on >= 98% of pixels and in mean to 1e-3."""
+    import torch
+    from truetrace_tpu_torch.integrate import restir, restir_di
+    from truetrace_tpu_torch.renderer import Renderer, RendererConfig
+    kw = dict(width=16, height=16, bounces=2, bsdf="disney",
+              traversal="wavefront", light_sampling="tree", denoiser="svgf",
+              use_restir=True, use_restir_di=True, use_radiance_cache=True,
+              cache_query_bounce=1, cache_capacity=1 << 12)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        sc, cam = cornell_scene(dev)
+        near = {}
+        origs = {m: m.keep for m in (restir_di, restir)}
+
+        def watch(m):
+            def keep(u, wsum, w):
+                ws = torch.clamp(wsum, min=1e-20)
+                n = ((u * ws - w).abs() < 1e-5 * ws).cpu()
+                near[m] = n if m not in near else near[m] | n
+                return origs[m](u, wsum, w)
+            return keep
+        for m in origs:
+            m.keep = watch(m)
+        try:
+            r = Renderer(sc, cam, RendererConfig(**kw))
+            st = r.init_state()
+            frames = []
+            for c, moved in ((None, None), (moved_camera(cam), True)):
+                d, _, st = r.step(st, cam=c, cam_moved=moved)
+                frames.append(d.cpu())
+        finally:
+            for m, f in origs.items():
+                m.keep = f
+        out[dev] = (frames, st, near)
+    (fg, sg, ng), (fc, scpu, nc) = out[DEVICE], out["cpu"]
+    flips = {}
+    for name, m, fields, taps, seq in (
+            ("restir_di", restir_di, ("pos", "ln", "rad"),
+             restir_di.SPATIAL_TAPS, True),
+            ("restir", restir, ("x2", "n2", "rad"), restir.SPATIAL_TAPS,
+             False)):
+        g, c = getattr(sg, name), getattr(scpu, name)
+        pick = lambda s: torch.cat([getattr(s, f).cpu() for f in fields], -1)
+        flip = ~torch.isclose(pick(g), pick(c), rtol=1e-5,
+                              atol=1e-6).all(-1)
+        reach = (ng[m] | nc[m]).numpy()
+        passes = [taps] if seq else [[(dy * k, dx * k) for dy, dx in taps]
+                                     for k in (1, 2)]
+        for p in passes:
+            if seq:
+                for t in p:
+                    reach = reach | np.roll(reach, t, (0, 1))
+            else:
+                reach = reach | np.any([np.roll(reach, t, (0, 1))
+                                        for t in p], axis=0)
+        flips[name] = int(flip.sum())
+        check(float(flip.float().mean()) <= 0.01 and not bool(
+            (flip.numpy() & ~reach).any()), f"card vs CPU: {name} "
+            f"reservoirs differ on {flips[name]} lanes")
+    shares = []
+    for a, b in zip(fg, fc):
+        shares.append(float(((a - b).abs() <= 1e-3).all(-1).float().mean()))
+        rel = abs(float(a.mean()) - float(b.mean())) / float(b.mean())
+        check(bool(torch.isfinite(a).all()) and shares[-1] >= 0.98
+              and rel < 1e-3, f"composed card vs CPU: {shares[-1]:.4f} of "
+              f"pixels within 1e-3, mean rel {rel:.2e}")
+    ct = (float(sg.cache.count.sum()), float(scpu.cache.count.sum()))
+    check(abs(ct[0] - ct[1]) <= 1e-5 * ct[1], f"cache totals {ct}")
+    log(f"composed Cornell 16x16x2 card vs CPU, two frames: displays "
+        f"{[round(x, 4) for x in shares]} of pixels within 1e-3; reservoir "
+        f"lanes holding another sample (all near a threshold pick): "
+        f"{flips}; cache count totals {ct}")
+    results["composed_card_vs_cpu"] = dict(display_share=shares,
+                                           flips=flips)
 
 
 # ---------------------------------------------------------------------------
@@ -1184,6 +1446,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {kind}")
+    log(f"card (name, power limit): {card}")
 
     from truetrace_tpu_torch.kernels import _cuda
     t0 = time.perf_counter()
@@ -1226,7 +1489,17 @@ def main() -> int:
     phase_atrous_frame(results, renderer, state, "atrium")
     phase_graph(results, scenes[6], cam, "atrium")
     smem = _cuda.lib("traverse.cu").tt_traverse_smem(scenes[6].cw_stack)
-    del renderer, state, scenes
+    del renderer, state
+
+    c_launches, renderer, state = phase_frame(results, scenes[6], cam,
+                                              "composed", COMPOSED)
+    state = phase_sync_free(renderer, state, cam, "composed")
+    results["composed_profile"] = phase_profile(renderer, state,
+                                                label="composed frame")
+    phase_composed_cache(results, renderer, state)
+    del renderer, state
+    phase_graph(results, scenes[6], cam, "composed", COMPOSED)
+    del scenes
 
     with tempfile.TemporaryDirectory(prefix="sponza_like_") as tmp:
         parts = phase_sponza_build(tmp)
@@ -1246,6 +1519,8 @@ def main() -> int:
     phase_sponza_card_vs_cpu(parts[:-1], sponza, s_cam)
     del parts, sponza
     phase_cornell()
+    phase_composed_gates(results)
+    phase_composed_card_vs_cpu(results)
 
     for k in (6, 3):
         log(f"traversal Mrays/s (bench mix, atrium K={k}): " + ", ".join(
@@ -1267,8 +1542,18 @@ def main() -> int:
     p = results["sponza_all_slots_profile"]
     log(f"frame sponza with every texture slot fetched: device busy "
         f"{p['busy_ms']:.1f} ms in {p['kernels']} kernels")
+    p = results["composed_profile"]
+    log(f"frame composed {FRAME['width']}x{FRAME['height']}x"
+        f"{FRAME['bounces']} (cache, ReSTIR GI and DI, svgf): "
+        f"{results['composed']['ms']:.1f} ms (median "
+        f"{results['composed']['median_ms']:.1f}); device busy "
+        f"{p['busy_ms']:.1f} ms in {p['kernels']} kernels, traversal "
+        f"{p['traversal_ms']:.3f} ms, a-trous {p['atrous_ms']:.3f} ms, "
+        f"index_put sort and sums {p['scatter_ms']:.3f} ms; cache_update "
+        f"alone {results['composed_cache']['update_ms']:.4f} ms")
     frames = {}
-    for label, prof in (("atrium", "profile"), ("sponza", "sponza_profile")):
+    for label, prof in (("atrium", "profile"), ("sponza", "sponza_profile"),
+                        ("composed", "composed_profile")):
         g, p = results[f"{label}_graph"], results[prof]
         gp = g["profile"]
         log(f"frame {label}: eager {g['eager_ms']:.1f} ms, replayed "
@@ -1284,6 +1569,11 @@ def main() -> int:
             replay_busy_ms=gp["busy_ms"], replay_kernels=gp["kernels"],
             eager_copies={k: p[k] for k in COPY_KEYS},
             replay_copies={k: gp[k] for k in COPY_KEYS})
+    frames["composed"].update(
+        scatter_ms=results["composed_profile"]["scatter_ms"],
+        cache_update_ms=results["composed_cache"]["update_ms"],
+        **{k: results[k] for k in ("composed_gates",
+                                   "composed_card_vs_cpu")})
     a = results["atrous_pass"]
     log("a-trous kernel ms by step: " + ", ".join(
         f"{k}: {v:.5f}" for k, v in a["ms_by_step"].items())
@@ -1307,6 +1597,9 @@ def main() -> int:
                 "filter_ms", "atrium_frame_max_abs_err", "by_lanes")
                 if k in res})
         rows[name]["sponza"] = sponza_row(name, results, s_launches)
+        rows[name]["composed"] = dict(
+            launches=c_launches[name],
+            launches_per_frame=c_launches[name] / FRAMES)
     for name in ("closest_hit_wavefront", "any_hit_wavefront"):
         # the ring stack's dynamic shared memory, as the launch sizes it
         rows[name]["smem_dynamic"] = smem

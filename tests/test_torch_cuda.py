@@ -11,7 +11,9 @@ argument checks; and the textured, sky-lit sponza_like scene: the bench
 mix's rays bitwise, a-trous on a frame with sky rows, and its SVGF frames
 on the card against the CPU; and the frame itself on both scenes: no host
 copy or sync inside Renderer.step, and Renderer.graph_step's replayed
-CUDA graphs bit for bit the eager frames.
+CUDA graphs bit for bit the eager frames; and the same two for the
+composed frame (ReSTIR DI and GI, the radiance cache), whose cache update
+gives the same bits run after run.
 
 Needs an NVIDIA card and nvcc; skips elsewhere. It imports no JAX, so it
 runs on a machine without it (the JAX-side conftest is skipped):
@@ -500,3 +502,116 @@ def test_graph_frames_match_eager(dev, tmp_path_factory, scene):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(dg).all()) and float(sg.accum.count) == 1.0
+
+
+# ---------------------------------------------------------------------------
+# the composed frame: ReSTIR DI and GI, the radiance cache, SVGF
+# ---------------------------------------------------------------------------
+
+COMPOSED = dict(width=64, height=48, bounces=4, bsdf="disney",
+                traversal="wavefront", light_sampling="tree", denoiser="svgf",
+                use_restir=True, use_restir_di=True, use_radiance_cache=True,
+                cache_query_bounce=2, cache_capacity=1 << 16)
+
+
+def _atrium_small(dev):
+    meshes, mats, cam, env = atrium.make(detail=0.2, device=dev)
+    return compile_scene(meshes, mats, env=env, with_cwbvh=True,
+                         with_light_bvh=True, device=dev), cam
+
+
+def test_composed_frame_makes_no_host_sync(dev):
+    """The composed Renderer.step after a warm-up frame: one more frame,
+    then one that moves the camera with cam_moved=True (motion
+    reprojection of both reservoirs, the cache's merge), under
+    torch.cuda.set_sync_debug_mode("error")."""
+    import chip_smoke
+    from truetrace_tpu_torch.renderer import Renderer, RendererConfig
+    sc, cam = _atrium_small(dev)
+    r = Renderer(sc, cam, RendererConfig(**COMPOSED))
+    st = r.init_state()
+    _, _, st = r.step(st)
+    moved = chip_smoke.moved_camera(cam)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, st = r.step(st)
+        disp, _, st = r.step(st, cam=moved, cam_moved=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(st.accum.count) == 1.0 and st.sample == 3
+    assert bool(torch.isfinite(disp).all())
+    assert int((st.cache.key != 0).sum()) > 0 and float(st.restir.M.max()) > 1
+
+
+def test_composed_graph_frames_match_eager(dev):
+    """Renderer.graph_step against Renderer.step on the composed frame,
+    four frames as test_graph_frames_match_eager runs them (a camera move
+    among them): display, radiance and every state tensor, the ReSTIR
+    reservoirs and the cache tables included, bit for bit."""
+    import chip_smoke
+    from truetrace_tpu_torch.renderer import (
+        Renderer, RendererConfig, _tensors)
+    sc, cam = _atrium_small(dev)
+    cfg = RendererConfig(**COMPOSED)
+    moved = chip_smoke.moved_camera(cam)
+    re, rg = Renderer(sc, cam, cfg), Renderer(sc, cam, cfg)
+    gs, gm = rg.graph_step(cam_moved=False), rg.graph_step(cam_moved=True)
+    se, sg = re.init_state(), rg.init_state()
+    for c, moved_now, frame in ((None, None, gs), (None, None, gs),
+                                (moved, True, gm), (moved, False, gs)):
+        de, ae, se = re.step(se, cam=c, cam_moved=moved_now)
+        dg, ag, sg = frame(sg, cam=c)
+        te, tg = dict(_tensors(se)), dict(_tensors(sg))
+        assert te.keys() == tg.keys() and "cache.key" in te
+        assert all(chip_smoke.torch_equal_bits(a, b) for a, b in
+                   [(de, dg), (ae, ag)] + [(te[k], tg[k]) for k in te])
+        assert sg.sample == se.sample
+    assert (gs.captures, gm.captures) == (1, 1)
+
+
+def test_cache_update_repeats_bitwise(dev):
+    """cache_update with many records on few slots (every record probes
+    one of 64 chains of a 4096-slot table): twice, and replayed from a
+    CUDA graph, the same bits (the sums go through index_put_'s sort
+    path, which adds each slot's records in one order); the slot keeps
+    the key of its highest-index record."""
+    from truetrace_tpu_torch.integrate import radiance_cache as rc
+    r = np.random.default_rng(5)
+    N, C = 65536, 4096
+    t = lambda a: torch.from_numpy(a).to(dev)
+    h = t(r.integers(0, 64, N) * 61)
+    key = t(r.integers(1, 1 << 32, N) | 1)
+    rad = t(r.uniform(0, 4, (N, 3)).astype(np.float32))
+    wt = t((r.uniform(0, 1, N) > 0.2).astype(np.float32))
+    cache = rc.RadianceCache.create(C, dev)
+
+    def run():
+        return rc.cache_update(cache, h, key, rad, wt, w0=key, w1=h)
+
+    outs = [run(), run()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs.append(run())
+    g.replay()
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        for f in ("key", "rad", "count", "age", "cellw0", "cellw1"):
+            a, b = getattr(outs[0], f), getattr(o, f)
+            assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                               else a, b.view(torch.int32)
+                               if b.is_floating_point() else b), f
+    cpu = rc.cache_update(rc.RadianceCache.create(C, "cpu"), h.cpu(),
+                          key.cpu(), rad.cpu(), wt.cpu(), w0=key.cpu(),
+                          w1=h.cpu())
+    for f in ("key", "age", "cellw0", "cellw1"):
+        assert torch.equal(getattr(outs[0], f).cpu(), getattr(cpu, f)), f
+    torch.testing.assert_close(outs[0].count.cpu(), cpu.count, rtol=1e-5,
+                               atol=0)
+    torch.testing.assert_close(outs[0].rad.cpu(), cpu.rad, rtol=1e-5,
+                               atol=0)

@@ -136,11 +136,12 @@ def _flat(out):
 def test_graph_step_state_flow_matches_step(cornell_pair, monkeypatch):
     """graph_step's bookkeeping on the CPU, with the CUDA capture replaced
     by what a replay amounts to (run the captured function again and
-    copy its results into the tensors the capture returned): four SVGF
-    frames, the first eager, then the graphs of both cam_moved values,
-    the first moving the camera, each fed the other's state, and a
-    replay fed its own state; equal bit for bit to Renderer.step's
-    display, radiance and state."""
+    copy its results into the tensors the capture returned): four
+    composed frames (SVGF, ReSTIR DI and GI, the radiance cache), the
+    first eager, then the graphs of both cam_moved values, the first
+    moving the camera, each fed the other's state, and a replay fed its
+    own state; equal bit for bit to Renderer.step's display, radiance and
+    state, the reservoirs and the cache tables included."""
     import truetrace_tpu_torch.renderer as rmod
 
     def capture(fn, device):
@@ -155,9 +156,12 @@ def test_graph_step_state_flow_matches_step(cornell_pair, monkeypatch):
     monkeypatch.setattr(rmod, "_capture", capture)
     monkeypatch.setattr(rmod, "_check_device", lambda device: None)
     _, _, ts, tcam = cornell_pair
-    cfg = RendererConfig(width=8, height=8, denoiser="svgf", bounces=1,
-                         use_nee=False, **{k: v for k, v in FRAME.items()
-                                           if k != "bounces"})
+    cfg = RendererConfig(width=8, height=8, denoiser="svgf", bounces=2,
+                         use_restir=True, use_restir_di=True,
+                         use_radiance_cache=True, cache_query_bounce=1,
+                         cache_capacity=1 << 10,
+                         **{k: v for k, v in FRAME.items()
+                            if k != "bounces"})
     c2w = tcam.c2w.clone()
     c2w[3, 0] += 0.1                                    # the eye moves
     moved = Camera(c2w=c2w, fov_y=tcam.fov_y, aperture=tcam.aperture,
@@ -170,10 +174,14 @@ def test_graph_step_state_flow_matches_step(cornell_pair, monkeypatch):
         de, ae, se = re.step(se, cam=cam, cam_moved=moved_now)
         dg, ag, sg = frame(sg, cam=cam)
         got = _flat((dg, ag, sg.accum.image, sg.accum.count,
-                     sg.svgf.__dict__, sg.taa_history, sg.prev_cam.__dict__))
+                     sg.svgf.__dict__, sg.taa_history, sg.prev_cam.__dict__,
+                     sg.restir.__dict__, sg.restir_di.__dict__,
+                     sg.cache.__dict__))
         want = _flat((de, ae, se.accum.image, se.accum.count,
                       se.svgf.__dict__, se.taa_history,
-                      se.prev_cam.__dict__))
+                      se.prev_cam.__dict__, se.restir.__dict__,
+                      se.restir_di.__dict__, se.cache.__dict__))
+        assert len(got) == len(want) == 34
         assert all(torch.equal(a.view(torch.int32) if a.is_floating_point()
                                else a, b.view(torch.int32)
                                if b.is_floating_point() else b)
@@ -215,7 +223,7 @@ def test_cornell_physics():
 
 
 @pytest.mark.parametrize("opt,value", [
-    ("denoiser", "asvgf"), ("use_restir", True), ("use_radiance_cache", True),
+    ("denoiser", "asvgf"), ("denoiser", "recur"), ("denoiser", "neural"),
     ("upscale", 2), ("partial_rendering", 2), ("traversal", "bvh2")])
 def test_unported_renderer_options_raise(cornell_pair, opt, value):
     _, _, ts, tcam = cornell_pair

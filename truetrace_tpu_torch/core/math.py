@@ -90,6 +90,12 @@ def finite_or_zero(x):
     return torch.where(torch.isfinite(x), x, 0.0)
 
 
+def safe_div(a, b, eps: float = 1e-20):
+    """a / b with |b| raised to eps, keeping its sign (b = 0 counts as
+    positive)."""
+    return a / torch.where(b.abs() < eps, torch.where(b >= 0, eps, -eps), b)
+
+
 def fma(a, b, c):
     """a * b + c rounded once to float32, as XLA:CPU computes the mul-adds
     it contracts (its LLVM backend always allows FMA fusion) and as the

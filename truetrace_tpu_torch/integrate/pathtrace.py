@@ -8,9 +8,12 @@ Lambert BSDF; Russian roulette; primary-hit G-buffer.
 
 What the port covers is the opaque single-BLAS scene under a constant
 or textured environment (env NEE + MIS), with atlas textures fetched at
-ray-cone mip levels, traversed by the CWBVH wavefront kernels. Everything
-else raises NotImplementedError naming its ROADMAP.md item, never
-silently ignored.
+ray-cone mip levels, traversed by the CWBVH wavefront kernels, and the
+hooks of the composed frame: the ReSTIR GI capture (`restir_capture`),
+the radiance cache's per-bounce records (`cache_capture`) and query
+(`cache_query_bounce`), and the ReSTIR DI light samples that drive the
+bounce-0 NEE (`di_sample`). Everything else raises NotImplementedError
+naming its ROADMAP.md item, never silently ignored.
 """
 from __future__ import annotations
 
@@ -36,8 +39,8 @@ SHADOW_EPS = 1e-4
 @dataclass(frozen=True)
 class RenderConfig:
     """The JAX package's RenderConfig fields. The port renders pcg
-    sampling, wavefront traversal, and no ReSTIR / cache capture; the
-    other values raise in `check_supported`."""
+    sampling and wavefront traversal without fuse_nee; the other values
+    raise in `check_supported`."""
     width: int = 256
     height: int = 256
     bounces: int = 4
@@ -71,10 +74,6 @@ def check_supported(scene: Scene, cfg: RenderConfig) -> None:
               "A.14" if cfg.traversal == "tlas" else "A.19")
     if cfg.sampler != "pcg":
         _todo(f"sampler={cfg.sampler!r}", "A.19")
-    if cfg.restir_capture:
-        _todo("ReSTIR GI capture", "A.11")
-    if cfg.cache_capture or cfg.cache_query_bounce >= 0:
-        _todo("radiance cache", "A.12")
     if cfg.fuse_nee:
         _todo("fuse_nee (mixed_hit_wavefront)", "B")
     if cfg.nee_sort:
@@ -202,6 +201,20 @@ def light_pdf_sa(scene: Scene, tid, p, hit_p, cos_l, sn_prev=None,
     return torch.where(li >= 0, pdf, 0.0)
 
 
+def _di_light_sample(di, p) -> LightSample:
+    """A ReSTIR DI reservoir sample {pos, ln, rad, W} as the light sample
+    of shading points p: its pdf encodes the unbiased contribution weight
+    W (contribution f Le cos_s W cos_l / d2)."""
+    to = di["pos"] - p
+    d2 = torch.clamp(dot(to, to), min=1e-12)
+    wi = to / torch.sqrt(d2)[..., None]
+    cos_l = -dot(wi, di["ln"])
+    pdf = d2 / torch.clamp(di["W"] * cos_l, min=1e-12)
+    return LightSample(pos=di["pos"], normal=di["ln"], radiance=di["rad"],
+                       pdf_sa=pdf, valid=(di["W"] > 0.0) & (cos_l > 1e-6),
+                       pdf_w=pdf)
+
+
 # ---------------------------------------------------------------------------
 # traversal dispatch
 # ---------------------------------------------------------------------------
@@ -235,9 +248,10 @@ def render_sample_with_stats(scene: Scene, cam: Camera, cfg: RenderConfig,
                              jitter=None):
     """One sample for the flat pixel ids `pixel` [R]. Returns (radiance
     [R,3], stats) with stats n_trace, n_shadow (ray counts), albedo,
-    normal, depth and emitted0 (primary-hit G-buffer)."""
-    if cache is not None or di_sample is not None:
-        _todo("radiance cache / ReSTIR DI inputs", "A.11, A.12")
+    normal, depth and emitted0 (primary-hit G-buffer), and the captures
+    `trace_rays` describes. `cache` is the radiance cache the query reads
+    (integrate/radiance_cache.py), `di_sample` the ReSTIR DI reservoir
+    samples (integrate/restir_di.py)."""
     if jitter is not None:
         _todo("TAAU jitter", "A.10")
     W, H = cfg.width, cfg.height
@@ -250,7 +264,7 @@ def render_sample_with_stats(scene: Scene, cam: Camera, cfg: RenderConfig,
     # reference's hardware-derivative texture fetches)
     spread0 = 2.0 * torch.tan(cam.fov_y * 0.5) / H
     return trace_rays(scene, ro, rd, cfg, pixel, sample_id, cam=cam,
-                      cone_spread=spread0)
+                      cone_spread=spread0, cache=cache, di_sample=di_sample)
 
 
 # the slots read at the uv2_scale transform
@@ -371,10 +385,26 @@ def _textures(scene: Scene, mat, used, tid, hit, w, rd, gn, sn, hit_ok,
 
 
 def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
-               cam: Optional[Camera] = None, cone_spread=None):
+               cam: Optional[Camera] = None, cone_spread=None, cache=None,
+               di_sample=None):
     """Path-trace explicit primary rays. Returns (radiance [R,3], stats).
     cone_spread: the primary rays' cone spread angle per unit distance
-    (texture LOD); None = 0.002."""
+    (texture LOD); None = 0.002.
+
+    cfg.restir_capture adds the ReSTIR GI candidate to the stats: direct
+    (radiance at the end of bounce 0), indirect (the rest), the first
+    vertex x1 and its material mat1, the second vertex x2 / n2 with
+    cand_valid, and bounce 0's sampled tp1 = f cos / pdf and pdf1.
+    cfg.cache_capture adds each bounce's cache record [R,B]: the vertex's
+    packed cell (cache_w0, cache_w1), the radiance gathered before it
+    (cache_prefix), the throughput at entry (cache_tp), cache_live.
+    With `cache` and cfg.cache_query_bounce >= 0, a path ends at a
+    vertex of bounce >= cache_query_bounce that finds a confident cache
+    entry, which adds its radiance (stats cache_hit_rate).
+    di_sample {pos, ln, rad [R,3], W [R]}: the ReSTIR DI reservoir sample
+    replaces bounce 0's mesh-light sample at full weight (contribution f
+    Le cos W cos_l / d2, no MIS split), and the BSDF-sampled emissive hit
+    at bounce 1, its complement, is dropped."""
     check_supported(scene, cfg)
     dev = ro.device
     R = ro.shape[0]
@@ -400,6 +430,25 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
               else torch.full((R,), 0.002, **f32))
     n_trace = torch.zeros((), **f32)
     n_shadow = torch.zeros((), **f32)
+    if cfg.restir_capture:
+        r_direct = torch.zeros((R, 3), **f32)
+        r_x2 = torch.zeros((R, 3), **f32)
+        r_n2 = torch.zeros((R, 3), **f32)
+        r_tp1 = torch.ones((R, 3), **f32)
+        r_pdf1 = torch.zeros((R,), **f32)
+        r_valid = torch.zeros((R,), dtype=torch.bool, device=dev)
+        r_x1 = torch.zeros((R, 3), **f32)
+        r_mat1 = torch.zeros((R,), dtype=torch.int64, device=dev)
+    cache_rec = {k: [] for k in ("cache_w0", "cache_w1", "cache_prefix",
+                                 "cache_tp", "cache_live")}
+    query = cache is not None and cfg.cache_query_bounce >= 0
+    if query:
+        n_cq = torch.zeros((), **f32)   # cache queries attempted
+        n_ch = torch.zeros((), **f32)   # cache hits taken
+    if cfg.cache_capture or query:
+        from truetrace_tpu_torch.integrate.radiance_cache import (
+            cache_cell_packed, cache_query)
+        cam_pos = cam.c2w[3, :3] if cam is not None else ro[0]
     use_tree = (cfg.light_sampling == "tree"
                 and scene.lbvh_pairs.shape[0] > 0)
     # NEE strategy mix (the reference picks a light group per shade,
@@ -472,6 +521,35 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
                                    g_albedo)
             g_normal = torch.where(hit_ok[..., None], sn, g_normal)
             g_depth = torch.where(hit_ok, hit.t, g_depth)
+        if cfg.restir_capture:
+            # the first vertex and its material; the second vertex (the
+            # GI sample point)
+            if b == 0:
+                r_x1 = torch.where(hit_ok[..., None], p, r_x1)
+                r_mat1 = torch.where(hit_ok, mid, r_mat1)
+            if b == 1:
+                r_x2 = torch.where(hit_ok[..., None], p, r_x2)
+                r_n2 = torch.where(hit_ok[..., None], gn, r_n2)
+                r_valid = r_valid | hit_ok
+        if cfg.cache_capture:
+            # the vertex cell, and the radiance and throughput at entry
+            _, _, v_w0, v_w1 = cache_cell_packed(p, sn, cam_pos)
+            cache_rec["cache_w0"].append(torch.where(hit_ok, v_w0, 0))
+            cache_rec["cache_w1"].append(torch.where(hit_ok, v_w1, 0))
+            cache_rec["cache_prefix"].append(radiance)
+            cache_rec["cache_tp"].append(throughput)
+            cache_rec["cache_live"].append(hit_ok)
+        if query and b >= cfg.cache_query_bounce:
+            # end paths at a confident cache entry (reference radiance-
+            # cache hooks, RayTracingShader.compute:303-326)
+            q_rad, q_hit = cache_query(cache, p, sn, cam_pos)
+            q_take = hit_ok & q_hit
+            n_cq = n_cq + hit_ok.float().sum()
+            n_ch = n_ch + q_take.float().sum()
+            radiance = radiance + torch.where(q_take[..., None],
+                                              throughput * q_rad, 0.0)
+            alive = alive & ~q_take
+            hit_ok = hit_ok & ~q_take
 
         # ---- emissive hit (MIS against NEE)
         emis = mat.emission
@@ -486,6 +564,10 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
                                 power_heuristic(prev_pdf, l_pdf))
         else:
             mis_w = torch.ones((R,), **f32)
+        if di_sample is not None and b == 1:
+            # the DI reservoirs estimate bounce 0's direct mesh light
+            # alone: drop its BSDF-sampled complement
+            mis_w = torch.zeros_like(mis_w)
         emit_take = hit_ok & is_emis & front
         radiance = radiance + torch.where(
             emit_take[..., None], throughput * emis * mis_w[..., None], 0.0)
@@ -510,11 +592,15 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
             pdf_l = torch.zeros((R,), **f32)    # solid-angle pdf * p_group
             pdfw_l = torch.zeros((R,), **f32)   # MIS weighting pdf
             valid_l = torch.zeros((R,), dtype=torch.bool, device=dev)
+            delta = None        # lanes of full weight (no MIS split)
             gi = 0
             if has_mesh:
-                ls = sample_light_tris(scene, p, u_resc, u_l2, sn=sn,
-                                       use_tree=use_tree,
-                                       approx_mis=cfg.nee_mis == "approx")
+                if di_sample is not None and b == 0:
+                    ls = _di_light_sample(di_sample, p)
+                else:
+                    ls = sample_light_tris(scene, p, u_resc, u_l2, sn=sn,
+                                           use_tree=use_tree,
+                                           approx_mis=cfg.nee_mis == "approx")
                 to_l = ls.pos - p
                 d_m = torch.linalg.norm(to_l, dim=-1)
                 sel = None if n_groups == 1 else g_pick == gi
@@ -525,6 +611,8 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
                 pdf_l = _pick(sel, ls.pdf_sa * p_group, pdf_l)
                 pdfw_l = _pick(sel, ls.pdf_w * p_group, pdfw_l)
                 valid_l = _pick(sel, ls.valid, valid_l)
+                if di_sample is not None and b == 0:
+                    delta = torch.ones_like(valid_l) if sel is None else sel
                 gi += 1
             if has_env_tex:
                 from truetrace_tpu_torch.kernels.envmap import env_sample
@@ -543,6 +631,8 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
             cand = (hit_ok & valid_l & (cos_s > 0.0) & (pdf_l > 1e-12)
                     & (f_l.amax(-1) > 0.0) & ~is_emis)
             w_mis = power_heuristic(pdfw_l, pdf_b)
+            if delta is not None:
+                w_mis = torch.where(delta, 1.0, w_mis)
             contrib = finite_or_zero(
                 throughput * f_l * rad_l
                 * (cos_s * w_mis / torch.clamp(pdf_l, min=1e-12))[..., None])
@@ -596,12 +686,26 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
             tp_n = torch.where(passthru[..., None], throughput, tp_n)
             pdf_n = torch.where(passthru, prev_pdf, pdf_n)
             sn = torch.where(passthru[..., None], prev_n, sn)
+        if cfg.restir_capture and b == 0:
+            # direct radiance, and the first bounce's throughput factor
+            r_direct = radiance
+            tp1 = f * (cos_i / torch.clamp(pdf, min=1e-9))[..., None]
+            r_tp1 = torch.where(alive[..., None], finite_or_zero(tp1), r_tp1)
+            r_pdf1 = torch.where(alive, pdf, 0.0)
         ro, rd = ro_n.contiguous(), wi.contiguous()
         throughput, prev_pdf = tp_n, pdf_n
         prev_n = sn
 
     stats = {"n_trace": n_trace, "n_shadow": n_shadow, "albedo": g_albedo,
              "normal": g_normal, "depth": g_depth, "emitted0": r_emit0}
+    if query:
+        stats["cache_hit_rate"] = n_ch / torch.clamp(n_cq, min=1.0)
+    if cfg.restir_capture:
+        stats.update(direct=r_direct, x2=r_x2, n2=r_n2, tp1=r_tp1,
+                     pdf1=r_pdf1, cand_valid=r_valid, x1=r_x1, mat1=r_mat1,
+                     indirect=radiance - r_direct)
+    if cfg.cache_capture:
+        stats.update({k: torch.stack(v, 1) for k, v in cache_rec.items()})
     return radiance, stats
 
 

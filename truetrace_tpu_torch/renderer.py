@@ -1,10 +1,14 @@
 """Frame orchestrator: the user-facing renderer.
 
-Port of `truetrace_tpu/renderer.py` for the frame the slice covers: trace
-one sample per pixel, denoise with SVGF (or not at all), clamp fireflies,
-accumulate, post-process. Per-frame state is an explicit `FrameState`
-threaded through `Renderer.step`, which runs eagerly on the scene's
-device. `Renderer.graph_step` is the counterpart of the JAX `jit_step`:
+Port of `truetrace_tpu/renderer.py` for the frames the port covers: the
+ReSTIR DI prepass (a 1-bounce G-buffer trace feeding the light
+reservoirs), one path-traced sample per pixel (through the radiance
+cache, which it queries and feeds, where that is on), the cache's
+per-frame resolve, ReSTIR GI from the trace's captures, SVGF (or no
+denoiser), the firefly clamp, accumulation and post-processing; the
+JAX package's composed production frame with every option on. Per-frame
+state is an explicit `FrameState` threaded through `Renderer.step`,
+which runs eagerly on the scene's device. `Renderer.graph_step` is the counterpart of the JAX `jit_step`:
 on a CUDA card it captures the frame once as a CUDA graph and replays it,
 so the device runs the frame's kernels without the host launching each
 one. Options outside the slice raise NotImplementedError naming their
@@ -12,6 +16,7 @@ ROADMAP.md item.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field, replace
 from typing import Optional
 
@@ -20,6 +25,13 @@ import torch
 
 from truetrace_tpu_torch.integrate.pathtrace import (
     RenderConfig, render_sample_with_stats)
+from truetrace_tpu_torch.integrate.radiance_cache import (
+    RadianceCache, cache_resolve, render_sample_cached)
+from truetrace_tpu_torch.integrate.restir import (
+    ReSTIRState, restir_gi_from_stats)
+from truetrace_tpu_torch.integrate.restir_di import (
+    ReSTIRDIState, restir_di_reservoirs)
+from truetrace_tpu_torch.post.motion import motion_vectors
 from truetrace_tpu_torch.post.pipeline import (
     Accumulator, PostConfig, firefly_clamp, postprocess)
 from truetrace_tpu_torch.post.svgf import SVGFState, svgf_denoise
@@ -56,10 +68,6 @@ class RendererConfig:
         if self.denoiser not in ("none", "svgf"):
             item = "A.13" if self.denoiser.startswith("neural") else "A.11"
             _todo(f"denoiser={self.denoiser!r}", item)
-        if self.use_restir or self.use_restir_di:
-            _todo("ReSTIR GI / DI", "A.11")
-        if self.use_radiance_cache:
-            _todo("the radiance cache", "A.12")
         if self.upscale > 1:
             _todo("TAAU upscaling", "A.10")
         if self.partial_rendering > 1:
@@ -70,7 +78,16 @@ class RendererConfig:
         return RenderConfig(
             width=self.width, height=self.height, bounces=self.bounces,
             bsdf=self.bsdf, traversal=self.traversal,
-            light_sampling=self.light_sampling, use_nee=self.use_nee)
+            light_sampling=self.light_sampling, use_nee=self.use_nee,
+            restir_capture=self.use_restir,
+            cache_capture=self.use_radiance_cache,
+            cache_query_bounce=(self.cache_query_bounce
+                                if self.use_radiance_cache else -1))
+
+
+# the optional per-frame states: FrameState field -> its class
+_PARTS = {"svgf": SVGFState, "restir": ReSTIRState,
+          "restir_di": ReSTIRDIState, "cache": RadianceCache}
 
 
 @dataclass
@@ -80,16 +97,17 @@ class FrameState:
     svgf: Optional[SVGFState]
     taa_history: Optional[torch.Tensor]
     prev_cam: Optional[Camera] = None    # last frame's camera (motion)
+    restir: Optional[ReSTIRState] = None        # ReSTIR GI reservoirs
+    restir_di: Optional[ReSTIRDIState] = None   # ReSTIR DI reservoirs
+    cache: Optional[RadianceCache] = None       # the radiance cache
 
     @staticmethod
     def from_numpy(d: dict, device) -> "FrameState":
         """FrameState from the JAX FrameState's leaves (numpy arrays in
         nested dicts keyed by field name)."""
         for key, item in (("asvgf", "A.11"), ("recur", "A.11"),
-                          ("restir", "A.11"), ("restir_di", "A.11"),
-                          ("cache", "A.12"), ("taau_history", "A.10"),
-                          ("partial", "A.10"), ("exposure", "A.10"),
-                          ("neural_hist", "A.13")):
+                          ("taau_history", "A.10"), ("partial", "A.10"),
+                          ("exposure", "A.10"), ("neural_hist", "A.13")):
             if d.get(key) is not None:
                 _todo(f"FrameState.{key}", item)
         t = lambda a: None if a is None else torch.from_numpy(
@@ -97,11 +115,11 @@ class FrameState:
         return FrameState(
             accum=Accumulator.from_numpy(d["accum"], device),
             sample=int(d["sample"]),
-            svgf=SVGFState.from_numpy(d["svgf"], device)
-            if d.get("svgf") is not None else None,
             taa_history=t(d.get("taa_history")),
             prev_cam=Camera.from_numpy(d["prev_cam"], device)
-            if d.get("prev_cam") is not None else None)
+            if d.get("prev_cam") is not None else None,
+            **{k: cls.from_numpy(d[k], device) if d.get(k) is not None
+               else None for k, cls in _PARTS.items()})
 
 
 class Renderer:
@@ -115,12 +133,19 @@ class Renderer:
         self.rcfg = cfg.render_config()
 
     def init_state(self) -> FrameState:
-        h, w, dev = self.cfg.height, self.cfg.width, self.scene.device
+        cfg = self.cfg
+        h, w, dev = cfg.height, cfg.width, self.scene.device
         return FrameState(
             accum=Accumulator.create(h, w, dev), sample=0,
             svgf=SVGFState.create(h, w, dev)
-            if self.cfg.denoiser == "svgf" else None,
-            taa_history=None, prev_cam=None)
+            if cfg.denoiser == "svgf" else None,
+            taa_history=None, prev_cam=None,
+            restir=ReSTIRState.create(h, w, dev) if cfg.use_restir
+            else None,
+            restir_di=ReSTIRDIState.create(h, w, dev)
+            if cfg.use_restir_di else None,
+            cache=RadianceCache.create(cfg.cache_capacity, dev)
+            if cfg.use_radiance_cache else None)
 
     def reset_accumulation(self, state: FrameState) -> FrameState:
         return replace(state, accum=state.accum.reset())
@@ -128,14 +153,17 @@ class Renderer:
     def step(self, state: FrameState, cam: Optional[Camera] = None,
              scene: Optional[Scene] = None,
              cam_moved: Optional[bool] = None):
-        """One frame: trace, denoise, clamp fireflies, accumulate, post.
-        Returns (display [H,W,3] in [0,1], accumulated radiance [H,W,3],
-        new_state). Passing `cam` moves the camera: accumulation restarts
-        when `cam_moved` is true, or, with `cam_moved` None, when the
-        camera differs from the last one by value (a compare that reads
-        the card back; pass `cam_moved` to keep the frame free of host
-        syncs). Temporal passes reproject with motion vectors. Passing
-        `scene` swaps the geometry and restarts accumulation."""
+        """One frame: trace (with the ReSTIR DI prepass, ReSTIR GI and the
+        radiance cache where they are on), denoise, clamp fireflies,
+        accumulate, post. Returns (display [H,W,3] in [0,1], accumulated
+        radiance [H,W,3], new_state). Passing `cam` moves the camera:
+        accumulation restarts when `cam_moved` is true, or, with
+        `cam_moved` None, when the camera differs from the last one by
+        value (a compare that reads the card back; pass `cam_moved` to
+        keep the frame free of host syncs). Temporal passes and the
+        reservoirs reproject with motion vectors; under a camera move the
+        cache merges re-levelled cells. Passing `scene` swaps the
+        geometry and restarts accumulation."""
         if scene is not None:
             self.scene = scene
             state = self.reset_accumulation(state)
@@ -147,43 +175,82 @@ class Renderer:
             if cam_moved:
                 state = self.reset_accumulation(state)
             self.cam = cam
-        display, accum, svgf, taa_hist = self._frame(state, self.cam,
-                                                     state.sample)
-        new_state = FrameState(accum=accum, sample=state.sample + 1,
-                               svgf=svgf, taa_history=taa_hist,
-                               prev_cam=self.cam)
-        return display, accum.image, new_state
+        display, new = self._frame(state, self.cam, state.sample,
+                                   bool(cam_moved))
+        new_state = FrameState(sample=state.sample + 1, prev_cam=self.cam,
+                               **new)
+        return display, new_state.accum.image, new_state
 
-    def _frame(self, state: FrameState, cam: Camera, sid):
+    def _frame(self, state: FrameState, cam: Camera, sid, cam_moved: bool):
         """The device work of one frame from `state`, seen by `cam`, with
         sample id `sid` (a Python int, or a 0-d int64 tensor on the card,
-        as graph_step captures it): (display, accumulator, SVGF state,
-        TAA history)."""
-        cfg = self.cfg
+        as graph_step captures it); `cam_moved` runs the cache's
+        reprojection merge. Returns (display, the new state's fields
+        other than the sample id and camera)."""
+        cfg, rcfg, scene = self.cfg, self.rcfg, self.scene
         h, w = cfg.height, cfg.width
-        pixel = torch.arange(h * w, device=self.scene.device)
-        rad, st = render_sample_with_stats(self.scene, cam, self.rcfg,
-                                           pixel, sid)
+        prev_cam = state.prev_cam
+        motion_of = lambda depth: (None if prev_cam is None else
+                                   motion_vectors(prev_cam, cam, depth))
+        pixel = torch.arange(h * w, device=scene.device)
+        new = dict(svgf=state.svgf, restir=state.restir,
+                   restir_di=state.restir_di, cache=state.cache)
+
+        # ---- ReSTIR DI prepass: the primary G-buffer feeds the light
+        # reservoirs, whose samples drive the main trace's bounce-0 NEE
+        di_sample = None
+        if cfg.use_restir_di:
+            gcfg = replace(rcfg, bounces=1, use_nee=False,
+                           restir_capture=True, cache_capture=False,
+                           cache_query_bounce=-1)
+            _, gst = render_sample_with_stats(scene, cam, gcfg, pixel, sid)
+            g_d = gst["depth"].reshape(h, w)
+            di_sample, new["restir_di"] = restir_di_reservoirs(
+                scene, cam, rcfg, state.restir_di, sid,
+                gst["x1"].reshape(h, w, 3), gst["normal"].reshape(h, w, 3),
+                g_d, prev_cam=prev_cam, motion=motion_of(g_d))
+
+        # ---- the one trace: integrator, ReSTIR GI captures and the
+        # radiance cache's records come out of one bounce loop
+        if cfg.use_radiance_cache:
+            rad, st, cache = render_sample_cached(
+                scene, cam, rcfg, state.cache, pixel, sid,
+                di_sample=di_sample)
+            if cam_moved and prev_cam is not None:
+                # re-levelled cells inherit their previous level's
+                # accumulation (reference GetReprojectedHash)
+                cache = cache_resolve(cache, cam_pos=cam.c2w[3, :3],
+                                      prev_cam_pos=prev_cam.c2w[3, :3])
+            else:
+                cache = cache_resolve(cache)
+            new["cache"] = cache
+        else:
+            rad, st = render_sample_with_stats(scene, cam, rcfg, pixel, sid,
+                                               di_sample=di_sample)
         frame = rad.reshape(h, w, 3)
         albedo = st["albedo"].reshape(h, w, 3)
         normal = st["normal"].reshape(h, w, 3)
         depth = st["depth"].reshape(h, w)
         emissive = st["emitted0"].reshape(h, w, 3)
-        motion = None
-        if state.prev_cam is not None:
-            from truetrace_tpu_torch.post.motion import motion_vectors
-            motion = motion_vectors(state.prev_cam, cam, depth)
+        motion = motion_of(depth)
 
-        svgf = state.svgf
+        # ---- ReSTIR GI: the reservoir-shaded indirect replaces the
+        # traced one
+        if cfg.use_restir:
+            frame, new["restir"], _ = restir_gi_from_stats(
+                scene, cam, rcfg, state.restir, sid, st, prev_cam=prev_cam,
+                motion=motion)
+
         if cfg.denoiser == "svgf":
-            frame, svgf = svgf_denoise(frame, albedo, normal, depth, svgf,
-                                       motion=motion, emissive=emissive)
+            frame, new["svgf"] = svgf_denoise(frame, albedo, normal, depth,
+                                              state.svgf, motion=motion,
+                                              emissive=emissive)
         if cfg.post.firefly > 0.0:
             frame = firefly_clamp(frame, cfg.post.firefly)
-        accum = state.accum.add(frame)
-        display, taa_hist = postprocess(accum.image, cfg.post,
-                                        state.taa_history, motion=motion)
-        return display, accum, svgf, taa_hist
+        new["accum"] = state.accum.add(frame)
+        display, new["taa_history"] = postprocess(
+            new["accum"].image, cfg.post, state.taa_history, motion=motion)
+        return display, new
 
     def graph_step(self, cam_moved: bool = False) -> "GraphFrame":
         """The frame as CUDA graphs, the counterpart of the JAX
@@ -196,18 +263,21 @@ class Renderer:
 
 
 _CAM = ("c2w", "fov_y", "aperture", "focus_dist")
-_SVGF = ("color", "moments", "hist_len", "normal", "depth")
 
 
 def _tensors(state: FrameState) -> list:
     """(name, tensor) of a frame state's tensors besides its cameras:
-    the accumulator, the SVGF and the TAA histories."""
+    the accumulator, the TAA history, and every tensor of the SVGF
+    history, the ReSTIR GI and DI reservoirs and the radiance cache."""
     out = [("accum.image", state.accum.image),
            ("accum.count", state.accum.count)]
-    if state.svgf is not None:
-        out += [(f"svgf.{k}", getattr(state.svgf, k)) for k in _SVGF]
     if state.taa_history is not None:
         out.append(("taa_history", state.taa_history))
+    for part in _PARTS:
+        obj = getattr(state, part)
+        if obj is not None:
+            out += [(f"{part}.{f.name}", getattr(obj, f.name))
+                    for f in dataclasses.fields(obj)]
     return out
 
 
@@ -218,13 +288,15 @@ def _cams(name: str, cam: Camera) -> list:
 def _state(t: dict, sample: int, prev: str) -> FrameState:
     """FrameState of the named tensors in `t`, its previous camera the
     one named `prev` ("prev_cam" or "cam")."""
+    parts = {}
+    for part, cls in _PARTS.items():
+        names = [f.name for f in dataclasses.fields(cls)]
+        parts[part] = (cls(**{k: t[f"{part}.{k}"] for k in names})
+                       if f"{part}.{names[0]}" in t else None)
     return FrameState(
         accum=Accumulator(image=t["accum.image"], count=t["accum.count"]),
-        sample=sample,
-        svgf=SVGFState(**{k: t[f"svgf.{k}"] for k in _SVGF})
-        if "svgf.color" in t else None,
-        taa_history=t.get("taa_history"),
-        prev_cam=Camera(**{k: t[f"{prev}.{k}"] for k in _CAM}))
+        sample=sample, taa_history=t.get("taa_history"),
+        prev_cam=Camera(**{k: t[f"{prev}.{k}"] for k in _CAM}), **parts)
 
 
 def _capture(fn, device):
@@ -262,12 +334,11 @@ class _Captured:
 
         def body():
             st = r.reset_accumulation(st_in) if cam_moved else st_in
-            display, accum, svgf, taa = r._frame(st, cam_in, self.sid)
+            display, new = r._frame(st, cam_in, self.sid, cam_moved)
             # the new state goes back into the buffers the next replay
             # reads
-            new = FrameState(accum=accum, sample=0, svgf=svgf,
-                             taa_history=taa, prev_cam=cam_in)
-            for k, v in _tensors(new):
+            for k, v in _tensors(FrameState(sample=0, prev_cam=cam_in,
+                                            **new)):
                 self.buf[k].copy_(v)
             return display
 
@@ -330,7 +401,7 @@ class GraphFrame:
         if state.prev_cam is None or state.taa_history is None:
             if self.cam_moved:
                 state = r.reset_accumulation(state)
-            return r.step(state)
+            return r.step(state, cam_moved=self.cam_moved)
         if self._captured is None or self._captured.scene is not r.scene:
             self._captured = _Captured(r, state, self.cam_moved)
             self.captures += 1
