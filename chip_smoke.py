@@ -58,14 +58,29 @@ Phases, each of which raises on a failed check:
    scripts/verify_drive.py at 256x256; the JAX package's statistical
    gates of the composed frame's parts on the card (ReSTIR DI unbiased,
    the composed frame's energy, cache probing under contention); two
-   composed Cornell frames at 16x16 on the card against the CPU.
+   composed Cornell frames at 16x16 on the card against the CPU;
+6. glass and the temporal denoisers: the transmittance query of the
+   traversal kernel against its plain version, bit for bit, at the
+   frame's 262144 lanes on the atrium (bench.py's shadow rays, with a
+   tint table of zeros and with one passing every third triangle at 0.8;
+   its time against the any hit's on the same rays) and on every NEE
+   shadow ray of the JAX package's nested-glass scene (scripts/demo.py
+   scene 6, built here from numpy); then as phase 3's frames (timed
+   eager frames with their launch counts, sync-free frames, the profile,
+   the CUDA graphs bit for bit) the atrium frame with ASVGF (its stratum
+   replay), with ReCur, the composed frame with ASVGF (ReSTIR-ASVGF) and
+   the nested-glass frame (10 bounces, roulette from 6, SVGF: the
+   transmittance kernel and the medium stack); the JAX package's glass,
+   transmit-shadow, ASVGF and ReCur gates on the card; and two glass +
+   ASVGF Cornell frames at 16x16 on the card against the CPU.
 
 It prints the card line, one JSON line of kernel results (time, plain
 time, bound and what sets it, launches per frame, ptxas registers,
 spills and shared memory, for the traversal the work per ray, for
 a-trous the time at each step and of packing; under "sponza" each
 kernel's launches, time and bound on the sponza_like path, under
-"composed" its launches on the composed frame; under "frames" each
+"composed" its launches on the composed frame, and so under "asvgf",
+"recur", "composed_asvgf" and "glass"; under "frames" each
 path's eager and replayed frame times, device busy, kernel counts and
 host copies, and the composed frame's cache numbers and gates), and as
 its last line
@@ -125,6 +140,7 @@ PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 OPS_NODE = 216   # cwbvh_core decode_row: 8 slots x (3 axes x 8 + 3)
 OPS_TRI = 53     # cwbvh_core tri_test: 6 msub/dot3 (27), 3 scalings,
                  # 3 subs, rcp + floor, 8 compares and sums
+OPS_TINT = 3     # the three products of a tinted triangle (transmittance)
 OPS_ATROUS_PX = 740   # the plain pass per pixel: 24 weighted taps x 29,
                       # centre tap, prefilter, sigmas, normalisation
 ATROUS_STEPS = (1, 2, 4, 8, 16)   # svgf_denoise's five passes
@@ -379,14 +395,27 @@ def torch_equal_bits(a, b) -> bool:
 def traversal_work(counts: dict, R: int, W: int) -> dict:
     """Per-ray work of one ray class (the plain traversal's counts) and
     the bound it sets: decodes and triangle tests at OPS_NODE / OPS_TRI,
-    the table rows it touches (10K words each) and 44 bytes per ray
-    (origin, direction, t_max in; t, tri, u, v out)."""
+    the table rows it touches (10K words each) once, and 44 bytes a ray
+    it walks (origin, direction, t_max in; t, tri, u, v out) and 20 a
+    dead one (t_max <= 1e-4: t_max in, its miss out). The
+    transmittance's counts add "accepted": OPS_TINT operations a tinted
+    triangle, and 12 bytes a distinct tint row read; its output is 12
+    bytes a ray (40 a walked ray, 16 a dead one)."""
     nd, lr, tt = (float(counts[f].sum()) for f in (
         "node_decodes", "leaf_rows", "tri_tests"))
-    return dict(node_decodes_per_ray=nd / R, leaf_rows_per_ray=lr / R,
-                tri_tests_per_ray=tt / R, rows_touched=counts["rows_touched"],
-                **bound(OPS_NODE * nd + OPS_TRI * tt,
-                        4 * W * counts["rows_touched"] + 44 * R))
+    live = counts["live_rays"]
+    out = dict(node_decodes_per_ray=nd / R, leaf_rows_per_ray=lr / R,
+               tri_tests_per_ray=tt / R, rows_touched=counts["rows_touched"],
+               live_share=live / R)
+    table_bytes = 4 * W * counts["rows_touched"]
+    if "accepted" not in counts:
+        return dict(out, **bound(OPS_NODE * nd + OPS_TRI * tt,
+                                 table_bytes + 44 * live + 20 * (R - live)))
+    acc = float(counts["accepted"].sum())
+    return dict(out, tinted_per_ray=acc / R, tint_rows=counts["tint_rows"],
+                **bound(OPS_NODE * nd + OPS_TRI * tt + OPS_TINT * acc,
+                        table_bytes + 40 * live + 16 * (R - live)
+                        + 12 * counts["tint_rows"]))
 
 
 def hold_closest(table, C, S, ro, rd, label: str):
@@ -509,7 +538,10 @@ def work_line(w: dict) -> str:
     return (f"per ray {w['node_decodes_per_ray']:.2f} node decodes, "
             f"{w['leaf_rows_per_ray']:.2f} leaf rows, "
             f"{w['tri_tests_per_ray']:.2f} triangle tests; "
-            f"{w['rows_touched']} table rows touched")
+            f"{w['rows_touched']} table rows touched, "
+            f"{w['live_share']:.3f} of the rays walked"
+            + (f", {w['tint_rows']} tint rows read" if "tint_rows" in w
+               else ""))
 
 
 def step_core_inputs(scene3, cam, R: int):
@@ -611,11 +643,25 @@ def phase_step_core(results, scene3, cam):
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
+def make_renderer(scene, cam, cfg: dict):
+    """Renderer at `cfg`; an "rr_start" key (RendererConfig has none, as
+    in the JAX package) sets its integrator's roulette start."""
+    from dataclasses import replace
+    from truetrace_tpu_torch.renderer import Renderer, RendererConfig
+    cfg = dict(cfg)
+    rr_start = cfg.pop("rr_start", None)
+    r = Renderer(scene, cam, RendererConfig(**cfg))
+    if rr_start is not None:
+        r.rcfg = replace(r.rcfg, rr_start=rr_start)
+    return r
+
+
 def launch_counters():
     from truetrace_tpu_torch.kernels import atrous_pallas, cwbvh_wavefront
     from truetrace_tpu_torch.kernels import step_pallas
     return {"closest_hit_wavefront": cwbvh_wavefront.closest_hit_wavefront,
             "any_hit_wavefront": cwbvh_wavefront.any_hit_wavefront,
+            "transmit_wavefront": cwbvh_wavefront.transmit_wavefront,
             "step_core": step_pallas.step_core,
             "atrous_pass": atrous_pallas.atrous_pass_packed}
 
@@ -626,8 +672,7 @@ def phase_frame(results, scene, cam, label: str, cfg: dict = FRAME):
     after; the display must be finite and in [0, 1]. Results go under
     `results[label]`."""
     import torch
-    from truetrace_tpu_torch.renderer import Renderer, RendererConfig
-    r = Renderer(scene, cam, RendererConfig(**cfg))
+    r = make_renderer(scene, cam, cfg)
     counters = launch_counters()
     for fn in counters.values():
         fn.launches = 0
@@ -654,13 +699,13 @@ def phase_frame(results, scene, cam, label: str, cfg: dict = FRAME):
     check(mean > 1e-3, f"radiance mean {mean}")
     ms = 1e3 * sum(times) / len(times)
     med = 1e3 * sorted(times)[len(times) // 2]
-    log(f"frame {label} {H}x{W}x{cfg['bounces']} {cfg['denoiser']}: "
+    log(f"frame {label} {H}x{W}x{cfg['bounces']} {cfg.get('denoiser')}: "
         f"warm-up "
         f"{warm * 1e3:.1f} ms, frames {[round(t * 1e3, 1) for t in times]}"
         f" ms -> mean {ms:.1f} ms/frame, median {med:.1f}; radiance mean "
         f"{mean:.4f}")
     log(f"launches over the {label} path's {FRAMES} frames: {launches}")
-    for name in PATH_KERNELS:
+    for name in PATHS.get(label, PATHS["atrium"]):
         check(launches[name] > 0, f"{name} never launched on the {label} "
               f"path")
     results[label] = dict(ms=ms, median_ms=med, warmup_ms=warm * 1e3,
@@ -772,12 +817,10 @@ def phase_graph(results, scene, cam, label: str, cfg: dict = FRAME):
        under the profiler.
     Results under results[label + "_graph"]."""
     import torch
-    from truetrace_tpu_torch.renderer import (
-        Renderer, RendererConfig, _tensors)
+    from truetrace_tpu_torch.renderer import _tensors
     shape = f"{cfg['width']}x{cfg['height']}x{cfg['bounces']}"
-    cfg = RendererConfig(**cfg)
     moved = moved_camera(cam)
-    re, rg = Renderer(scene, cam, cfg), Renderer(scene, cam, cfg)
+    re, rg = make_renderer(scene, cam, cfg), make_renderer(scene, cam, cfg)
     gs, gm = rg.graph_step(cam_moved=False), rg.graph_step(cam_moved=True)
     se, sg = re.init_state(), rg.init_state()
     t0 = time.perf_counter()
@@ -1073,6 +1116,564 @@ def phase_composed_card_vs_cpu(results):
         f"{flips}; cache count totals {ct}")
     results["composed_card_vs_cpu"] = dict(display_share=shares,
                                            flips=flips)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: glass scenes (the transmittance kernel, the medium stack) and
+# the temporal denoisers ASVGF and ReCur
+# ---------------------------------------------------------------------------
+
+# the frames of the slice, each FRAME's 512x512x4 atrium frame unless said
+ASVGF = dict(FRAME, denoiser="asvgf")
+RECUR = dict(FRAME, denoiser="recur")
+COMPOSED_ASVGF = dict(COMPOSED, denoiser="asvgf")     # ReSTIR-ASVGF
+# the JAX package's nested-glass showcase (scripts/demo.py:230-290) as
+# that script renders it (10 bounces, roulette from bounce 6), with SVGF;
+# the pcg sampler (the demo's blue noise is ROADMAP A.19)
+GLASS = dict(FRAME, bounces=10, rr_start=6)
+
+
+def nested_glass_scene(device: str):
+    """scripts/demo.py's scene 6, built from numpy with the port: a
+    floor, a brick-checker wall (a 32x32 texture tiled 4 times and turned
+    30 degrees), a water block (ior 1.33) holding a rose glass sphere
+    (ior 1.5), and a quad light. Returns (scene, camera)."""
+    from truetrace_tpu_torch.scene.atlas import AtlasBuilder
+    from truetrace_tpu_torch.scene.ir import Camera
+    from truetrace_tpu_torch.scene.mesh import (
+        HostMaterial, HostMesh, compile_scene)
+    from truetrace_tpu_torch.scene.primitives import transform, uv_sphere
+    builder = AtlasBuilder()
+    tex = np.zeros((32, 32, 3), np.float32)
+    tex[...] = (0.65, 0.3, 0.22)                     # brick
+    tex[::8] = (0.85, 0.82, 0.78)                    # mortar rows
+    tex[:, ::8] = (0.85, 0.82, 0.78)
+    brick = builder.add(tex)
+    atlas, rects, level_y = builder.build()
+    mats = [
+        HostMaterial(base_color=(0.7, 0.7, 0.7), roughness=0.9),
+        HostMaterial(base_color=(1, 1, 1), roughness=0.8, tex_albedo=brick,
+                     uv_scale=(4.0, 4.0, 0.0, 0.0),
+                     uv_rot=float(np.pi / 6)),
+        HostMaterial(base_color=(0.8, 0.92, 1.0), roughness=0.02,
+                     spec_trans=1.0, ior=1.33,
+                     transmit_color=(0.75, 0.92, 1.0)),
+        HostMaterial(base_color=(1.0, 0.85, 0.8), roughness=0.02,
+                     spec_trans=1.0, ior=1.5,
+                     transmit_color=(1.0, 0.55, 0.45)),
+        HostMaterial(emission=(22.0, 21.0, 19.0)),
+    ]
+    quad = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    floor = np.array([[-4, 0, -4], [4, 0, -4], [4, 0, 4], [-4, 0, 4]],
+                     np.float32)
+    wall = np.array([[-4, 0, -2.5], [4, 0, -2.5], [4, 4, -2.5],
+                     [-4, 4, -2.5]], np.float32)
+    light = np.array([[-1, 3.9, 0.2], [1, 3.9, 0.2], [1, 3.9, 2.0],
+                      [-1, 3.9, 2.0]], np.float32)
+    sv, si, _ = uv_sphere(20, 30, radius=0.45)
+    meshes = [
+        HostMesh(floor, np.array([[0, 2, 1], [0, 3, 2]], np.int32),
+                 np.zeros(2, np.int32)),
+        HostMesh(wall, quad, np.ones(2, np.int32),
+                 uvs=np.array([[0, 0], [1, 0], [1, 1], [0, 1]],
+                              np.float32)),
+        box_mesh((-1.0, 0.001, 0.0), (1.0, 1.6, 1.6), 2),
+        HostMesh(transform(sv, translate=(0.0, 0.8, 0.8)), si,
+                 np.full(len(si), 3, np.int32)),
+        HostMesh(light, quad, np.full(2, 4, np.int32)),
+    ]
+    scene = compile_scene(meshes, mats, atlas=atlas, atlas_rects=rects,
+                          atlas_level_y=level_y, with_cwbvh=True,
+                          with_light_bvh=True, device=device)
+    cam = Camera.look_at(eye=(0.2, 1.6, 5.2), target=(0, 1.0, 0.3),
+                         fov_y_deg=42, device=device)
+    return scene, cam
+
+
+def box_mesh(lo, hi, mat_id):
+    """Axis-aligned box, outward-facing triangles (tests/test_glass.py)."""
+    from truetrace_tpu_torch.scene.mesh import HostMesh
+    (x0, y0, z0), (x1, y1, z1) = lo, hi
+    v = np.array([[x0, y0, z0], [x1, y0, z0], [x1, y1, z0], [x0, y1, z0],
+                  [x0, y0, z1], [x1, y0, z1], [x1, y1, z1], [x0, y1, z1]],
+                 np.float32)
+    f = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7], [0, 1, 5],
+                  [0, 5, 4], [3, 6, 2], [3, 7, 6], [0, 4, 7], [0, 7, 3],
+                  [1, 2, 6], [1, 6, 5]], np.int32)
+    return HostMesh(v, f, np.full(len(f), mat_id, np.int32))
+
+
+def quad_mesh(center, half, axis, mat_id, flip=False):
+    """Axis-aligned quad with its normal along +axis (-axis when flip)
+    (tests/test_glass.py)."""
+    from truetrace_tpu_torch.scene.mesh import HostMesh
+    a, b = [i for i in range(3) if i != axis]
+    v = np.tile(np.asarray(center, np.float32), (4, 1))
+    for i, (sa, sb) in enumerate([(-1, -1), (1, -1), (1, 1), (-1, 1)]):
+        v[i, a] += sa * half
+        v[i, b] += sb * half
+    f = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    return HostMesh(v, f[:, ::-1].copy() if flip else f,
+                    np.full(2, mat_id, np.int32))
+
+
+# the glass Cornell box's extra materials: demo scene 2's coloured glass
+# (Beer-Lambert interior) and gold metal, and a half cut-out pane
+GLASS_MAT = dict(base_color=(0.55, 0.82, 0.95), roughness=0.02,
+                 spec_trans=1.0, ior=1.5, scatter_dist=0.15)
+METAL_MAT = dict(base_color=(0.95, 0.78, 0.4), metallic=1.0, roughness=0.15)
+PANE_MAT = dict(base_color=(0.8, 0.8, 0.8), alpha=0.5)
+
+
+def glass_cornell_host(mesh_cls, mat_cls, make_cornell, prim,
+                       extra=(GLASS_MAT, METAL_MAT, PANE_MAT)):
+    """The Cornell box with demo scene 2's glass and metal spheres
+    (scripts/demo.py:68-90) and a horizontal cut-out pane under the
+    light, from one package's HostMesh / HostMaterial, cornell.make and
+    primitives (the port's here; the parity tests build the JAX
+    package's scene from the same numbers). `extra` are the three added
+    materials' fields. Returns (meshes, materials, camera)."""
+    meshes, mats, cam = make_cornell()
+    base = meshes[0]
+    sv, si, _ = prim.uv_sphere(12, 18, radius=0.09)
+    n0 = len(mats)
+    mats = mats + [mat_cls(**m) for m in extra]
+    pane = np.array([[0.12, 0.32, 0.12], [0.36, 0.32, 0.12],
+                     [0.36, 0.32, 0.36], [0.12, 0.32, 0.36]], np.float32)
+    off, ns = base.positions.shape[0], sv.shape[0]
+    pos = np.concatenate([base.positions,
+                          prim.transform(sv, translate=(0.40, 0.09, 0.14)),
+                          prim.transform(sv, translate=(0.20, 0.09, 0.30)),
+                          pane])
+    idx = np.concatenate([base.indices, si + off, si + off + ns,
+                          np.array([[0, 2, 1], [0, 3, 2]]) + off + 2 * ns])
+    mid = np.concatenate([base.mat_id, np.full(len(si), n0),
+                          np.full(len(si), n0 + 1), np.full(2, n0 + 2)])
+    return [mesh_cls(pos.astype(np.float32), idx.astype(np.int32),
+                     mid.astype(np.int32))], mats, cam
+
+
+def glass_cornell(device: str):
+    """glass_cornell_host's scene, compiled by the port. Returns (scene,
+    camera)."""
+    from truetrace_tpu_torch.scene import cornell, primitives
+    from truetrace_tpu_torch.scene.mesh import (
+        HostMaterial, HostMesh, compile_scene)
+    meshes, mats, cam = glass_cornell_host(
+        HostMesh, HostMaterial, lambda: cornell.make(device="cpu"),
+        primitives)
+    scene = compile_scene(meshes, mats, with_cwbvh=True,
+                          with_light_bvh=True, device=device)
+    return scene, cam.to(device)
+
+
+def hold_transmit(scene, tint, ro, rd, tm, label: str, time_it=True):
+    """The kernel against transmit_plain, bit for bit, on one ray set;
+    the plain run counts the work, which sets the bound; with `time_it`
+    the kernel's device time (device_ms), any hit's on the same rays (the
+    opaque table does its work) and one plain run. Returns a dict."""
+    import torch
+    from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
+        any_hit_wavefront, transmit_plain, transmit_wavefront)
+    table, C, S = scene.cw_table(), scene.cw_nodes.shape[0], scene.cw_stack
+    R = ro.shape[0]
+    tk = transmit_wavefront(table, C, tint, ro, rd, tm, S)
+    counts = {}
+    tp = transmit_plain(table, C, tint, ro, rd, tm, S, counts)
+    check(torch_equal_bits(tk, tp), f"transmit {label}: differs from plain "
+          f"on {int((tk != tp).any(-1).sum())} of {R} rays")
+    blocked, clear = (tp == 0).all(-1), (tp == 1).all(-1)
+    shares = dict(blocked=float(blocked.float().mean()),
+                  partial=float((~blocked & ~clear).float().mean()),
+                  clear=float(clear.float().mean()))
+    out = dict(rays=R, max_abs_err=max_abs_diff(tk, tp), shares=shares,
+               work=traversal_work(counts, R, table.shape[1]))
+    if time_it:
+        out["ms"] = device_ms(lambda: transmit_wavefront(
+            table, C, tint, ro, rd, tm, S), 20)
+        out["any_hit_ms"] = device_ms(lambda: any_hit_wavefront(
+            table, C, ro, rd, tm, S), 20)
+        out["plain_ms"] = cuda_ms(lambda: transmit_plain(
+            table, C, tint, ro, rd, tm, S), 1)
+        out["share_of_bound"] = out["work"]["bound_ms"] / out["ms"]
+        out.update({k: out["work"][k] for k in ("bound_ms", "bound_by")})
+    log(f"transmit {label}: bit for bit equal to plain on {R} rays "
+        f"(blocked {shares['blocked']:.3f}, partial {shares['partial']:.3f},"
+        f" clear {shares['clear']:.3f}); {work_line(out['work'])}, "
+        f"{out['work']['tinted_per_ray']:.2f} tinted triangles"
+        + (f"; kernel {out['ms']:.5f} ms, any hit on the same rays "
+           f"{out['any_hit_ms']:.5f} ms, plain {out['plain_ms']:.1f} ms, "
+           f"bound {out['bound_ms']:.5f} ms ({out['bound_by']}) = "
+           f"{out['share_of_bound']:.3f} of the kernel's time"
+           if time_it else ""))
+    return out
+
+
+def phase_transmit_atrium(results, scene, cam):
+    """The transmittance kernel at the frame's 262144 lanes on the
+    atrium (K = 6), bench.py's shadow rays: with a tint table of zeros
+    (the any hit's work: every lane stops at its first surface) and with
+    one that passes every third triangle at 0.8 (the pass-through path:
+    lanes walk on through tinted surfaces)."""
+    import torch
+    R = FRAME["width"] * FRAME["height"]
+    _, _, ro, rd, tm = bench_rays(scene, cam, R)
+    T = scene.n_tris()
+    opaque = torch.zeros((T, 3), device=scene.device)
+    third = torch.where((torch.arange(T, device=scene.device) % 3 == 0)[
+        :, None], 0.8, 0.0).expand(T, 3).contiguous()
+    res = {}
+    for name, tint in (("opaque", opaque), ("pass_third", third)):
+        res[name] = hold_transmit(scene, tint, ro, rd, tm,
+                                  f"atrium {name}")
+    check(res["pass_third"]["shares"]["partial"] > 0.01,
+          "transmit: the pass-through table passes no ray in part")
+    results["transmit_atrium"] = res
+
+
+def phase_transmit_glass(results, scene, cam):
+    """The transmittance kernel on the nested-glass frame's own NEE
+    shadow rays (its 10 bounces at 262144 lanes, grabbed from one eager
+    frame): every bounce's rays bit for bit against plain; bounce 0's
+    timed. Returns its result (the kernels line's row)."""
+    from truetrace_tpu_torch.integrate import pathtrace
+    seen = []
+    orig = pathtrace._transmission
+
+    def grab(sc, ro, rd, tm):
+        seen.append((ro.clone(), rd.clone(), tm.clone()))
+        return orig(sc, ro, rd, tm)
+
+    r = make_renderer(scene, cam, GLASS)
+    pathtrace._transmission = grab
+    try:
+        r.step(r.init_state())
+    finally:
+        pathtrace._transmission = orig
+    check(len(seen) == GLASS["bounces"], f"glass frame: {len(seen)} "
+          f"transmittance calls, not {GLASS['bounces']}")
+    res = None
+    for b, (ro, rd, tm) in enumerate(seen):
+        out = hold_transmit(scene, scene.tri_shadow, ro, rd, tm,
+                            f"glass NEE bounce {b}", time_it=b == 0)
+        res = res or out
+    check(res["shares"]["partial"] > 0.01, "glass frame: no NEE ray passes "
+          "the glass in part")
+    results["transmit_wavefront"] = res
+    return res
+
+
+def run_path(results, scene, cam, label: str, cfg: dict):
+    """A new frame's phases, as phase 3's: timed eager frames with their
+    launch counts, the sync-free frames, the profile and the CUDA graphs
+    (every state tensor bit for bit). Returns the launches."""
+    launches, r, state = phase_frame(results, scene, cam, label, cfg)
+    state = phase_sync_free(r, state, cam, label)
+    results[f"{label}_profile"] = phase_profile(r, state,
+                                                label=f"{label} frame")
+    del r, state
+    phase_graph(results, scene, cam, label, cfg)
+    return launches
+
+
+def phase_asvgf_split(results, scene, cam):
+    """Where the ASVGF frame's extra device time goes: its two parts
+    profiled alone on one frame's own inputs (grabbed on the way), the
+    stratum replay with its gradient chain (asvgf_gradient: a 4-bounce
+    trace at (H/3)(W/3) lanes) and the LF/HF filter (asvgf_filter, SVGF
+    inside)."""
+    from truetrace_tpu_torch import renderer as rmod
+    seen = {}
+    origs = {f: getattr(rmod, f) for f in ("asvgf_gradient", "asvgf_filter")}
+
+    def grab(name):
+        def call(*a, **k):
+            seen[name] = (a, k)
+            return origs[name](*a, **k)
+        return call
+
+    r = make_renderer(scene, cam, ASVGF)
+    state = r.init_state()
+    _, _, state = r.step(state)
+    for f in origs:
+        setattr(rmod, f, grab(f))
+    try:
+        r.step(state)
+    finally:
+        for f, fn in origs.items():
+            setattr(rmod, f, fn)
+    res = {}
+    for f, fn in origs.items():
+        a, k = seen[f]
+        res[f] = phase_profile(None, None, lambda: fn(*a, **k),
+                               f"ASVGF's {f} alone")
+    results["asvgf_split"] = res
+
+
+def _furnace_cfg(**kw):
+    from truetrace_tpu_torch.integrate.pathtrace import RenderConfig
+    return RenderConfig(bsdf="disney", traversal="wavefront", use_nee=False,
+                        **kw)
+
+
+def phase_glass_gates(results):
+    """The JAX package's glass, transmit-shadow, ASVGF and ReCur gates on
+    the card through the port, at their thresholds. The glass gates
+    render as many samples as the JAX tests (their 8x8 images at 512,
+    256 and 96 spp) spread over more pixels at fewer spp (the camera's 2
+    degrees see one material, so the mean estimates the same value):
+
+    * tests/test_glass.py:65: a coloured slab's Beer-Lambert transmission
+      against the analytic value, rtol 0.06, and blue absorbs;
+    * tests/test_glass.py:96: a white glass box in a white furnace stays
+      at 1, rtol 0.03;
+    * tests/test_nested_glass.py:23: glass inside water against the
+      analytic chain with the relative-eta Fresnel, rtol 0.08, nearer to
+      it than to the absolute-eta value;
+    * tests/test_shadow_transmit.py:74, 92, 106: stained glass tints the
+      floor's direct light red and an opaque pane blocks it; an alpha 0.5
+      pane gives half a shadow (within 0.1); an alpha 0 pane is invisible
+      (rel < 0.03);
+    * tests/test_asvgf.py:34, 51: ASVGF's gradient rises 2x on a 4x
+      lighting change and its alpha with it; it converges faster than
+      SVGF after a 6x change;
+    * tests/test_recur.py:17, 38: ReCur cuts temporal variance (mean
+      within 0.08, std < 0.06) and keeps a hard edge (dark < 0.35 of
+      bright)."""
+    import dataclasses
+    import torch
+    from truetrace_tpu_torch.integrate.pathtrace import (
+        RenderConfig, render, render_sample_with_stats)
+    from truetrace_tpu_torch.post import asvgf, recur, svgf
+    from truetrace_tpu_torch.scene import cornell
+    from truetrace_tpu_torch.scene.ir import Camera, EnvMap
+    from truetrace_tpu_torch.scene.mesh import (
+        HostMaterial, HostMesh, compile_scene)
+    t0 = time.perf_counter()
+    out = {}
+    build = lambda meshes, mats, **kw: compile_scene(
+        meshes, mats, with_cwbvh=True, with_light_bvh=True, device=DEVICE,
+        **kw)
+    cam = Camera.look_at((0, 0, 1.0), (0, 0, -1.0), fov_y_deg=2.0,
+                         device=DEVICE)
+
+    def ext(color):
+        app = np.clip(1.0 - np.asarray(color, np.float32), 0.0, 1.0)
+        s = 1.9 - app + 3.5 * (app - 0.8) ** 2
+        return np.where(app <= 0.0, 0.0, 1.0 / s)
+
+    r0 = lambda n1, n2: ((n1 - n2) / (n1 + n2)) ** 2
+    mean = lambda sc, cfg, spp: render(sc, cam, cfg, spp=spp).mean(
+        (0, 1)).cpu().numpy()
+
+    # slab Beer-Lambert (test_glass.py:65)
+    color, E = (0.9, 0.5, 0.25), 4.0
+    sc = build([box_mesh((-6, -6, -1.5), (6, 6, -1.0), 0),
+                quad_mesh((0, 0, -4.0), 20.0, 2, 1)],
+               [HostMaterial(base_color=color, roughness=0.02,
+                             spec_trans=1.0, ior=1.5, specular=0.0,
+                             scatter_dist=0.0),
+                HostMaterial(base_color=(0, 0, 0), emission=(E, E, E))])
+    got = mean(sc, _furnace_cfg(width=64, height=64, bounces=8, rr_start=8),
+               8)
+    a = np.exp(-ext(color) * 0.5)
+    expect = E * (1 - r0(1, 1.5)) ** 2 * np.asarray(color) * a / (
+        1 - r0(1, 1.5) ** 2 * a ** 2)
+    out["slab"] = dict(got=got.tolist(), expect=expect.tolist())
+    log(f"gate glass slab: {np.round(got, 4)} vs analytic "
+        f"{np.round(expect, 4)} (rtol 0.06)")
+    check(bool(np.all(np.abs(got - expect) <= 0.06 * np.abs(expect))),
+          "glass slab: Beer-Lambert off the analytic value")
+    check(got[2] < E * (1 - r0(1, 1.5)) ** 2 * color[2] * 0.75,
+          "glass slab: blue does not absorb")
+
+    # white furnace (test_glass.py:96)
+    sc = build([box_mesh((-6, -6, -2.0), (6, 6, -1.0), 0)],
+               [HostMaterial(base_color=(1, 1, 1), roughness=0.02,
+                             spec_trans=1.0, ior=1.5, specular=0.0)],
+               env=EnvMap.constant((1.0, 1.0, 1.0), DEVICE))
+    got = mean(sc, _furnace_cfg(width=64, height=32, bounces=16,
+                                rr_start=16), 8)
+    out["furnace"] = got.tolist()
+    log(f"gate white furnace: {np.round(got, 4)} (1 within rtol 0.03)")
+    check(bool(np.all(np.abs(got - 1.0) <= 0.03)), "white glass furnace "
+          "not neutral")
+
+    # glass in water (test_nested_glass.py:23)
+    cw, cg = np.array([0.85, 0.95, 0.7]), np.array([0.9, 0.6, 0.8])
+    sc = build([box_mesh((-6, -6, -3.0), (6, 6, -0.5), 0),
+                box_mesh((-5, -5, -2.0), (5, 5, -1.5), 1),
+                quad_mesh((0, 0, -5.0), 20.0, 2, 2)],
+               [HostMaterial(base_color=tuple(cw), roughness=0.02,
+                             spec_trans=1.0, ior=1.33, specular=0.0),
+                HostMaterial(base_color=tuple(cg), roughness=0.02,
+                             spec_trans=1.0, ior=1.5, specular=0.0),
+                HostMaterial(base_color=(0, 0, 0), emission=(E, E, E))])
+    got = mean(sc, _furnace_cfg(width=32, height=24, bounces=10,
+                                rr_start=10), 8)
+    fr = (1 - r0(1.0, 1.33)) ** 2 * (1 - r0(1.33, 1.5)) ** 2
+    expect = E * fr * cw * cg * np.exp(-ext(cw) * 2.0) * np.exp(
+        -ext(cg) * 0.5)
+    wrong = expect / (1 - r0(1.33, 1.5)) ** 2 * (1 - r0(1.0, 1.5)) ** 2
+    out["nested"] = dict(got=got.tolist(), expect=expect.tolist())
+    log(f"gate glass in water: {np.round(got, 4)} vs analytic "
+        f"{np.round(expect, 4)} (rtol 0.08; absolute-eta "
+        f"{np.round(wrong, 4)})")
+    check(bool(np.all(np.abs(got - expect) <= 0.08 * np.abs(expect))),
+          "glass in water off the analytic chain")
+    check(bool(np.all(np.abs(got - expect) < np.abs(got - wrong))),
+          "glass in water: nearer the absolute-eta Fresnel")
+
+    # stained glass and cutout shadows (test_shadow_transmit.py)
+    def pane_scene(pane_mat, with_pane=True):
+        def q(y, half, mat, down=False):
+            pos = np.array([[-half, y, -half], [half, y, -half],
+                            [half, y, half], [-half, y, half]], np.float32)
+            idx = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+            return HostMesh(pos, idx if down else idx[:, ::-1].copy(),
+                            np.full(2, mat, np.int32))
+        meshes = [q(0.0, 3.0, 0), q(4.0, 0.7, 1, down=True)]
+        mats = [HostMaterial(base_color=(0.75, 0.75, 0.75)),
+                HostMaterial(emission=(20.0, 20.0, 20.0))]
+        if with_pane:
+            meshes.append(q(2.0, 2.0, 2, down=True))
+            mats.append(pane_mat)
+        return build(meshes, mats)
+
+    pcam = Camera.look_at(eye=(0, 2.2, 6.0), target=(0, 0.3, 0),
+                          fov_y_deg=40, device=DEVICE)
+    lam = lambda n, b: RenderConfig(width=n, height=n, bounces=b,
+                                    bsdf="lambert", traversal="wavefront",
+                                    light_sampling="cdf")
+    img = lambda sc, cfg, spp: render(sc, pcam, cfg, spp=spp).cpu().numpy()
+    fr_ = img(pane_scene(HostMaterial(base_color=(0.9, 0.05, 0.05),
+                                      spec_trans=1.0)), lam(32, 1), 32)[
+        20:].mean((0, 1))
+    fo = img(pane_scene(HostMaterial(base_color=(0.9, 0.05, 0.05))),
+             lam(32, 1), 32)[20:].mean((0, 1))
+    fh = img(pane_scene(HostMaterial(alpha=0.5)), lam(32, 1), 64)[20:].mean()
+    fn = img(pane_scene(HostMaterial(alpha=0.0)), lam(32, 1), 64)[20:].mean()
+    a0 = img(pane_scene(HostMaterial(alpha=0.0)), lam(24, 2), 48).mean()
+    b0 = img(pane_scene(None, with_pane=False), lam(24, 2), 48).mean()
+    out["shadow"] = dict(red=fr_.tolist(), opaque=fo.tolist(),
+                         half=float(fh / max(fn, 1e-6)),
+                         invisible_rel=float(abs(a0 - b0) / b0))
+    log(f"gate stained glass floor {np.round(fr_, 4)} (red > 4x green), "
+        f"opaque pane {np.round(fo, 4)}; alpha 0.5 pane "
+        f"{out['shadow']['half']:.4f} of no pane (0.5 within 0.1); alpha 0 "
+        f"pane vs none rel {out['shadow']['invisible_rel']:.4f} (< 0.03)")
+    check(fr_[0] > 4.0 * max(fr_[1], 1e-5), "stained glass: floor not red")
+    check(fr_[0] > 5.0 * max(fo[0], 1e-5), "opaque pane does not block")
+    check(abs(out["shadow"]["half"] - 0.5) < 0.1, "alpha 0.5 pane is not "
+          "half a shadow")
+    check(b0 > 0.01 and out["shadow"]["invisible_rel"] < 0.03,
+          "alpha 0 pane is not invisible")
+
+    # ASVGF (test_asvgf.py:34, 51): the Cornell box at 33x33, 2 bounces
+    meshes, mats, ccam = cornell.make(device="cpu")
+    sc = build(meshes, mats)
+    ccam = ccam.to(DEVICE)
+    cfg = RenderConfig(width=33, height=33, bounces=2,
+                       traversal="wavefront")
+
+    def brighter(s, k):
+        return dataclasses.replace(s, materials=dataclasses.replace(
+            s.materials, emission=s.materials.emission * k))
+
+    st = asvgf.ASVGFState.create(33, 33, DEVICE)
+    for s in range(3):
+        _, st, aux0 = asvgf.asvgf_step(sc, ccam, cfg, st, s)
+    _, st, aux1 = asvgf.asvgf_step(brighter(sc, 4.0), ccam, cfg, st, 3)
+    g0, g1 = float(aux0["gradient"].mean()), float(aux1["gradient"].mean())
+    al0, al1 = float(aux0["alpha"].mean()), float(aux1["alpha"].mean())
+    bright = brighter(sc, 6.0)
+    target = float(render(bright, ccam, cfg, spp=48).mean())
+    a_st = asvgf.ASVGFState.create(33, 33, DEVICE)
+    s_st = svgf.SVGFState.create(33, 33, DEVICE)
+    pix = torch.arange(33 * 33, device=DEVICE)
+    a_m, s_m = [], []
+    for s in range(10):
+        scn = sc if s < 5 else bright
+        o_a, a_st, _ = asvgf.asvgf_step(scn, ccam, cfg, a_st, s)
+        rad, gs = render_sample_with_stats(scn, ccam, cfg, pix, s)
+        o_s, s_st = svgf.svgf_denoise(
+            rad.reshape(33, 33, 3), gs["albedo"].reshape(33, 33, 3),
+            gs["normal"].reshape(33, 33, 3), gs["depth"].reshape(33, 33),
+            s_st)
+        a_m.append(float(o_a.mean()))
+        s_m.append(float(o_s.mean()))
+    lag_a = sum(abs(a_m[i] - target) for i in (5, 6, 7))
+    lag_s = sum(abs(s_m[i] - target) for i in (5, 6, 7))
+    out["asvgf"] = dict(gradient=[g0, g1], alpha=[al0, al1], lag=[lag_a,
+                                                                  lag_s])
+    log(f"gate ASVGF: gradient mean {g0:.4f} -> {g1:.4f} on a 4x light "
+        f"(> 2x), alpha {al0:.4f} -> {al1:.4f}; lag over frames 5-7 after "
+        f"a 6x light {lag_a:.4f} vs SVGF {lag_s:.4f}")
+    check(g1 > 2.0 * g0 and al1 > al0, "ASVGF misses a lighting change")
+    check(lag_a < lag_s, "ASVGF adapts no faster than SVGF")
+
+    # ReCur (test_recur.py:17, 38): denoiser-only, 32x32
+    n = torch.zeros((32, 32, 3), device=DEVICE)
+    n[..., 2] = 1.0
+    depth = torch.full((32, 32), 5.0, device=DEVICE)
+    albedo = torch.full((32, 32, 3), 0.5, device=DEVICE)
+    g = np.random.default_rng(0)
+    st = recur.ReCurState.create(32, 32, DEVICE)
+    for _ in range(24):
+        noisy = torch.from_numpy(g.exponential(0.4, (32, 32, 3)).astype(
+            np.float32)).to(DEVICE)
+        o, st = recur.recur_denoise(noisy, albedo, n, depth, st)
+    o = o.cpu().numpy()
+    n[:, :16, 0], n[:, :16, 2] = 1.0, 0.0
+    g = np.random.default_rng(1)
+    st = recur.ReCurState.create(32, 32, DEVICE)
+    base = np.ones((32, 32, 3), np.float32)
+    base[:, :16] *= 0.1
+    for _ in range(16):
+        noisy = torch.from_numpy(base * g.exponential(1.0, (32, 32, 3))
+                                 .astype(np.float32)).to(DEVICE)
+        e, st = recur.recur_denoise(noisy, albedo, n, depth, st)
+    e = e.cpu().numpy()
+    edge = float(e[:, :14].mean() / e[:, 18:].mean())
+    out["recur"] = dict(mean=float(o.mean()), std=float(o.std()), edge=edge)
+    log(f"gate ReCur: mean {o.mean():.4f} (0.4 within 0.08), std "
+        f"{o.std():.4f} (< 0.06); edge dark/bright {edge:.4f} (< 0.35); "
+        f"gates {time.perf_counter() - t0:.1f} s")
+    check(bool(np.isfinite(o).all()) and abs(o.mean() - 0.4) < 0.08
+          and o.std() < 0.06, "ReCur does not cut temporal variance")
+    check(edge < 0.35, "ReCur blurs across an edge")
+    results["glass_gates"] = out
+
+
+def phase_glass_card_vs_cpu(results):
+    """Two glass + ASVGF frames of the Cornell box with spheres and a
+    cut-out pane (tests/test_torch_glass.py's scene, 16x16, 3 bounces,
+    Disney, the light tree; the second moving the camera) on the card and
+    on the CPU: the displays within 1e-3 on >= 98% of pixels and in mean
+    to 1e-3 (ROADMAP §C: the glass facets turn last-ulp differences into
+    other paths on a few lanes)."""
+    import torch
+    kw = dict(width=16, height=16, bounces=3, bsdf="disney",
+              traversal="wavefront", light_sampling="tree", denoiser="asvgf")
+    frames = {}
+    for dev in (DEVICE, "cpu"):
+        sc, cam = glass_cornell(dev)
+        r = make_renderer(sc, cam, kw)
+        st = r.init_state()
+        frames[dev] = []
+        for c, moved in ((None, None), (moved_camera(cam), True)):
+            d, _, st = r.step(st, cam=c, cam_moved=moved)
+            frames[dev].append(d.cpu())
+    shares = []
+    for a, b in zip(frames[DEVICE], frames["cpu"]):
+        shares.append(float(((a - b).abs() <= 1e-3).all(-1).float().mean()))
+        rel = abs(float(a.mean()) - float(b.mean())) / float(b.mean())
+        check(bool(torch.isfinite(a).all()) and shares[-1] >= 0.98
+              and rel < 1e-3, f"glass card vs CPU: {shares[-1]:.4f} of "
+              f"pixels within 1e-3, mean rel {rel:.2e}")
+    log(f"glass + ASVGF Cornell 16x16x3 card vs CPU, two frames: displays "
+        f"{[round(x, 4) for x in shares]} of pixels within 1e-3")
+    results["glass_card_vs_cpu"] = dict(display_share=shares)
 
 
 # ---------------------------------------------------------------------------
@@ -1396,6 +1997,9 @@ KERNELS = (
      "truetrace_tpu/kernels/cwbvh_wavefront.py:861", "traverse_kernel<6,0>"),
     ("any_hit_wavefront", "truetrace_tpu_torch/kernels/csrc/traverse.cu",
      "truetrace_tpu/kernels/cwbvh_wavefront.py:927", "traverse_kernel<6,1>"),
+    ("transmit_wavefront", "truetrace_tpu_torch/kernels/csrc/traverse.cu",
+     "truetrace_tpu/kernels/cwbvh_wavefront.py:1039",
+     "traverse_kernel<6,2>"),
     ("step_core", "truetrace_tpu_torch/kernels/csrc/step_core.cu",
      "truetrace_tpu/kernels/step_pallas.py:120", "step_core_kernel"),
     ("atrous_pass", "truetrace_tpu_torch/kernels/csrc/atrous.cu",
@@ -1423,7 +2027,20 @@ def ptxas_of(src: str, want: str) -> dict:
     return out
 
 
-PATH_KERNELS = ("closest_hit_wavefront", "any_hit_wavefront", "atrous_pass")
+PATH_KERNELS = ("closest_hit_wavefront", "any_hit_wavefront",
+                "transmit_wavefront", "atrous_pass")
+# the hand kernels each path launches (phase_frame fails where one of
+# them never does): the opaque frames' NEE shadow rays take the any hit,
+# the glass frame's the transmittance; ReCur filters without a-trous
+_OPAQUE = ("closest_hit_wavefront", "any_hit_wavefront", "atrous_pass")
+PATHS = {"atrium": _OPAQUE, "composed": _OPAQUE, "sponza": _OPAQUE,
+         "asvgf": _OPAQUE, "composed_asvgf": _OPAQUE,
+         "recur": ("closest_hit_wavefront", "any_hit_wavefront"),
+         "glass": ("closest_hit_wavefront", "transmit_wavefront",
+                   "atrous_pass")}
+# the new frames of this slice, each with its own launch counts in the
+# kernels line
+NEW_PATHS = ("asvgf", "recur", "composed_asvgf", "glass")
 # a profiled frame's host copies and syncs (phase_profile)
 COPY_KEYS = ("memcpy_htod", "memcpy_dtoh", "stream_syncs",
              "blocking_memcpy_calls", "memcpy_dtod")
@@ -1499,7 +2116,21 @@ def main() -> int:
     phase_composed_cache(results, renderer, state)
     del renderer, state
     phase_graph(results, scenes[6], cam, "composed", COMPOSED)
+    phase_transmit_atrium(results, scenes[6], cam)
+    new_launches = {}
+    for label, cfg in (("asvgf", ASVGF), ("recur", RECUR),
+                       ("composed_asvgf", COMPOSED_ASVGF)):
+        new_launches[label] = run_path(results, scenes[6], cam, label, cfg)
+    phase_asvgf_split(results, scenes[6], cam)
     del scenes
+    glass, g_cam = nested_glass_scene(DEVICE)
+    log(f"nested glass scene: {glass.n_tris()} triangles, "
+        f"{glass.cw_nodes.shape[0]} nodes, K = "
+        f"{glass.cw_leaf_rows.shape[1] // 10}, stack {glass.cw_stack}, "
+        f"media {glass.has_media}")
+    phase_transmit_glass(results, glass, g_cam)
+    new_launches["glass"] = run_path(results, glass, g_cam, "glass", GLASS)
+    del glass
 
     with tempfile.TemporaryDirectory(prefix="sponza_like_") as tmp:
         parts = phase_sponza_build(tmp)
@@ -1521,6 +2152,8 @@ def main() -> int:
     phase_cornell()
     phase_composed_gates(results)
     phase_composed_card_vs_cpu(results)
+    phase_glass_gates(results)
+    phase_glass_card_vs_cpu(results)
 
     for k in (6, 3):
         log(f"traversal Mrays/s (bench mix, atrium K={k}): " + ", ".join(
@@ -1553,7 +2186,8 @@ def main() -> int:
         f"alone {results['composed_cache']['update_ms']:.4f} ms")
     frames = {}
     for label, prof in (("atrium", "profile"), ("sponza", "sponza_profile"),
-                        ("composed", "composed_profile")):
+                        ("composed", "composed_profile")) + tuple(
+                            (n, f"{n}_profile") for n in NEW_PATHS):
         g, p = results[f"{label}_graph"], results[prof]
         gp = g["profile"]
         log(f"frame {label}: eager {g['eager_ms']:.1f} ms, replayed "
@@ -1569,6 +2203,11 @@ def main() -> int:
             replay_busy_ms=gp["busy_ms"], replay_kernels=gp["kernels"],
             eager_copies={k: p[k] for k in COPY_KEYS},
             replay_copies={k: gp[k] for k in COPY_KEYS})
+    frames["asvgf"]["split"] = {
+        f: {k: p[k] for k in ("kernels", "busy_ms", "traversal_ms")}
+        for f, p in results["asvgf_split"].items()}
+    frames["glass"].update(gates=results["glass_gates"],
+                           card_vs_cpu=results["glass_card_vs_cpu"])
     frames["composed"].update(
         scatter_ms=results["composed_profile"]["scatter_ms"],
         cache_update_ms=results["composed_cache"]["update_ms"],
@@ -1582,25 +2221,35 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     # library_ms: no single PyTorch call computes any of these functions
+    # each kernel's main path: the atrium frame's, the glass frame's for
+    # the transmittance (the opaque frames shoot no such ray)
+    main_launches = dict(launches,
+                         transmit_wavefront=new_launches["glass"][
+                             "transmit_wavefront"])
     rows = {}
     for name, src, rep, _ in KERNELS:
         res = results[name]
+        n = main_launches[name]
         rows[name] = dict(
             name=name, route="cuda", source=src, replaces=rep,
-            launches=launches[name], max_abs_err=res["max_abs_err"],
+            launches=n, max_abs_err=res["max_abs_err"],
             ms=res["ms"], plain_ms=res["plain_ms"],
             bound_ms=res["bound_ms"], bound_by=res["bound_by"],
-            library_ms=None, launches_per_frame=launches[name] / FRAMES,
+            library_ms=None, launches_per_frame=n / FRAMES,
             share_of_bound=res["bound_ms"] / res["ms"],
             ptxas=ptxas[name], **{k: res[k] for k in (
                 "work", "ms_by_step", "plain_ms_by_step", "pack_ms",
-                "filter_ms", "atrium_frame_max_abs_err", "by_lanes")
+                "filter_ms", "atrium_frame_max_abs_err", "by_lanes",
+                "any_hit_ms", "shares", "rays")
                 if k in res})
         rows[name]["sponza"] = sponza_row(name, results, s_launches)
-        rows[name]["composed"] = dict(
-            launches=c_launches[name],
-            launches_per_frame=c_launches[name] / FRAMES)
-    for name in ("closest_hit_wavefront", "any_hit_wavefront"):
+        for label, ln in [("atrium", launches), ("composed", c_launches)] + [
+                (p, new_launches[p]) for p in NEW_PATHS]:
+            rows[name].setdefault(label, {}).update(
+                launches=ln[name], launches_per_frame=ln[name] / FRAMES)
+    rows["transmit_wavefront"]["atrium"].update(results["transmit_atrium"])
+    for name in ("closest_hit_wavefront", "any_hit_wavefront",
+                 "transmit_wavefront"):
         # the ring stack's dynamic shared memory, as the launch sizes it
         rows[name]["smem_dynamic"] = smem
     # "kernels": the main path's kernels. step_core's code runs inside

@@ -7,8 +7,8 @@ it on one CUDA card, in turns, on bench.py's ray mix over the atrium.
 DIR holds the earlier `traverse.cu` and the `cwbvh_core.cuh` it includes
 (for example `git archive <commit> truetrace_tpu_torch/kernels/csrc`
 unpacked into a git-ignored directory). Its C entry point must take the
-argument list of that version: (table, W, K, C, L, S, ro, rd, t_max, R,
-any_hit, out_t, out_tri, out_u, out_v, stream).
+current argument list: (table, W, C, L, S, ro, rd, t_max, R, any_hit,
+next_ray, out_t, out_tri, out_u, out_v, stream).
 
 On the 293k-triangle atrium (detail 1.5) at K = 6 and K = 3, with
 chip_smoke.bench_rays' mix at 262144 rays per class:
@@ -48,7 +48,7 @@ def build_old(src_dir: str):
     from truetrace_tpu_torch.kernels import _cuda
     lib, log = _cuda.build_file(os.path.abspath(src_dir), "traverse.cu")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.tt_traverse.argtypes = [P, I, I, I, I, I, P, P, P, I, I, P, P, P, P,
+    lib.tt_traverse.argtypes = [P, I, I, I, I, P, P, P, I, I, P, P, P, P, P,
                                 P]
     lib.tt_traverse.restype = ctypes.c_int
     return lib, log
@@ -61,15 +61,20 @@ def old_traverse(lib, table, C, ro, rd, t_max, S, any_hit):
     R = ro.shape[0]
     N, W = table.shape
     dev = ro.device
-    tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
-    tm = tm.expand(R).contiguous()
+    # as the port's wrapper makes it: a scalar t_max is a fill kernel, not
+    # a host-to-device copy (which would stall the timed launches)
+    if isinstance(t_max, torch.Tensor):
+        tm = t_max.to(device=dev, dtype=torch.float32).expand(R).contiguous()
+    else:
+        tm = torch.full((R,), float(t_max), dtype=torch.float32, device=dev)
     t = torch.empty((R,), dtype=torch.float32, device=dev)
     tri = torch.empty((R,), dtype=torch.int32, device=dev)
     u = torch.empty((R,), dtype=torch.float32, device=dev)
     v = torch.empty((R,), dtype=torch.float32, device=dev)
-    err = lib.tt_traverse(table.data_ptr(), W, W // 10, C, N - C, S,
-                          ro.data_ptr(), rd.data_ptr(), tm.data_ptr(), R,
-                          int(any_hit), t.data_ptr(), tri.data_ptr(),
+    next_ray = torch.zeros((1,), dtype=torch.int32, device=dev)
+    err = lib.tt_traverse(table.data_ptr(), W, C, N - C, S, ro.data_ptr(),
+                          rd.data_ptr(), tm.data_ptr(), R, int(any_hit),
+                          next_ray.data_ptr(), t.data_ptr(), tri.data_ptr(),
                           u.data_ptr(), v.data_ptr(), _cuda.stream_ptr(ro))
     _cuda.check(err, "earlier tt_traverse")
     hit = Hit(t=t, tri=tri, u=u, v=v)

@@ -335,6 +335,49 @@ def test_gi_matches_jax(run, frame):
     assert (ts["M"] > 1).any() and np.abs(timg.numpy()).max() > 0
 
 
+def test_restir_asvgf_on_gi_gradient(run):
+    """ReSTIR-ASVGF's filter on the run's own GI output: gradient_alpha
+    on ReSTIR GI's temporal-validation gradient, then asvgf_filter of the
+    GI image with its G-buffer (the second frame with its motion), two
+    chained frames from the empty state, the JAX functions against the
+    port's: the alpha map within rtol 1e-5 / atol 1e-6, the output, the
+    SVGF state and the LF history within rtol 1e-4 / atol 1e-5. Two
+    frames at 16x16 re-find no second vertex (the recorded gradients are
+    0), so a seeded sparse gradient is added to them."""
+    from truetrace_tpu.post import asvgf as jasvgf
+    from truetrace_tpu_torch.post import asvgf as tasvgf
+    H, W = CFG["height"], CFG["width"]
+    js, ts = jasvgf.ASVGFState.create(H, W), tasvgf.ASVGFState.create(
+        H, W, "cpu")
+    for frame in (0, 1):
+        a, k, (jimg, _, jaux) = run["calls"]["restir_gi_from_stats"][frame]
+        r = np.random.default_rng(frame)
+        grad = np.asarray(jaux["gradient"]) + (
+            r.uniform(0, 1, (H, W)) * (r.uniform(0, 1, (H, W)) < 0.1)
+        ).astype(np.float32)
+        ja, _ = jasvgf.gradient_alpha(jnp.asarray(grad), H, W)
+        ta, _ = tasvgf.gradient_alpha(_t(grad), H, W)
+        assert float(ta.max()) > tasvgf.ALPHA_MIN
+        np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-5,
+                                   atol=1e-6)
+        g = [jimg] + [jaux[key] for key in ("albedo", "normal", "depth")]
+        jo, jsv, jlf, jlen = jasvgf.asvgf_filter(
+            *g, js, ja, motion=k["motion"], emissive=jaux["emitted0"])
+        to, tsv, tlf, tlen = tasvgf.asvgf_filter(
+            *(_t(x) for x in g), ts, _t(ja), motion=_t(k["motion"]),
+            emissive=_t(jaux["emitted0"]))
+        pairs = [(jo, to), (jlf, tlf), (jlen, tlen)] + [
+            (getattr(jsv, f.name), getattr(tsv, f.name))
+            for f in dataclasses.fields(tsv)]
+        for j, t in pairs:
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-4,
+                                       atol=1e-5)
+        js = js._replace(svgf=jsv, lf_hist=jlf, lf_len=jlen)
+        ts = tasvgf.ASVGFState(svgf=tsv, prev_lum=ts.prev_lum,
+                               prev_sid=ts.prev_sid, lf_hist=tlf,
+                               lf_len=tlen)
+
+
 def test_gi_step_is_trace_then_reservoirs(run):
     """restir_gi_step, the standalone GI frame, is one traced sample with
     the GI captures followed by restir_gi_from_stats: bit for bit the

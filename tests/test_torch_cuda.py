@@ -13,7 +13,9 @@ on the card against the CPU; and the frame itself on both scenes: no host
 copy or sync inside Renderer.step, and Renderer.graph_step's replayed
 CUDA graphs bit for bit the eager frames; and the same two for the
 composed frame (ReSTIR DI and GI, the radiance cache), whose cache update
-gives the same bits run after run.
+gives the same bits run after run; the transmittance query bit for bit
+at every leaf width, and the same two frame checks for the ASVGF,
+ReSTIR-ASVGF, ReCur and nested-glass frames.
 
 Needs an NVIDIA card and nvcc; skips elsewhere. It imports no JAX, so it
 runs on a machine without it (the JAX-side conftest is skipped):
@@ -615,3 +617,123 @@ def test_cache_update_repeats_bitwise(dev):
                                atol=0)
     torch.testing.assert_close(outs[0].rad.cpu(), cpu.rad, rtol=1e-5,
                                atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the transmittance kernel, glass frames and the temporal denoisers
+# ---------------------------------------------------------------------------
+
+def _tints(T, dev):
+    """A shadow tint table of three kinds by triangle id: opaque, grey
+    0.8, and coloured glass."""
+    i = torch.arange(T, device=dev) % 3
+    return torch.stack([torch.where(i == 0, 0.0, torch.where(i == 1, 0.8, c))
+                        for c in (0.9, 0.5, 0.2)], -1).contiguous()
+
+
+@pytest.mark.parametrize("k", [3, 4, 5, 6, 8, 12])
+@pytest.mark.parametrize("stack", ["scene", 2])
+def test_transmit_kernel_bitwise(scenes, k, stack):
+    """The transmittance query of traverse.cu bit for bit against
+    transmit_plain for every compiled leaf width, through opaque, grey
+    and coloured surfaces (lanes that pass some in part, lanes that
+    retire below 1e-3, dead lanes that read 1), also with a 2-entry
+    stack whose pushes drop the deepest entry: some rays then miss tinted
+    surfaces, and the kernel misses the same ones."""
+    out, ro, rd, tm = scenes
+    sc = out[k]
+    S = sc.cw_stack if stack == "scene" else stack
+    table, C = sc.cw_table(), sc.cw_nodes.shape[0]
+    tint = _tints(sc.n_tris(), ro.device)
+    tk = wf.transmit_wavefront(table, C, tint, ro, rd, tm, S)
+    tp = wf.transmit_plain(table, C, tint, ro, rd, tm, S)
+    assert torch.equal(tk.view(torch.int32), tp.view(torch.int32))
+    assert bool((tk[:100] == 1.0).all())
+    m = tk.amax(-1)
+    assert float(((m > 0) & (m < 1)).float().mean()) > 0.05
+    assert float((m == 0).float().mean()) > 0.05
+    if stack == 2:
+        full = wf.transmit_plain(table, C, tint, ro, rd, tm, sc.cw_stack)
+        assert bool((tk != full).any())
+    # the opaque table is the any hit's occlusion
+    zero = torch.zeros_like(tint)
+    assert torch.equal(wf.transmit_wavefront(table, C, zero, ro, rd, tm,
+                                             S).amax(-1) == 0,
+                       wf.any_hit_wavefront(table, C, ro, rd, tm, S))
+
+
+SLICE = dict(width=64, height=48, bounces=4, bsdf="disney",
+             traversal="wavefront", light_sampling="tree")
+# (scene, config) of each frame the slice adds
+FRAMES = {"asvgf": ("atrium", dict(SLICE, denoiser="asvgf")),
+          "recur": ("atrium", dict(SLICE, denoiser="recur")),
+          "restir_asvgf": ("atrium", dict(SLICE, denoiser="asvgf",
+                                          use_restir=True)),
+          "glass": ("glass", dict(SLICE, bounces=10, rr_start=6,
+                                  denoiser="svgf"))}
+
+
+def _slice_frame(dev, name):
+    import chip_smoke
+    scene, cfg = FRAMES[name]
+    if scene == "glass":
+        sc, cam = chip_smoke.nested_glass_scene(dev)
+    else:
+        sc, cam = _atrium_small(dev)
+    return sc, cam, cfg
+
+
+@pytest.mark.parametrize("name", ["asvgf", "restir_asvgf", "glass"])
+def test_slice_frame_makes_no_host_sync(dev, name):
+    """The ASVGF frame (its stratum replay reads the previous sample id
+    on the card), ReSTIR-ASVGF and the nested-glass frame (the
+    transmittance kernel, the medium stack): after a warm-up frame, one
+    more and one moving the camera with cam_moved=True, under
+    torch.cuda.set_sync_debug_mode("error")."""
+    import chip_smoke
+    from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
+        transmit_wavefront)
+    sc, cam, cfg = _slice_frame(dev, name)
+    r = chip_smoke.make_renderer(sc, cam, cfg)
+    st = r.init_state()
+    _, _, st = r.step(st)
+    moved = chip_smoke.moved_camera(cam)
+    launches = transmit_wavefront.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, st = r.step(st)
+        disp, _, st = r.step(st, cam=moved, cam_moved=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(st.accum.count) == 1.0 and st.sample == 3
+    assert bool(torch.isfinite(disp).all())
+    assert (transmit_wavefront.launches > launches) == (name == "glass")
+
+
+@pytest.mark.parametrize("name", ["asvgf", "recur", "glass"])
+def test_slice_graph_frames_match_eager(dev, name):
+    """Renderer.graph_step against Renderer.step on the ASVGF, ReCur and
+    nested-glass frames, four frames as test_graph_frames_match_eager
+    runs them (a camera move among them): display, radiance and every
+    state tensor (ASVGF's nested SVGF state, its stratum luminance and
+    previous sample id, ReCur's histories) bit for bit."""
+    import chip_smoke
+    from truetrace_tpu_torch.renderer import _tensors
+    sc, cam, cfg = _slice_frame(dev, name)
+    moved = chip_smoke.moved_camera(cam)
+    re = chip_smoke.make_renderer(sc, cam, cfg)
+    rg = chip_smoke.make_renderer(sc, cam, cfg)
+    gs, gm = rg.graph_step(cam_moved=False), rg.graph_step(cam_moved=True)
+    se, sg = re.init_state(), rg.init_state()
+    for c, moved_now, frame in ((None, None, gs), (None, None, gs),
+                                (moved, True, gm), (moved, False, gs)):
+        de, ae, se = re.step(se, cam=c, cam_moved=moved_now)
+        dg, ag, sg = frame(sg, cam=c)
+        te, tg = dict(_tensors(se)), dict(_tensors(sg))
+        assert te.keys() == tg.keys()
+        assert all(chip_smoke.torch_equal_bits(a, b) for a, b in
+                   [(de, dg), (ae, ag)] + [(te[k], tg[k]) for k in te])
+    assert (gs.captures, gm.captures) == (1, 1)
+    if name == "asvgf":
+        assert "asvgf.svgf.color" in te and int(sg.asvgf.prev_sid) == 3

@@ -223,7 +223,7 @@ def test_cornell_physics():
 
 
 @pytest.mark.parametrize("opt,value", [
-    ("denoiser", "asvgf"), ("denoiser", "recur"), ("denoiser", "neural"),
+    ("denoiser", "neural_taa"), ("traversal", "tlas"), ("denoiser", "neural"),
     ("upscale", 2), ("partial_rendering", 2), ("traversal", "bvh2")])
 def test_unported_renderer_options_raise(cornell_pair, opt, value):
     _, _, ts, tcam = cornell_pair

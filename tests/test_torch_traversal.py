@@ -194,3 +194,37 @@ def test_plain_counts_each_rays_work(rays, any_hit):
     assert bool((tt >= lr).all()) and bool((tt <= 6 * lr).all())
     assert 1 <= counts["rows_touched"] <= table.shape[0]
     assert counts["rows_touched"] >= int(nd.max())
+    assert counts["live_rays"] == ro.shape[0] - N_DEAD
+
+
+def test_plain_transmit_counts_tint_rows(rays):
+    """The transmittance's counts, which chip_smoke.py bounds its bytes
+    with: with every tint at 0.9 no lane retires, so each ray's result is
+    0.9 to the power of the triangles it accepted, taken as the kernel
+    takes it (one f32 product a triangle), and the accepted triangles
+    and the distinct tint rows they read are the brute-force oracle's
+    crossings; dead rays (t_max = 0) are not walked; counting changes no
+    result."""
+    from truetrace_tpu_torch.core.math import ray_tri
+    js, ts = _scene(6)
+    ro, rd, t_max = rays
+    tm = _t(np.where(t_max > 0, 6.0, 0.0).astype(np.float32))
+    tint = torch.full((ts.tri_p0.shape[0], 3), 0.9)
+    args = (ts.cw_table(), ts.cw_nodes.shape[0], tint, _t(ro), _t(rd), tm,
+            ts.cw_stack)
+    counts = {}
+    got = twf.transmit_plain(*args, counts=counts)
+    assert torch.equal(got, twf.transmit_plain(*args))
+    acc = counts["accepted"]
+    n = int(acc.max())
+    assert n >= 2 and counts["live_rays"] == ro.shape[0] - N_DEAD
+    powers = [torch.ones(())]
+    for _ in range(n):
+        powers.append(powers[-1] * torch.tensor(0.9))
+    assert torch.equal(got[:, 0], torch.stack(powers)[acc])
+    h, t, _, _ = ray_tri(_t(ro)[:, None, :], _t(rd)[:, None, :],
+                         ts.tri_p0[None], ts.tri_e1[None], ts.tri_e2[None],
+                         tm[:, None])
+    crossed = h & (t < tm[:, None])
+    assert torch.equal(crossed.sum(1), acc)
+    assert counts["tint_rows"] == int(crossed.any(0).sum()) > n

@@ -6,9 +6,12 @@ masked dead lanes; NEE with MIS (power heuristic) against the emissive
 triangles, by light-tree cut selection or the power CDF; Disney or
 Lambert BSDF; Russian roulette; primary-hit G-buffer.
 
-What the port covers is the opaque single-BLAS scene under a constant
-or textured environment (env NEE + MIS), with atlas textures fetched at
-ray-cone mip levels, traversed by the CWBVH wavefront kernels, and the
+What the port covers is the single-BLAS scene under a constant or
+textured environment (env NEE + MIS), with atlas textures fetched at
+ray-cone mip levels, traversed by the CWBVH wavefront kernels; glass and
+cutout materials (shadow transmittance through the tinted surfaces, the
+stochastic cutout pass-through, and the nested-dielectric medium stack
+with Beer-Lambert absorption), and the
 hooks of the composed frame: the ReSTIR GI capture (`restir_capture`),
 the radiance cache's per-bounce records (`cache_capture`) and query
 (`cache_query_bounce`), and the ReSTIR DI light samples that drive the
@@ -28,12 +31,15 @@ from truetrace_tpu_torch.core.math import (
     cross, dot, finite_or_zero, luminance, normalize, power_heuristic,
     sample_cosine_hemisphere, to_world)
 from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
-    any_hit_wavefront, closest_hit_wavefront)
+    any_hit_wavefront, closest_hit_wavefront, transmit_wavefront)
 from truetrace_tpu_torch.kernels.traverse_ref import Hit
 from truetrace_tpu_torch.scene.ir import Camera, Scene, camera_rays
 
 T_MAX = 1e30
 SHADOW_EPS = 1e-4
+# nested-dielectric medium stack depth (glass in water in ...); a push on
+# a full stack overwrites the top entry
+MED_STACK = 4
 
 
 @dataclass(frozen=True)
@@ -86,9 +92,6 @@ def check_supported(scene: Scene, cfg: RenderConfig) -> None:
         raise ValueError(f"unknown nee_mis {cfg.nee_mis!r}")
     if cfg.light_sampling not in ("tree", "cdf"):
         raise ValueError(f"unknown light_sampling {cfg.light_sampling!r}")
-    if scene.tri_shadow is not None or scene.has_media:
-        _todo("cutout / transmissive materials (transmit_wavefront, media)",
-              "A.9")
     if scene.lights.position.shape[0] > 0:
         _todo("analytic lights", "A.8")
     if scene.terrain is not None:
@@ -229,6 +232,81 @@ def _trace(scene: Scene, ro, rd, alive) -> Hit:
 def _occluded(scene: Scene, ro, rd, t_max):
     return any_hit_wavefront(scene.cw_table(), scene.cw_nodes.shape[0],
                              ro, rd, t_max, max_stack=scene.cw_stack)
+
+
+def _transmission(scene: Scene, ro, rd, t_max):
+    """Shadow-ray transmittance [R,3]: binary visibility on all-opaque
+    scenes, else the product of the shadow tints of every surface crossed
+    (cutout alpha and stained glass; reference
+    CommonData.cginc:593-634)."""
+    if scene.tri_shadow is None:
+        blocked = _occluded(scene, ro, rd, t_max)
+        return torch.where(blocked[..., None], 0.0, 1.0)
+    return transmit_wavefront(scene.cw_table(), scene.cw_nodes.shape[0],
+                              scene.tri_shadow, ro, rd, t_max,
+                              max_stack=scene.cw_stack)
+
+
+# ---------------------------------------------------------------------------
+# the medium stack (nested dielectrics)
+# ---------------------------------------------------------------------------
+
+def _medium(scene: Scene, mat, m_ids, m_sp, hit, hit_ok, front, throughput):
+    """Glass interior transport at a bounce's hit: the segment that
+    landed is attenuated by the current medium's Beer-Lambert extinction
+    over hit.t (reference Materials.cginc:350 CalculateExtinction;
+    scatter_dist <= 0 counts as 1, and a white medium is clear), and a
+    non-thin transmissive surface gets the relative eta n_dest / n_src
+    as its ior (in place on `mat`). Returns (throughput, transmissive)."""
+    mats = scene.materials
+    top = lambda k: torch.gather(
+        m_ids, 1, torch.clamp(m_sp - k, 0, MED_STACK - 1)[:, None])[:, 0]
+    in_medium = m_sp > 0
+    safe_med = torch.clamp(top(1), min=0)
+    med_tc = mats.transmit_color[safe_med]
+    med_ior = mats.ior[safe_med]
+    # the apparent interior colour: the authored transmittance colour
+    # where there is one, else the surface tint
+    app = torch.where((med_tc >= 0.0).all(-1, keepdim=True),
+                      torch.clamp(1.0 - med_tc, 0.0, 1.0),
+                      torch.clamp(1.0 - mats.base_color[safe_med], 0.0, 1.0))
+    s_ext = 1.9 - app + 3.5 * (app - 0.8) ** 2
+    med_sd = mats.scatter_dist[safe_med]
+    sd = torch.where(med_sd <= 0.0, 1.0, med_sd)
+    att = torch.where(app <= 0.0, 1.0,
+                      torch.exp(-hit.t[..., None] / (s_ext * sd[..., None])))
+    throughput = torch.where((in_medium & hit_ok)[..., None],
+                             throughput * att, throughput)
+    transmissive = hit_ok & (mat.spec_trans > 0.0) & (mat.thin < 0.5)
+    n_cur = torch.where(in_medium, med_ior, 1.0)
+    n_below = torch.where(m_sp > 1, mats.ior[torch.clamp(top(2), min=0)],
+                          1.0)
+    ior_eff = torch.where(front, mat.ior / torch.clamp(n_cur, min=1e-6),
+                          n_below / torch.clamp(mat.ior, min=1e-6))
+    mat.ior = torch.where(transmissive, ior_eff, mat.ior)
+    return throughput, transmissive
+
+
+def _medium_update(m_ids, m_sp, crossed, front, mid):
+    """A sampled direction that crosses a non-thin transmissive surface
+    enters its medium (front face: push its id; on a full stack the push
+    overwrites the top slot) or leaves it (back face: remove the topmost
+    entry with its id, so interleaved boundaries and stray backfaces of
+    never-entered open meshes do no harm). Returns (m_ids, m_sp)."""
+    push = crossed & front
+    pop = crossed & ~front
+    slots = torch.arange(MED_STACK, device=m_ids.device)[None, :]
+    top = torch.clamp(m_sp, 0, MED_STACK - 1)[:, None]
+    m_ids = torch.where(push[:, None] & (slots == top), mid[:, None], m_ids)
+    match = (m_ids == mid[:, None]) & (slots < m_sp[:, None])
+    top_match = torch.where(match, slots, -1).amax(1)
+    do_pop = pop & match.any(1)
+    shifted = torch.cat([m_ids[:, 1:], torch.full_like(m_ids[:, :1], -1)],
+                        1)
+    m_ids = torch.where(do_pop[:, None] & (slots >= top_match[:, None]),
+                        shifted, m_ids)
+    m_sp = torch.clamp(m_sp + push.long() - do_pop.long(), 0, MED_STACK)
+    return m_ids, m_sp
 
 
 # ---------------------------------------------------------------------------
@@ -460,9 +538,15 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
     if not has_env_tex:
         env_rgb = scene.env.image[0, 0] * scene.env.intensity
     used = set(scene.tex_slots)
-    # cutout pass-through is possible only where a texture lowers alpha
-    # (materials with alpha < 1 raise in check_supported)
-    cutout = bool(used & {"tex_albedo", "tex_alpha"})
+    # cutout pass-through is possible only where a texture lowers alpha or
+    # a material has alpha < 1 (then the scene has a shadow tint table)
+    cutout = (bool(used & {"tex_albedo", "tex_alpha"})
+              or scene.tri_shadow is not None)
+    if scene.has_media:
+        # the dielectrics each lane is inside, innermost at slot m_sp - 1
+        m_ids = torch.full((R, MED_STACK), -1, dtype=torch.int64,
+                           device=dev)
+        m_sp = torch.zeros((R,), dtype=torch.int64, device=dev)
 
     for b in range(cfg.bounces):
         n_trace = n_trace + alive.float().sum()
@@ -507,9 +591,15 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
             mat.metal_remap[:, 0] + mat.metallic
             * (mat.metal_remap[:, 1] - mat.metal_remap[:, 0]), 0.0, 1.0)
 
+        if scene.has_media:
+            throughput, transmissive = _medium(scene, mat, m_ids, m_sp,
+                                               hit, hit_ok, front,
+                                               throughput)
+
         # ---- cutout alpha: stochastically pass straight through partial
         # surfaces (reference alpha-mapped closest-hit skips,
         # IntersectionKernels.compute:264-498); the lane keeps flying
+        passthru = None
         if cutout:
             u_cut = u1(rng.path_dim(b, rng.DIM_AUX))
             passthru = hit_ok & (mat.alpha < 1.0) & (u_cut >= mat.alpha)
@@ -645,9 +735,8 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
             n_shadow = n_shadow + cand.float().sum()
             # non-candidate lanes shoot zero-length shadow rays
             s_tm = torch.where(cand, dist_l - 2.0 * SHADOW_EPS, 0.0)
-            blocked = _occluded(scene, sro.contiguous(),
-                                wi_l.contiguous(), s_tm)
-            trans = torch.where(blocked[..., None], 0.0, 1.0)
+            trans = _transmission(scene, sro.contiguous(),
+                                  wi_l.contiguous(), s_tm)
             radiance = radiance + torch.where(cand[..., None],
                                               contrib * trans, 0.0)
 
@@ -686,6 +775,11 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
             tp_n = torch.where(passthru[..., None], throughput, tp_n)
             pdf_n = torch.where(passthru, prev_pdf, pdf_n)
             sn = torch.where(passthru[..., None], prev_n, sn)
+        if scene.has_media:
+            crossed = alive & transmissive & (dot(wi, gn) < 0.0)
+            if passthru is not None:
+                crossed = crossed & ~passthru
+            m_ids, m_sp = _medium_update(m_ids, m_sp, crossed, front, mid)
         if cfg.restir_capture and b == 0:
             # direct radiance, and the first bounce's throughput factor
             r_direct = radiance

@@ -54,6 +54,7 @@ P, I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "traverse.cu": {
         "tt_traverse": [P, I, I, I, I, P, P, P, I, I, P, P, P, P, P, P],
+        "tt_transmit": [P, I, I, I, I, P, I, P, P, P, I, P, P, P],
         "tt_traverse_smem": [I],
     },
     "step_core.cu": {

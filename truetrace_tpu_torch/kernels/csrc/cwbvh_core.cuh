@@ -61,12 +61,11 @@ __device__ __forceinline__ float dot3(float a, float b, float c, float d,
 }
 
 // One Moller-Trumbore test: b holds p0, e1, e2 (9 words at `stride`).
-// Updates the running closest hit.
-__device__ __forceinline__ void tri_test(const uint32_t* b, int stride,
-                                         int tri_id, const Ray& r,
-                                         bool leaf_lane, bool write_uv,
-                                         float& t_best, int& tri_best,
-                                         float& u_best, float& v_best) {
+// True where the triangle is hit in (1e-4, t_best); th, u, v are set
+// either way.
+__device__ __forceinline__ bool moller(const uint32_t* b, int stride,
+                                       const Ray& r, float t_best,
+                                       float& th, float& u, float& v) {
   const float p0x = bits_f(b[0]), p0y = bits_f(b[stride]),
               p0z = bits_f(b[2 * stride]);
   const float e1x = bits_f(b[3 * stride]), e1y = bits_f(b[4 * stride]),
@@ -80,16 +79,25 @@ __device__ __forceinline__ void tri_test(const uint32_t* b, int stride,
   const float det = dot3(e1x, pvx, e1y, pvy, e1z, pvz);
   const float inv_det = __frcp_rn(fabsf(det) < 1e-12f ? 1e-12f : det);
   const float tvx = r.o[0] - p0x, tvy = r.o[1] - p0y, tvz = r.o[2] - p0z;
-  const float u = dot3(tvx, pvx, tvy, pvy, tvz, pvz) * inv_det;
+  u = dot3(tvx, pvx, tvy, pvy, tvz, pvz) * inv_det;
   const float qvx = msub(tvy, e1z, tvz, e1y);
   const float qvy = msub(tvz, e1x, tvx, e1z);
   const float qvz = msub(tvx, e1y, tvy, e1x);
-  const float v = dot3(rdx, qvx, rdy, qvy, rdz, qvz) * inv_det;
-  const float th = dot3(e2x, qvx, e2y, qvy, e2z, qvz) * inv_det;
-  const bool ok = leaf_lane && tri_id >= 0 && u >= 0.0f && v >= 0.0f &&
-                  u + v <= 1.0f && th > 1e-4f && th < t_best &&
-                  fabsf(det) > 1e-12f;
-  if (ok) {
+  v = dot3(rdx, qvx, rdy, qvy, rdz, qvz) * inv_det;
+  th = dot3(e2x, qvx, e2y, qvy, e2z, qvz) * inv_det;
+  return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && th > 1e-4f &&
+         th < t_best && fabsf(det) > 1e-12f;
+}
+
+// One test that updates the running closest hit.
+__device__ __forceinline__ void tri_test(const uint32_t* b, int stride,
+                                         int tri_id, const Ray& r,
+                                         bool leaf_lane, bool write_uv,
+                                         float& t_best, int& tri_best,
+                                         float& u_best, float& v_best) {
+  float th, u, v;
+  const bool ok = moller(b, stride, r, t_best, th, u, v);
+  if (ok && leaf_lane && tri_id >= 0) {
     t_best = th;
     tri_best = tri_id;
     if (write_uv) {
@@ -238,6 +246,29 @@ __device__ __forceinline__ void test_leaf(const uint32_t* __restrict__ row,
     if (id >= 0)
       tri_test(w + 9 * j, 1, id, r, true, write_uv, t_best, tri_best,
                u_best, v_best);
+  }
+}
+
+// Leaf row of K triangles for the transmittance query: every triangle
+// hit in (1e-4, t_max) multiplies the throughput tp by its shadow tint
+// tint[id] (T rows of 3), in slot order, channel by channel; t_max is
+// not shortened.
+template <int K, int V>
+__device__ __forceinline__ void transmit_leaf(
+    const uint32_t* __restrict__ row, const Ray& r, float t_max,
+    const float* __restrict__ tint, int T, float (&tp)[3]) {
+  uint32_t w[10 * K];
+  load_row<V>(row, w);
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int id = (int)w[9 * K + j];
+    float th, u, v;
+    if (id >= 0 && moller(w + 9 * j, 1, r, t_max, th, u, v)) {
+      const float* c = tint + 3 * (size_t)min(id, T - 1);
+      tp[0] = tp[0] * __ldg(c);
+      tp[1] = tp[1] * __ldg(c + 1);
+      tp[2] = tp[2] * __ldg(c + 2);
+    }
   }
 }
 

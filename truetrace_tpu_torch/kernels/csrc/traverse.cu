@@ -1,9 +1,11 @@
-// CWBVH traversal on the H100: closest hit and any hit, one ray per lane
-// at a time, in persistent warps that pull rays from a shared counter.
+// CWBVH traversal on the H100: closest hit, any hit and shadow
+// transmittance, one ray per lane at a time, in persistent warps that
+// pull rays from a shared counter.
 //
 // Replaces truetrace_tpu/kernels/cwbvh_wavefront.py closest_hit_wavefront
-// (:861) and any_hit_wavefront (:927), whose per-ray while_loop (:755)
-// torch cannot express on the device, and carries the work of the Pallas
+// (:861), any_hit_wavefront (:927) and transmit_wavefront (:1039, step
+// _step_transmit :940), whose per-ray while_loops (:755, :1068) torch
+// cannot express on the device, and carries the work of the Pallas
 // step_core (step_pallas.py:120) through the shared core in
 // cwbvh_core.cuh. Each ray walks the unified table (expanded 26-word node
 // rows zero-padded to 10K words, then leaf rows) in exactly the order of
@@ -12,6 +14,17 @@
 // the leaf slots); otherwise descend into the next node slot (closest
 // hit: near to far by the ray's octant; any hit: lowest set bit), saving
 // the rest of the group. Any hit stops at its first accepted triangle.
+// Transmittance (the third query type) walks as any hit does but never
+// shortens t_max and never stops at a hit: every accepted triangle
+// multiplies the lane's RGB throughput by its shadow tint, in slot order
+// (the order _step_transmit multiplies in, so the products are bitwise
+// the plain version's), and the lane retires once its largest channel
+// falls below 1e-3 (its result is 0 then). Its bound is the any hit's
+// operations on the same rays plus three products per accepted
+// triangle, against the touched table rows and tint rows (12 bytes
+// each) read once and 40 bytes per walked ray (origin, direction, t_max
+// in; RGB out), 16 per dead one (t_max in, RGB out); chip_smoke.py
+// counts it on the plain version.
 // The stack is a ring of max_stack entries that reproduces the JAX shift
 // register, including its drop-the-deepest push on a full stack.
 //
@@ -82,14 +95,23 @@ __device__ __forceinline__ uint32_t xor_permute8(uint32_t m, uint32_t v) {
   return m;
 }
 
-template <int K, bool kAnyHit>
+// query types (cwbvh_wavefront.CLOSEST, ANY, TRANSMIT)
+constexpr int kClosest = 0, kAny = 1, kTransmit = 2;
+constexpr float kOpaque = 1e-3f;   // cwbvh_wavefront.OPAQUE
+
+__device__ __forceinline__ float max3(float a, float b, float c) {
+  return fmaxf(fmaxf(a, b), c);
+}
+
+template <int K, int Q>
 __global__ void __launch_bounds__(kBlock)
 traverse_kernel(const uint32_t* __restrict__ table, int C, int L, int S,
                 const float* __restrict__ ro, const float* __restrict__ rd,
                 const float* __restrict__ t_max, int R,
                 int* __restrict__ next_ray, float* __restrict__ out_t,
                 int* __restrict__ out_tri, float* __restrict__ out_u,
-                float* __restrict__ out_v) {
+                float* __restrict__ out_v, const float* __restrict__ tint,
+                int T, float* __restrict__ out_tp) {
   constexpr int W = 10 * K;
   constexpr int V = K % 2 == 0 ? 4 : 2;   // words per row load
   extern __shared__ uint2 stack_mem[];
@@ -102,6 +124,7 @@ traverse_kernel(const uint32_t* __restrict__ table, int C, int L, int S,
   tt::Ray r;
   uint32_t oct = 0u, hits = 0u, chim = 0u, bleaf = 0u;
   float t = 0.0f, u = 0.0f, v = 0.0f;
+  float tp[3] = {1.0f, 1.0f, 1.0f};   // transmittance (Q == kTransmit)
   int tri = -1, head = 0, sp = 0, it = 0;
 
   while (true) {
@@ -119,6 +142,7 @@ traverse_kernel(const uint32_t* __restrict__ table, int C, int L, int S,
           t = t_max[i];
           tri = -1;
           u = v = 0.0f;
+          tp[0] = tp[1] = tp[2] = 1.0f;
           if (t > 1e-4f) {
             r = tt::make_ray(ro + 3 * i, rd + 3 * i);
             oct = (r.d[0] < 0.0f ? 1u : 0u) | (r.d[1] < 0.0f ? 2u : 0u) |
@@ -127,12 +151,17 @@ traverse_kernel(const uint32_t* __restrict__ table, int C, int L, int S,
             root = true;
             head = sp = it = 0;
           } else {
-            // no triangle can pass th > 1e-4 && th < t: a miss, with no
-            // walk (the dead lanes of the integrator, t_max = 0)
-            out_t[i] = t;
-            out_tri[i] = -1;
-            out_u[i] = 0.0f;
-            out_v[i] = 0.0f;
+            // no triangle can pass th > 1e-4 && th < t: a miss (a
+            // transmittance of 1), with no walk (the dead lanes of the
+            // integrator, t_max = 0)
+            if (Q == kTransmit) {
+              out_tp[3 * i] = out_tp[3 * i + 1] = out_tp[3 * i + 2] = 1.0f;
+            } else {
+              out_t[i] = t;
+              out_tri[i] = -1;
+              out_u[i] = 0.0f;
+              out_v[i] = 0.0f;
+            }
           }
         }
       }
@@ -160,8 +189,11 @@ traverse_kernel(const uint32_t* __restrict__ table, int C, int L, int S,
       const int row =
           C + min(max((int)(bleaf & 0x00FFFFFFu) + lrank, 0), L - 1);
       hits &= ~lsb;
-      tt::test_leaf<K, V>(table + (size_t)row * W, r, !kAnyHit, t, tri, u,
-                          v);
+      if (Q == kTransmit)
+        tt::transmit_leaf<K, V>(table + (size_t)row * W, r, t, tint, T, tp);
+      else
+        tt::test_leaf<K, V>(table + (size_t)row * W, r, Q == kClosest, t,
+                            tri, u, v);
     } else {                   // the root, or the next node slot
       bool work = true;
       int row = 0;             // the root's row unless set below
@@ -182,7 +214,7 @@ traverse_kernel(const uint32_t* __restrict__ table, int C, int L, int S,
         if (work) {
           const uint32_t node_bits = hits >> 24;
           int slot;
-          if (kAnyHit) {
+          if (Q != kClosest) {
             const uint32_t lsb_n = node_bits & (~node_bits + 1u);
             slot = __popc(lsb_n - 1u);
             rest = node_bits & ~lsb_n;
@@ -211,15 +243,22 @@ traverse_kernel(const uint32_t* __restrict__ table, int C, int L, int S,
         bleaf = c_bleaf;
       }
     }
-    if (kAnyHit && tri >= 0) {
+    if ((Q == kAny && tri >= 0) ||
+        (Q == kTransmit && max3(tp[0], tp[1], tp[2]) < kOpaque)) {
       hits = 0u;
       sp = 0;
     }
     if ((hits == 0u && sp == 0) || it >= kIterCap) {
-      out_t[ray] = t;
-      out_tri[ray] = tri;
-      out_u[ray] = u;
-      out_v[ray] = v;
+      if (Q == kTransmit) {
+        const bool dark = max3(tp[0], tp[1], tp[2]) < kOpaque;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) out_tp[3 * ray + c] = dark ? 0.0f : tp[c];
+      } else {
+        out_t[ray] = t;
+        out_tri[ray] = tri;
+        out_u[ray] = u;
+        out_v[ray] = v;
+      }
       ray = -1;
     }
   }
@@ -229,31 +268,42 @@ size_t stack_bytes(int S) { return (size_t)S * kBlock * sizeof(uint2); }
 
 // Resident blocks per SM of one instantiation at S stack entries,
 // memoised per (instantiation, S); 0 when the query fails.
-template <int K, bool kAnyHit>
+template <int K, int Q>
 int blocks_per_sm(int S) {
   static int memo[kMaxStack + 1] = {0};
   if (memo[S] == 0) {
     const size_t smem = stack_bytes(S);
     if (smem > 48 * 1024 &&
-        cudaFuncSetAttribute(traverse_kernel<K, kAnyHit>,
+        cudaFuncSetAttribute(traverse_kernel<K, Q>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem) != cudaSuccess)
       return 0;
     int n = 0;
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n, traverse_kernel<K, kAnyHit>, kBlock, smem) != cudaSuccess)
+            &n, traverse_kernel<K, Q>, kBlock, smem) != cudaSuccess)
       return 0;
     memo[S] = n;
   }
   return memo[S];
 }
 
-template <int K, bool kAnyHit>
+// The outputs of a query: t, tri, u, v (closest and any hit) or the
+// transmittance [R,3] against the tint table [T,3].
+struct Out {
+  float* t;
+  int* tri;
+  float* u;
+  float* v;
+  const float* tint;
+  int T;
+  float* tp;
+};
+
+template <int K, int Q>
 int launch(const uint32_t* table, int C, int L, int S, const float* ro,
            const float* rd, const float* tm, int R, int* next_ray,
-           float* out_t, int* out_tri, float* out_u, float* out_v,
-           cudaStream_t s) {
-  const int per_sm = blocks_per_sm<K, kAnyHit>(S);
+           const Out& o, cudaStream_t s) {
+  const int per_sm = blocks_per_sm<K, Q>(S);
   if (per_sm < 1) {
     const cudaError_t e = cudaGetLastError();
     return (int)(e != cudaSuccess ? e : cudaErrorInvalidConfiguration);
@@ -262,8 +312,9 @@ int launch(const uint32_t* table, int C, int L, int S, const float* ro,
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int grid = std::min((R + kBlock - 1) / kBlock, per_sm * sms);
-  traverse_kernel<K, kAnyHit><<<grid, kBlock, stack_bytes(S), s>>>(
-      table, C, L, S, ro, rd, tm, R, next_ray, out_t, out_tri, out_u, out_v);
+  traverse_kernel<K, Q><<<grid, kBlock, stack_bytes(S), s>>>(
+      table, C, L, S, ro, rd, tm, R, next_ray, o.t, o.tri, o.u, o.v, o.tint,
+      o.T, o.tp);
   return (int)cudaGetLastError();
 }
 
@@ -285,17 +336,43 @@ extern "C" int tt_traverse(const void* table, int W, int C, int L, int S,
   const float* d = static_cast<const float*>(rd);
   const float* tm = static_cast<const float*>(t_max);
   int* nr = static_cast<int*>(next_ray);
-  float* ot = static_cast<float*>(out_t);
-  int* oi = static_cast<int*>(out_tri);
-  float* ou = static_cast<float*>(out_u);
-  float* ov = static_cast<float*>(out_v);
+  const Out out{static_cast<float*>(out_t), static_cast<int*>(out_tri),
+                static_cast<float*>(out_u), static_cast<float*>(out_v),
+                nullptr, 0, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TT_CASE(k)                                                        \
-  case 10 * k:                                                            \
-    return any_hit ? launch<k, true>(tb, C, L, S, o, d, tm, R, nr, ot, oi, \
-                                     ou, ov, s)                           \
-                   : launch<k, false>(tb, C, L, S, o, d, tm, R, nr, ot, oi, \
-                                      ou, ov, s);
+#define TT_CASE(k)                                                         \
+  case 10 * k:                                                             \
+    return any_hit ? launch<k, kAny>(tb, C, L, S, o, d, tm, R, nr, out, s) \
+                   : launch<k, kClosest>(tb, C, L, S, o, d, tm, R, nr, out, \
+                                         s);
+  switch (W) {
+    TT_FOR_EACH_K(TT_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef TT_CASE
+}
+
+// Shadow transmittance [R,3] of each segment against the tint table
+// tint [T,3]; the other arguments as tt_traverse's.
+extern "C" int tt_transmit(const void* table, int W, int C, int L, int S,
+                           const void* tint, int T, const void* ro,
+                           const void* rd, const void* t_max, int R,
+                           void* next_ray, void* out_tp, void* stream) {
+  if (S < 1 || S > kMaxStack || T < 1) return (int)cudaErrorInvalidValue;
+  if (R == 0) return (int)cudaSuccess;
+  const uint32_t* tb = static_cast<const uint32_t*>(table);
+  const float* o = static_cast<const float*>(ro);
+  const float* d = static_cast<const float*>(rd);
+  const float* tm = static_cast<const float*>(t_max);
+  int* nr = static_cast<int*>(next_ray);
+  const Out out{nullptr, nullptr, nullptr, nullptr,
+                static_cast<const float*>(tint), T,
+                static_cast<float*>(out_tp)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TT_CASE(k) \
+  case 10 * k:     \
+    return launch<k, kTransmit>(tb, C, L, S, o, d, tm, R, nr, out, s);
   switch (W) {
     TT_FOR_EACH_K(TT_CASE)
     default:

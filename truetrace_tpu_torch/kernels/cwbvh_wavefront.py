@@ -1,27 +1,29 @@
 """CWBVH traversal over the unified node + leaf-row table.
 
 Port of `truetrace_tpu/kernels/cwbvh_wavefront.py` (single-BLAS closest
-hit and any hit). The table layout is the JAX package's: `pack_leaf_rows`
+hit, any hit and shadow transmittance). The table layout is the JAX package's: `pack_leaf_rows`
 (host) builds [L, 10K] leaf rows and rewrites node word 5, `expand_nodes`
 turns the 20-word quantized nodes into 26-word rows of absolute
 conservative-bf16 bounds, and `pack_table` stacks both into one
 [C+L, 10K] table (int32 bits here, uint32 there).
 
-Two implementations of one traversal:
+Two implementations of one traversal, with three query types:
 
-* `closest_hit_wavefront` / `any_hit_wavefront` launch the CUDA kernel
-  `csrc/traverse.cu` (persistent warps pulling rays from a counter, one
-  ray per lane at a time, whole-row vector loads, an 8-byte stack entry
-  in shared memory) on CUDA tensors; on CPU tensors they run the plain
-  version. Each counts its launches in its `launches` attribute.
-* `closest_hit_plain` / `any_hit_plain`: plain PyTorch, a Python loop of
-  lock-step iterations over all lanes with active masks, mirroring
-  `cwbvh_wavefront._step` op for op (the JAX shift-register stack
-  included). It is the CPU path and the kernel's reference on the card,
-  and can count each ray's work.
+* `closest_hit_wavefront` / `any_hit_wavefront` / `transmit_wavefront`
+  launch the CUDA kernel `csrc/traverse.cu` (persistent warps pulling
+  rays from a counter, one ray per lane at a time, whole-row vector
+  loads, an 8-byte stack entry in shared memory) on CUDA tensors; on CPU
+  tensors they run the plain version. Each counts its launches in its
+  `launches` attribute.
+* `closest_hit_plain` / `any_hit_plain` / `transmit_plain`: plain
+  PyTorch, a Python loop of lock-step iterations over all lanes with
+  active masks, mirroring `cwbvh_wavefront._step` (and `_step_transmit`)
+  op for op (the JAX shift-register stack included). It is the CPU path
+  and the kernel's reference on the card, and can count each ray's work.
 
 Both round every operation as the JAX package does on the CPU (see
-core/math.py `fma`), so t is bitwise equal across the three.
+core/math.py `fma`), so t, and the transmittance's products, are
+bitwise equal across the three.
 """
 from __future__ import annotations
 
@@ -38,6 +40,9 @@ LEAF_MASK = 0xFF        # hits bits 0..7 = pending leaf slots
 ITER_CAP = 65536        # as the JAX package's _ITER_CAP
 MAX_STACK_CUDA = 32     # ring entries per lane in traverse.cu
 CUDA_LEAF_K = (3, 4, 5, 6, 8, 12)   # leaf widths traverse.cu is built for
+# query types, traverse.cu's template argument Q
+CLOSEST, ANY, TRANSMIT = 0, 1, 2
+OPAQUE = 1e-3           # transmittance below which a shadow ray retires
 
 
 def pack_leaf_rows(nodes: np.ndarray, slot_tri_base: np.ndarray,
@@ -189,33 +194,41 @@ def _inv_dir(rd):
                              torch.where(rd >= 0, 1e-12, -1e-12), rd)
 
 
-def _moller(fcol, icol, K, ro, rd, leaf_lane, write_uv, t, tri, u_b, v_b):
-    """<= K Moller tests of gathered leaf rows given column accessors
-    (fcol(k) -> [R] f32, icol(k) -> [R] int64). The mul-adds XLA contracts
-    are fma()s (see csrc/cwbvh_core.cuh for the pattern)."""
+def _tri_test(fcol, icol, K, j, ro, rd, leaf_lane, t):
+    """The Moller test of slot j of gathered leaf rows given column
+    accessors (fcol(k) -> [R] f32, icol(k) -> [R] int64): (ok, th, u, v,
+    tri_id), ok where the triangle is hit in (1e-4, t). The mul-adds XLA
+    contracts are fma()s (see csrc/cwbvh_core.cuh for the pattern)."""
     rdx, rdy, rdz = rd[:, 0], rd[:, 1], rd[:, 2]
     rox, roy, roz = ro[:, 0], ro[:, 1], ro[:, 2]
+    b = 9 * j
+    p0x, p0y, p0z = fcol(b), fcol(b + 1), fcol(b + 2)
+    e1x, e1y, e1z = fcol(b + 3), fcol(b + 4), fcol(b + 5)
+    e2x, e2y, e2z = fcol(b + 6), fcol(b + 7), fcol(b + 8)
+    tri_id = icol(9 * K + j)
+    pvx = fma(rdy, e2z, -(rdz * e2y))
+    pvy = fma(rdz, e2x, -(rdx * e2z))
+    pvz = fma(rdx, e2y, -(rdy * e2x))
+    det = fma(e1z, pvz, fma(e1x, pvx, e1y * pvy))
+    inv_det = 1.0 / torch.where(det.abs() < 1e-12, 1e-12, det)
+    tvx, tvy, tvz = rox - p0x, roy - p0y, roz - p0z
+    u = fma(tvz, pvz, fma(tvx, pvx, tvy * pvy)) * inv_det
+    qvx = fma(tvy, e1z, -(tvz * e1y))
+    qvy = fma(tvz, e1x, -(tvx * e1z))
+    qvz = fma(tvx, e1y, -(tvy * e1x))
+    v = fma(rdz, qvz, fma(rdx, qvx, rdy * qvy)) * inv_det
+    th = fma(e2z, qvz, fma(e2x, qvx, e2y * qvy)) * inv_det
+    ok = (leaf_lane & (tri_id >= 0) & (u >= 0) & (v >= 0)
+          & (u + v <= 1) & (th > 1e-4) & (th < t)
+          & (det.abs() > 1e-12))
+    return ok, th, u, v, tri_id
+
+
+def _moller(fcol, icol, K, ro, rd, leaf_lane, write_uv, t, tri, u_b, v_b):
+    """<= K Moller tests of gathered leaf rows, keeping the closest hit."""
     for j in range(K):
-        b = 9 * j
-        p0x, p0y, p0z = fcol(b), fcol(b + 1), fcol(b + 2)
-        e1x, e1y, e1z = fcol(b + 3), fcol(b + 4), fcol(b + 5)
-        e2x, e2y, e2z = fcol(b + 6), fcol(b + 7), fcol(b + 8)
-        tri_id = icol(9 * K + j)
-        pvx = fma(rdy, e2z, -(rdz * e2y))
-        pvy = fma(rdz, e2x, -(rdx * e2z))
-        pvz = fma(rdx, e2y, -(rdy * e2x))
-        det = fma(e1z, pvz, fma(e1x, pvx, e1y * pvy))
-        inv_det = 1.0 / torch.where(det.abs() < 1e-12, 1e-12, det)
-        tvx, tvy, tvz = rox - p0x, roy - p0y, roz - p0z
-        u = fma(tvz, pvz, fma(tvx, pvx, tvy * pvy)) * inv_det
-        qvx = fma(tvy, e1z, -(tvz * e1y))
-        qvy = fma(tvz, e1x, -(tvx * e1z))
-        qvz = fma(tvx, e1y, -(tvy * e1x))
-        v = fma(rdz, qvz, fma(rdx, qvx, rdy * qvy)) * inv_det
-        th = fma(e2z, qvz, fma(e2x, qvx, e2y * qvy)) * inv_det
-        ok = (leaf_lane & (tri_id >= 0) & (u >= 0) & (v >= 0)
-              & (u + v <= 1) & (th > 1e-4) & (th < t)
-              & (det.abs() > 1e-12))
+        ok, th, u, v, tri_id = _tri_test(fcol, icol, K, j, ro, rd,
+                                         leaf_lane, t)
         t = torch.where(ok, th, t)
         tri = torch.where(ok, tri_id, tri)
         if write_uv:
@@ -279,17 +292,25 @@ def _extract_slot(mask, oct_key):
     return slot, mask & (~(1 << slot) & M32)
 
 
-def _traverse_plain(table, n_nodes, ro, rd, t_max, any_hit: bool,
-                    max_stack: int, counts: dict | None = None) -> Hit:
+def _traverse_plain(table, n_nodes, ro, rd, t_max, query: int,
+                    max_stack: int, counts: dict | None = None, tint=None):
     """Lock-step traversal of every lane until all are done (the JAX
-    package's single-stage `_traverse`).
+    package's single-stage `_traverse`, and `transmit_wavefront`'s loop
+    of `_step_transmit`). Returns a Hit (CLOSEST, ANY), or the
+    transmittance [R,3] (TRANSMIT: every triangle accepted before t_max,
+    which is never shortened, multiplies the lane's RGB throughput by
+    tint[tri] in slot order; a lane retires once its largest channel
+    falls below OPAQUE, and reads 0 then).
 
     counts: if a dict, it receives each ray's work as the kernel does it
     ([R] int64): "node_decodes" (the root's and one per descent),
-    "leaf_rows", "tri_tests" (non-padding triangles of those rows), and
-    "rows_touched", the number of distinct table rows read. A ray with
-    t_max <= 1e-4 can accept no triangle, so the kernel does not walk it
-    and it counts nothing."""
+    "leaf_rows", "tri_tests" (non-padding triangles of those rows),
+    "accepted" (TRANSMIT: tinted triangles), and as ints "rows_touched",
+    the number of distinct table rows read, "live_rays", the rays it
+    walks, and "tint_rows" (TRANSMIT), the number of distinct tint rows
+    its accepted triangles read. A ray with t_max <= 1e-4 can accept no
+    triangle, so the kernel does not walk it (it reads only its t_max
+    and writes its result) and it counts nothing."""
     R = ro.shape[0]
     C = n_nodes
     L = table.shape[0] - C
@@ -310,14 +331,20 @@ def _traverse_plain(table, n_nodes, ro, rd, t_max, any_hit: bool,
     pc = torch.zeros_like(ph)
     pb = torch.zeros_like(ph)
     sp = torch.zeros((R,), dtype=torch.int64, device=dev)
+    if query == TRANSMIT:
+        tp = [torch.ones((R,), device=dev) for _ in range(3)]
+        T = tint.shape[0]
     if counts is not None:
         live = t > 1e-4
         n_node = live.long()
         n_leaf = torch.zeros_like(n_node)
         n_tri = torch.zeros_like(n_node)
+        n_acc = torch.zeros_like(n_node)
         touched = torch.zeros((table.shape[0],), dtype=torch.bool,
                               device=dev)
         touched[0] = bool(live.any())
+        if query == TRANSMIT:
+            tint_touched = torch.zeros((T,), dtype=torch.bool, device=dev)
 
     for _ in range(ITER_CAP):
         if not bool(((hits != 0) | (sp > 0)).any()):
@@ -337,7 +364,7 @@ def _traverse_plain(table, n_nodes, ro, rd, t_max, any_hit: bool,
         lsb = leaf_bits & ((~leaf_bits + 1) & M32)
         lrank = popcount32((bleaf >> 24) & ((lsb - 1) & M32))
         lrow = torch.clamp((bleaf & PTR_MASK) + lrank, 0, L - 1)
-        if any_hit:
+        if query != CLOSEST:
             lsb_n = node_bits & ((~node_bits + 1) & M32)
             slot = popcount32((lsb_n - 1) & M32)
             node_rest = node_bits & (~lsb_n & M32)
@@ -356,8 +383,20 @@ def _traverse_plain(table, n_nodes, ro, rd, t_max, any_hit: bool,
             for j in range(K):
                 n_tri += (live & leaf_lane & (icol(9 * K + j) >= 0)).long()
             touched[row_idx[live & active]] = True
-        t, tri, u_b, v_b = _moller(fcol, icol, K, ro, rd, leaf_lane,
-                                   not any_hit, t, tri, u_b, v_b)
+        if query == TRANSMIT:
+            for j in range(K):
+                ok, _, _, _, tri_id = _tri_test(fcol, icol, K, j, ro, rd,
+                                                leaf_lane, t)
+                trow = tint[torch.clamp(tri_id, 0, T - 1)]
+                for c in range(3):
+                    tp[c] = torch.where(ok, tp[c] * trow[:, c], tp[c])
+                if counts is not None:
+                    n_acc += (live & ok).long()
+                    tint_touched[torch.clamp(tri_id, 0, T - 1)[
+                        live & ok]] = True
+        else:
+            t, tri, u_b, v_b = _moller(fcol, icol, K, ro, rd, leaf_lane,
+                                       query == CLOSEST, t, tri, u_b, v_b)
         c_hits, c_chim, c_bleaf = _decode(ucol, ro, inv, t)
         # 4. stack: pop applies first, then push on the popped state
         rest = node_rest << 24
@@ -372,37 +411,56 @@ def _traverse_plain(table, n_nodes, ro, rd, t_max, any_hit: bool,
                            torch.where(leaf_lane, hits & (~lsb & M32), hits))
         chim = torch.where(descend, c_chim, chim)
         bleaf = torch.where(descend, c_bleaf, bleaf)
-        if any_hit:
-            found = tri >= 0
-            hits = torch.where(found, 0, hits)
-            sp = torch.where(found, 0, sp)
+        if query == ANY:
+            done = tri >= 0
+        elif query == TRANSMIT:
+            done = torch.maximum(torch.maximum(tp[0], tp[1]), tp[2]) < OPAQUE
+        if query != CLOSEST:
+            hits = torch.where(done, 0, hits)
+            sp = torch.where(done, 0, sp)
     if counts is not None:
         counts.update(node_decodes=n_node, leaf_rows=n_leaf, tri_tests=n_tri,
-                      rows_touched=int(touched.sum()))
+                      rows_touched=int(touched.sum()),
+                      live_rays=int(live.sum()))
+        if query == TRANSMIT:
+            counts.update(accepted=n_acc, tint_rows=int(tint_touched.sum()))
+    if query == TRANSMIT:
+        tp = torch.stack(tp, -1)
+        return torch.where(tp.amax(-1, keepdim=True) < OPAQUE, 0.0, tp)
     return Hit(t=t, tri=tri.to(torch.int32), u=u_b, v=v_b)
 
 
 def closest_hit_plain(table, n_nodes, ro, rd, t_max, max_stack: int,
                       counts: dict | None = None) -> Hit:
-    return _traverse_plain(table, n_nodes, ro, rd, t_max, False, max_stack,
+    return _traverse_plain(table, n_nodes, ro, rd, t_max, CLOSEST, max_stack,
                            counts)
 
 
 def any_hit_plain(table, n_nodes, ro, rd, t_max, max_stack: int,
                   counts: dict | None = None):
     """Occlusion: bool [R], True = blocked before t_max."""
-    return _traverse_plain(table, n_nodes, ro, rd, t_max, True, max_stack,
+    return _traverse_plain(table, n_nodes, ro, rd, t_max, ANY, max_stack,
                            counts).tri >= 0
+
+
+def transmit_plain(table, n_nodes, tint, ro, rd, t_max, max_stack: int,
+                   counts: dict | None = None):
+    """Shadow transmittance [R,3] of each segment: the product of the
+    shadow tints tint [T,3] (scene/mesh.py shadow_tint_table) of every
+    triangle crossed before t_max; 0 where it falls below OPAQUE."""
+    return _traverse_plain(table, n_nodes, ro, rd, t_max, TRANSMIT,
+                           max_stack, counts, tint)
 
 
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _launch(table, n_nodes, ro, rd, t_max, any_hit: bool,
-            max_stack: int) -> Hit:
+def _launch(table, n_nodes, ro, rd, t_max, query: int, max_stack: int,
+            tint=None):
     """Check the arguments, allocate the outputs and the ray counter the
-    warps pull from, launch traverse.cu."""
+    warps pull from, launch traverse.cu: a Hit (CLOSEST, ANY) or the
+    transmittance [R,3] (TRANSMIT, against tint [T,3])."""
     dev = ro.device
     R = ro.shape[0]
     for name, x, dt in (("table", table, torch.int32),
@@ -434,14 +492,29 @@ def _launch(table, n_nodes, ro, rd, t_max, any_hit: bool,
         tm = t_max.to(device=dev, dtype=torch.float32).expand(R).contiguous()
     else:
         tm = torch.full((R,), float(t_max), dtype=torch.float32, device=dev)
+    next_ray = torch.zeros((1,), dtype=torch.int32, device=dev)
+    if query == TRANSMIT:
+        T = tint.shape[0]
+        if (tint.device != dev or tint.dtype != torch.float32
+                or tint.shape != (T, 3) or T < 1
+                or not tint.is_contiguous()):
+            raise ValueError(f"tint: need a contiguous float32 [T,3] tensor "
+                             f"on {dev}, got {tuple(tint.shape)} "
+                             f"{tint.dtype} on {tint.device}")
+        tp = torch.empty((R, 3), dtype=torch.float32, device=dev)
+        err = _cuda.lib("traverse.cu").tt_transmit(
+            table.data_ptr(), W, n_nodes, N - n_nodes, max_stack,
+            tint.data_ptr(), T, ro.data_ptr(), rd.data_ptr(), tm.data_ptr(),
+            R, next_ray.data_ptr(), tp.data_ptr(), _cuda.stream_ptr(ro))
+        _cuda.check(err, "tt_transmit")
+        return tp
     t = torch.empty((R,), dtype=torch.float32, device=dev)
     tri = torch.empty((R,), dtype=torch.int32, device=dev)
     u = torch.empty((R,), dtype=torch.float32, device=dev)
     v = torch.empty((R,), dtype=torch.float32, device=dev)
-    next_ray = torch.zeros((1,), dtype=torch.int32, device=dev)
     err = _cuda.lib("traverse.cu").tt_traverse(
         table.data_ptr(), W, n_nodes, N - n_nodes, max_stack,
-        ro.data_ptr(), rd.data_ptr(), tm.data_ptr(), R, int(any_hit),
+        ro.data_ptr(), rd.data_ptr(), tm.data_ptr(), R, int(query == ANY),
         next_ray.data_ptr(), t.data_ptr(), tri.data_ptr(), u.data_ptr(),
         v.data_ptr(), _cuda.stream_ptr(ro))
     _cuda.check(err, "tt_traverse")
@@ -455,7 +528,7 @@ def closest_hit_wavefront(table, n_nodes, ro, rd, t_max,
     launch csrc/traverse.cu; CPU tensors take closest_hit_plain."""
     if ro.device.type == "cpu":
         return closest_hit_plain(table, n_nodes, ro, rd, t_max, max_stack)
-    hit = _launch(table, n_nodes, ro, rd, t_max, False, max_stack)
+    hit = _launch(table, n_nodes, ro, rd, t_max, CLOSEST, max_stack)
     closest_hit_wavefront.launches += 1
     return hit
 
@@ -465,10 +538,22 @@ def any_hit_wavefront(table, n_nodes, ro, rd, t_max, max_stack: int):
     closest_hit_wavefront."""
     if ro.device.type == "cpu":
         return any_hit_plain(table, n_nodes, ro, rd, t_max, max_stack)
-    hit = _launch(table, n_nodes, ro, rd, t_max, True, max_stack)
+    hit = _launch(table, n_nodes, ro, rd, t_max, ANY, max_stack)
     any_hit_wavefront.launches += 1
     return hit.tri >= 0
 
 
+def transmit_wavefront(table, n_nodes, tint, ro, rd, t_max, max_stack: int):
+    """Shadow transmittance [R,3] (1 = unoccluded, 0 = blocked) of rays
+    ro/rd [R,3] up to t_max through the shadow tints tint [T,3]; dispatch
+    as closest_hit_wavefront (CPU tensors take transmit_plain)."""
+    if ro.device.type == "cpu":
+        return transmit_plain(table, n_nodes, tint, ro, rd, t_max, max_stack)
+    tp = _launch(table, n_nodes, ro, rd, t_max, TRANSMIT, max_stack, tint)
+    transmit_wavefront.launches += 1
+    return tp
+
+
 closest_hit_wavefront.launches = 0
 any_hit_wavefront.launches = 0
+transmit_wavefront.launches = 0

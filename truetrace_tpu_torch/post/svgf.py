@@ -109,11 +109,15 @@ def _atrous_pass(color, var, normal, depth, step: int):
 
 def svgf_denoise(noisy, albedo, normal, depth, state: SVGFState,
                  n_atrous: int = 5, motion: Optional[torch.Tensor] = None,
+                 alpha_map: Optional[torch.Tensor] = None,
                  emissive: Optional[torch.Tensor] = None):
     """One frame of SVGF. Returns (denoised [H,W,3], new_state).
 
-    motion: [H,W,2] pixel offsets (None = static); emissive: noise-free
-    directly visible radiance, passed through unfiltered."""
+    motion: [H,W,2] pixel offsets (None = static); alpha_map: [H,W]
+    per-pixel temporal blend that replaces the fixed alphas and caps the
+    history length at 1 / alpha (ASVGF's gradients drive it,
+    post/asvgf.py); emissive: noise-free directly visible radiance,
+    passed through unfiltered."""
     from truetrace_tpu_torch.kernels.atrous_pallas import atrous_filter
     if emissive is not None:
         noisy = torch.clamp(noisy - emissive, min=0.0)
@@ -145,8 +149,13 @@ def svgf_denoise(noisy, albedo, normal, depth, state: SVGFState,
              & (prev_len > 0))
 
     hist_len = torch.where(valid, prev_len + 1.0, 1.0)
-    a_c = torch.clamp(1.0 / hist_len, min=ALPHA_COLOR)
-    a_m = torch.clamp(1.0 / hist_len, min=ALPHA_MOMENTS)
+    if alpha_map is None:
+        a_c = torch.clamp(1.0 / hist_len, min=ALPHA_COLOR)
+        a_m = torch.clamp(1.0 / hist_len, min=ALPHA_MOMENTS)
+    else:
+        hist_len = torch.minimum(
+            hist_len, 1.0 / torch.clamp(alpha_map, min=1e-3))
+        a_c = a_m = torch.maximum(alpha_map, 1.0 / hist_len)
     color_t = torch.where(valid[..., None],
                           prev_color + a_c[..., None] * (demod - prev_color),
                           demod)

@@ -4,8 +4,9 @@ Port of `truetrace_tpu/renderer.py` for the frames the port covers: the
 ReSTIR DI prepass (a 1-bounce G-buffer trace feeding the light
 reservoirs), one path-traced sample per pixel (through the radiance
 cache, which it queries and feeds, where that is on), the cache's
-per-frame resolve, ReSTIR GI from the trace's captures, SVGF (or no
-denoiser), the firefly clamp, accumulation and post-processing; the
+per-frame resolve, ReSTIR GI from the trace's captures, the denoiser
+(SVGF, ASVGF with its stratum replay or ReSTIR GI's gradients, ReCur, or
+none), the firefly clamp, accumulation and post-processing; the
 JAX package's composed production frame with every option on. Per-frame
 state is an explicit `FrameState` threaded through `Renderer.step`,
 which runs eagerly on the scene's device. `Renderer.graph_step` is the counterpart of the JAX `jit_step`:
@@ -17,6 +18,7 @@ ROADMAP.md item.
 from __future__ import annotations
 
 import dataclasses
+import typing
 from dataclasses import dataclass, field, replace
 from typing import Optional
 
@@ -31,9 +33,13 @@ from truetrace_tpu_torch.integrate.restir import (
     ReSTIRState, restir_gi_from_stats)
 from truetrace_tpu_torch.integrate.restir_di import (
     ReSTIRDIState, restir_di_reservoirs)
+from truetrace_tpu_torch.post.asvgf import (
+    ASVGFState, asvgf_filter, asvgf_gradient, gradient_alpha,
+    sample_id_tensor)
 from truetrace_tpu_torch.post.motion import motion_vectors
 from truetrace_tpu_torch.post.pipeline import (
     Accumulator, PostConfig, firefly_clamp, postprocess)
+from truetrace_tpu_torch.post.recur import ReCurState, recur_denoise
 from truetrace_tpu_torch.post.svgf import SVGFState, svgf_denoise
 from truetrace_tpu_torch.scene.ir import Camera, Scene
 
@@ -52,7 +58,7 @@ class RendererConfig:
     traversal: str = "wavefront"
     light_sampling: str = "tree"
     use_nee: bool = True
-    denoiser: str = "none"          # the port runs none | svgf
+    denoiser: str = "none"          # none | svgf | asvgf | recur
     neural_weights: str = ""
     use_restir: bool = False
     use_restir_di: bool = False
@@ -65,9 +71,10 @@ class RendererConfig:
     post: PostConfig = field(default_factory=PostConfig)
 
     def check_supported(self) -> None:
-        if self.denoiser not in ("none", "svgf"):
-            item = "A.13" if self.denoiser.startswith("neural") else "A.11"
-            _todo(f"denoiser={self.denoiser!r}", item)
+        if self.denoiser.startswith("neural"):
+            _todo(f"denoiser={self.denoiser!r}", "A.13")
+        if self.denoiser not in ("none", "svgf", "asvgf", "recur"):
+            raise ValueError(f"unknown denoiser {self.denoiser!r}")
         if self.upscale > 1:
             _todo("TAAU upscaling", "A.10")
         if self.partial_rendering > 1:
@@ -86,8 +93,9 @@ class RendererConfig:
 
 
 # the optional per-frame states: FrameState field -> its class
-_PARTS = {"svgf": SVGFState, "restir": ReSTIRState,
-          "restir_di": ReSTIRDIState, "cache": RadianceCache}
+_PARTS = {"svgf": SVGFState, "asvgf": ASVGFState, "recur": ReCurState,
+          "restir": ReSTIRState, "restir_di": ReSTIRDIState,
+          "cache": RadianceCache}
 
 
 @dataclass
@@ -97,6 +105,8 @@ class FrameState:
     svgf: Optional[SVGFState]
     taa_history: Optional[torch.Tensor]
     prev_cam: Optional[Camera] = None    # last frame's camera (motion)
+    asvgf: Optional[ASVGFState] = None          # ASVGF histories
+    recur: Optional[ReCurState] = None          # ReCur histories
     restir: Optional[ReSTIRState] = None        # ReSTIR GI reservoirs
     restir_di: Optional[ReSTIRDIState] = None   # ReSTIR DI reservoirs
     cache: Optional[RadianceCache] = None       # the radiance cache
@@ -105,8 +115,7 @@ class FrameState:
     def from_numpy(d: dict, device) -> "FrameState":
         """FrameState from the JAX FrameState's leaves (numpy arrays in
         nested dicts keyed by field name)."""
-        for key, item in (("asvgf", "A.11"), ("recur", "A.11"),
-                          ("taau_history", "A.10"), ("partial", "A.10"),
+        for key, item in (("taau_history", "A.10"), ("partial", "A.10"),
                           ("exposure", "A.10"), ("neural_hist", "A.13")):
             if d.get(key) is not None:
                 _todo(f"FrameState.{key}", item)
@@ -139,6 +148,10 @@ class Renderer:
             accum=Accumulator.create(h, w, dev), sample=0,
             svgf=SVGFState.create(h, w, dev)
             if cfg.denoiser == "svgf" else None,
+            asvgf=ASVGFState.create(h, w, dev)
+            if cfg.denoiser == "asvgf" else None,
+            recur=ReCurState.create(h, w, dev)
+            if cfg.denoiser == "recur" else None,
             taa_history=None, prev_cam=None,
             restir=ReSTIRState.create(h, w, dev) if cfg.use_restir
             else None,
@@ -193,8 +206,7 @@ class Renderer:
         motion_of = lambda depth: (None if prev_cam is None else
                                    motion_vectors(prev_cam, cam, depth))
         pixel = torch.arange(h * w, device=scene.device)
-        new = dict(svgf=state.svgf, restir=state.restir,
-                   restir_di=state.restir_di, cache=state.cache)
+        new = {k: getattr(state, k) for k in _PARTS}
 
         # ---- ReSTIR DI prepass: the primary G-buffer feeds the light
         # reservoirs, whose samples drive the main trace's bounce-0 NEE
@@ -235,9 +247,9 @@ class Renderer:
         motion = motion_of(depth)
 
         # ---- ReSTIR GI: the reservoir-shaded indirect replaces the
-        # traced one
+        # traced one; its temporal-validation gradients feed ASVGF
         if cfg.use_restir:
-            frame, new["restir"], _ = restir_gi_from_stats(
+            frame, new["restir"], aux = restir_gi_from_stats(
                 scene, cam, rcfg, state.restir, sid, st, prev_cam=prev_cam,
                 motion=motion)
 
@@ -245,6 +257,27 @@ class Renderer:
             frame, new["svgf"] = svgf_denoise(frame, albedo, normal, depth,
                                               state.svgf, motion=motion,
                                               emissive=emissive)
+        elif cfg.denoiser == "asvgf":
+            ast = state.asvgf
+            if cfg.use_restir:
+                # ReSTIR-ASVGF: the GI gradients drive the history clamp;
+                # no replay stratum, no extra trace
+                alpha_map, _ = gradient_alpha(aux["gradient"], h, w)
+                cur_lum = ast.prev_lum
+                s2 = sample_id_tensor(sid, scene.device)
+            else:
+                alpha_map, _, cur_lum, s2 = asvgf_gradient(
+                    scene, cam, rcfg, ast, sid, rad)
+            frame, svgf_st, lf_hist, lf_len = asvgf_filter(
+                frame, albedo, normal, depth, ast, alpha_map, motion=motion,
+                emissive=emissive)
+            new["asvgf"] = ASVGFState(svgf=svgf_st, prev_lum=cur_lum,
+                                      prev_sid=s2, lf_hist=lf_hist,
+                                      lf_len=lf_len)
+        elif cfg.denoiser == "recur":
+            frame, new["recur"] = recur_denoise(frame, albedo, normal, depth,
+                                                state.recur, motion=motion,
+                                                emissive=emissive)
         if cfg.post.firefly > 0.0:
             frame = firefly_clamp(frame, cfg.post.firefly)
         new["accum"] = state.accum.add(frame)
@@ -265,10 +298,31 @@ class Renderer:
 _CAM = ("c2w", "fov_y", "aperture", "focus_dist")
 
 
+def _fields(prefix: str, obj) -> list:
+    """(dotted name, tensor) of a state dataclass, nested ones (ASVGF's
+    SVGF state) flattened."""
+    out = []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        out += (_fields(f"{prefix}{f.name}.", v)
+                if dataclasses.is_dataclass(v) else
+                [(f"{prefix}{f.name}", v)])
+    return out
+
+
+def _build(cls, t: dict, prefix: str):
+    """The state dataclass `cls` of the tensors named `prefix...` in t."""
+    hints = typing.get_type_hints(cls)
+    return cls(**{f.name: _build(hints[f.name], t, f"{prefix}{f.name}.")
+                  if dataclasses.is_dataclass(hints[f.name])
+                  else t[f"{prefix}{f.name}"]
+                  for f in dataclasses.fields(cls)})
+
+
 def _tensors(state: FrameState) -> list:
     """(name, tensor) of a frame state's tensors besides its cameras:
-    the accumulator, the TAA history, and every tensor of the SVGF
-    history, the ReSTIR GI and DI reservoirs and the radiance cache."""
+    the accumulator, the TAA history, and every tensor of the denoiser's
+    histories, the ReSTIR GI and DI reservoirs and the radiance cache."""
     out = [("accum.image", state.accum.image),
            ("accum.count", state.accum.count)]
     if state.taa_history is not None:
@@ -276,8 +330,7 @@ def _tensors(state: FrameState) -> list:
     for part in _PARTS:
         obj = getattr(state, part)
         if obj is not None:
-            out += [(f"{part}.{f.name}", getattr(obj, f.name))
-                    for f in dataclasses.fields(obj)]
+            out += _fields(f"{part}.", obj)
     return out
 
 
@@ -288,11 +341,9 @@ def _cams(name: str, cam: Camera) -> list:
 def _state(t: dict, sample: int, prev: str) -> FrameState:
     """FrameState of the named tensors in `t`, its previous camera the
     one named `prev` ("prev_cam" or "cam")."""
-    parts = {}
-    for part, cls in _PARTS.items():
-        names = [f.name for f in dataclasses.fields(cls)]
-        parts[part] = (cls(**{k: t[f"{part}.{k}"] for k in names})
-                       if f"{part}.{names[0]}" in t else None)
+    parts = {part: _build(cls, t, f"{part}.")
+             if any(k.startswith(f"{part}.") for k in t) else None
+             for part, cls in _PARTS.items()}
     return FrameState(
         accum=Accumulator(image=t["accum.image"], count=t["accum.count"]),
         sample=sample, taa_history=t.get("taa_history"),
