@@ -72,7 +72,21 @@ Phases, each of which raises on a failed check:
    the nested-glass frame (10 bounces, roulette from 6, SVGF: the
    transmittance kernel and the medium stack); the JAX package's glass,
    transmit-shadow, ASVGF and ReCur gates on the card; and two glass +
-   ASVGF Cornell frames at 16x16 on the card against the CPU.
+   ASVGF Cornell frames at 16x16 on the card against the CPU;
+7. the post chain, TAAU with partial rendering under analytic lights,
+   and the neural denoiser, each as phase 3's frames (timed eager frames
+   with their launch counts, sync-free frames, the profile, the CUDA
+   graphs bit for bit): "post", FRAME's atrium with the JAX recorded
+   frame's chain (ACES, bloom 0.08, CAS 0.3) and temporal auto exposure,
+   whose HDR image also goes through every other tonemap and a baked
+   33^3 LUT against the CPU; "interactive", sponza_like with 16 analytic
+   lights (RIS over 8 candidates), traced at 512x512 over half its
+   pixels a frame (partial_rendering 2) and upscaled by TAAU to
+   1024x1024, SVGF; "neural", FRAME's atrium with the neural_taa
+   denoiser and the in-repo checkpoint examples/denoiser.msgpack; the
+   JAX package's checks of analytic lights (RIS, softness, z_rot), TAAU,
+   partial rendering and temporal exposure on the card; and each of the
+   three configurations at 16x16 on the Cornell box, card against CPU.
 
 It prints the card line, one JSON line of kernel results (time, plain
 time, bound and what sets it, launches per frame, ptxas registers,
@@ -80,7 +94,8 @@ spills and shared memory, for the traversal the work per ray, for
 a-trous the time at each step and of packing; under "sponza" each
 kernel's launches, time and bound on the sponza_like path, under
 "composed" its launches on the composed frame, and so under "asvgf",
-"recur", "composed_asvgf" and "glass"; under "frames" each
+"recur", "composed_asvgf", "glass", "post", "interactive" and
+"neural"; under "frames" each
 path's eager and replayed frame times, device busy, kernel counts and
 host copies, and the composed frame's cache numbers and gates), and as
 its last line
@@ -645,11 +660,14 @@ def phase_step_core(results, scene3, cam):
 
 def make_renderer(scene, cam, cfg: dict):
     """Renderer at `cfg`; an "rr_start" key (RendererConfig has none, as
-    in the JAX package) sets its integrator's roulette start."""
+    in the JAX package) sets its integrator's roulette start, and a
+    "post" key holds PostConfig's fields."""
     from dataclasses import replace
+    from truetrace_tpu_torch.post.pipeline import PostConfig
     from truetrace_tpu_torch.renderer import Renderer, RendererConfig
     cfg = dict(cfg)
     rr_start = cfg.pop("rr_start", None)
+    cfg["post"] = PostConfig(**cfg.get("post", {}))
     r = Renderer(scene, cam, RendererConfig(**cfg))
     if rr_start is not None:
         r.rcfg = replace(r.rcfg, rr_start=rr_start)
@@ -1253,6 +1271,42 @@ def glass_cornell_host(mesh_cls, mat_cls, make_cornell, prim,
                      mid.astype(np.int32))], mats, cam
 
 
+def analytic_lights_host(lo, hi, counts=(4, 4, 4, 3, 1), seed: int = 0):
+    """numpy fields of AnalyticLights (either package's from_numpy or
+    constructor takes them) for counts[i] lights of each kind, in this
+    order: soft points, spots, quads turned in plane by z_rot, disks and
+    directional lights, all inside the box [lo, hi]. Spots and area
+    lights face down within ~17 degrees; delta lights' intensities scale
+    with the box's size squared, so their irradiance does not depend on
+    it, and penumbrae and extents with its size."""
+    from truetrace_tpu_torch.integrate.lights import (
+        LIGHT_DIR, LIGHT_DISK, LIGHT_POINT, LIGHT_QUAD, LIGHT_SPOT)
+    rs = np.random.RandomState(seed)
+    lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+    span = float(np.max(hi - lo))
+    kinds = (LIGHT_POINT, LIGHT_SPOT, LIGHT_QUAD, LIGHT_DISK, LIGHT_DIR)
+    ltype = np.repeat(np.asarray(kinds, np.int32), counts)
+    K = ltype.shape[0]
+    down = np.array([0.0, -1.0, 0.0]) + 0.3 * rs.normal(size=(K, 3))
+    down[ltype == LIGHT_DIR] += (0.4, 0.0, 0.3)
+    colour = rs.uniform(0.6, 1.0, (K, 3))
+    delta = (ltype == LIGHT_POINT) | (ltype == LIGHT_SPOT)
+    power = np.where(delta, 0.4 * span * span, np.where(
+        ltype == LIGHT_DIR, 1.0, 6.0)) * rs.uniform(0.5, 1.5, K)
+    inner = rs.uniform(0.85, 0.95, K)
+    f32 = lambda a: np.asarray(a, np.float32)
+    return dict(
+        position=f32(lo + (hi - lo) * rs.uniform(size=(K, 3))),
+        direction=f32(down / np.linalg.norm(down, axis=1, keepdims=True)),
+        radiance=f32(colour * power[:, None]), ltype=ltype,
+        spot_cos=f32(np.stack([inner, inner - rs.uniform(0.1, 0.3, K)], 1)),
+        extent=f32(span * rs.uniform(0.03, 0.1, (K, 2))),
+        softness=f32(np.where(ltype == LIGHT_DIR, rs.uniform(2.0, 8.0, K),
+                              span * rs.uniform(0.2, 1.0, K))),
+        z_rot=f32(np.where(ltype == LIGHT_QUAD, rs.uniform(0, np.pi, K),
+                           0.0)))
+
+
 def glass_cornell(device: str):
     """glass_cornell_host's scene, compiled by the port. Returns (scene,
     camera)."""
@@ -1363,14 +1417,17 @@ def phase_transmit_glass(results, scene, cam):
     return res
 
 
-def run_path(results, scene, cam, label: str, cfg: dict):
+def run_path(results, scene, cam, label: str, cfg: dict, hook=None):
     """A new frame's phases, as phase 3's: timed eager frames with their
     launch counts, the sync-free frames, the profile and the CUDA graphs
-    (every state tensor bit for bit). Returns the launches."""
+    (every state tensor bit for bit); hook(renderer, state), where
+    given, after the profile. Returns the launches."""
     launches, r, state = phase_frame(results, scene, cam, label, cfg)
     state = phase_sync_free(r, state, cam, label)
     results[f"{label}_profile"] = phase_profile(r, state,
                                                 label=f"{label} frame")
+    if hook is not None:
+        hook(r, state)
     del r, state
     phase_graph(results, scene, cam, label, cfg)
     return launches
@@ -1674,6 +1731,380 @@ def phase_glass_card_vs_cpu(results):
     log(f"glass + ASVGF Cornell 16x16x3 card vs CPU, two frames: displays "
         f"{[round(x, 4) for x in shares]} of pixels within 1e-3")
     results["glass_card_vs_cpu"] = dict(display_share=shares)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the post chain, TAAU with partial rendering under analytic
+# lights, and the neural denoiser
+# ---------------------------------------------------------------------------
+
+# the JAX package's recorded frame's post chain (scripts/profile_frame.py
+# :143: ACES, bloom 0.08, CAS 0.3) with temporal auto exposure, on FRAME
+POST_CHAIN = dict(tonemap="aces", bloom_strength=0.08, sharpen=0.3,
+                  auto_expose=True)
+POST_FRAME = dict(FRAME, post=POST_CHAIN)
+# interactivity on a large display: sponza_like with 16 analytic lights,
+# half the pixels of a 512x512 frame traced a frame (partial_rendering
+# 2: FRAME's lanes over two frames), TAAU to 1024x1024, SVGF
+INTERACTIVE = dict(FRAME, width=1024, height=1024, upscale=2,
+                   partial_rendering=2)
+# the in-repo U-Net checkpoint with its temporal blend, on FRAME
+NEURAL = dict(FRAME, denoiser="neural_taa", neural_weights=os.path.join(
+    HERE, "examples", "denoiser.msgpack"))
+# a tonemap on the card against the same function on the CPU (rtol and
+# atol): log2, pow and the AgX matrices round their last ulps apart
+TONEMAP_TOL = 1e-5
+
+
+def sponza_lit(scene, meshes):
+    """sponza_like's scene with analytic_lights_host's 16 lights inside
+    its bounds (within its walls, in its lower part)."""
+    import dataclasses
+    from truetrace_tpu_torch.scene.ir import AnalyticLights
+    pos = np.concatenate([np.asarray(m.positions) for m in meshes])
+    lo, hi = pos.min(0), pos.max(0)
+    span = hi - lo
+    box = (lo + span * (0.15, 0.1, 0.15), hi - span * (0.15, 0.4, 0.15))
+    return dataclasses.replace(scene, lights=AnalyticLights.from_numpy(
+        analytic_lights_host(*box), scene.device))
+
+
+def phase_post_tonemaps(results, hdr):
+    """The post frame's accumulated HDR image through every other
+    tonemap and a 33^3 LUT baked from AgX (apply_lut3d), on the card
+    against the same function on the CPU, each timed on the card."""
+    import torch
+    from truetrace_tpu_torch.post import pipeline as pp
+    cpu = hdr.cpu()
+    lut = pp.bake_tonemap_lut("agx", 33, device=hdr.device)
+    lut_cpu = pp.bake_tonemap_lut("agx", 33, device="cpu")
+    fns = {n: (lambda f=pp._TONEMAPS[n]: f(hdr), pp._TONEMAPS[n](cpu))
+           for n in ("reinhard", "agx", "agx_punchy", "agx_golden", "none")}
+    fns["lut3d"] = (lambda: pp.apply_lut3d(hdr, lut),
+                    pp.apply_lut3d(cpu, lut_cpu))
+    res = {}
+    for name, (card, host) in fns.items():
+        a = card().cpu()
+        res[name] = dict(
+            max_abs_err=float((a - host).abs().max()), ms=cuda_ms(card, 20),
+            close=bool(torch.allclose(a, host, rtol=TONEMAP_TOL,
+                                      atol=TONEMAP_TOL)))
+    lut_err = float((lut.cpu() - lut_cpu).abs().max())
+    log(f"post frame's HDR image ({tuple(hdr.shape)}, mean "
+        f"{float(hdr.mean()):.4f}) through each tonemap, card vs CPU: "
+        + ", ".join(f"{n} {r['max_abs_err']:.2e} ({r['ms']:.4f} ms)"
+                    for n, r in res.items())
+        + f"; the 33^3 AgX LUT's bake {lut_err:.2e}")
+    for name, r in res.items():
+        check(r["close"], f"tonemap {name}: card and CPU differ by "
+              f"{r['max_abs_err']:.2e}")
+    check(lut_err <= TONEMAP_TOL, f"baked LUT: card and CPU differ by "
+          f"{lut_err:.2e}")
+    results["post_tonemaps"] = dict(res, lut_bake_max_abs_err=lut_err)
+
+
+def phase_unet(results, model, hdr):
+    """The neural frame's U-Net alone at the frame's size (denoise on its
+    HDR image as colour, albedo and normal: the values do not change
+    the work), on the device alone (device_ms), against its float32
+    bound: 2 operations a multiply-add of its eleven 3x3 convolutions
+    over 67 TFLOP/s (no TF32, so no tensor cores)."""
+    from truetrace_tpu_torch.post.neural import denoise
+    H, W = hdr.shape[:2]
+    flops = 0
+    for m in model.modules():
+        if hasattr(m, "kernel_size"):
+            s = 1 << (2 * _unet_level(m, model))
+            flops += 2 * 9 * m.in_channels * m.out_channels * H * W // s
+    # ~60 kernels a call: few calls, so the launch queue never fills
+    ms = device_ms(lambda: denoise(model, hdr, hdr, hdr), reps=8)
+    res = dict(ms=ms, gflop=flops / 1e9, bound_ms=1e3 * flops / PEAK_F32,
+               bound_by="operations")
+    res["share_of_bound"] = res["bound_ms"] / ms
+    log(f"neural U-Net alone at {H}x{W}: {ms:.4f} ms on the device, "
+        f"{res['gflop']:.2f} GFLOP, bound {res['bound_ms']:.4f} ms "
+        f"({100 * res['share_of_bound']:.1f}%)")
+    results["unet"] = res
+
+
+def _unet_level(conv, model) -> int:
+    """The resolution level (0 full, 1 half, 2 quarter) a convolution of
+    the U-Net runs at."""
+    for i, blk in enumerate(model.blocks):
+        if conv in (blk.conv0, blk.conv1):
+            return (0, 1, 2, 1, 0)[i]
+    return 0
+
+
+def render_image(scene, cam, W: int, H: int, spp: int, base: int = 0,
+                 **cfg):
+    """[H,W,3] numpy mean of `spp` samples a pixel (ids from `base`),
+    traced in batches of 256 samples (sample ids are per-lane counters,
+    so this equals the JAX package's `render`)."""
+    import torch
+    from truetrace_tpu_torch.integrate.pathtrace import (
+        RenderConfig, render_sample_with_stats)
+    c = RenderConfig(width=W, height=H, traversal="wavefront", **cfg)
+    acc = torch.zeros((W * H, 3), device=scene.device)
+    for s0 in range(0, spp, 256):
+        b = min(256, spp - s0)
+        pix = torch.arange(W * H, device=scene.device).repeat(b)
+        sid = torch.arange(base + s0, base + s0 + b, device=scene.device
+                           ).repeat_interleave(W * H)
+        rad, _ = render_sample_with_stats(scene, cam, c, pix, sid)
+        acc += rad.view(b, W * H, 3).sum(0)
+    img = (acc / spp).view(H, W, 3).cpu().numpy()
+    check(bool(np.isfinite(img).all()), "render not finite")
+    return img
+
+
+def _lights_np(n: int, **kw):
+    """numpy AnalyticLights fields of n lights, every field given or
+    its default (a point light straight down, no softness)."""
+    one = dict(position=(0.0, 2.5, 0.0), direction=(0.0, -1.0, 0.0),
+               radiance=(30.0, 30.0, 30.0), ltype=0, spot_cos=(0.9, 0.7),
+               extent=(0.3, 0.3), softness=0.0, z_rot=0.0)
+    out = {}
+    for k, v in one.items():
+        a = np.asarray(kw.get(k, [v] * n))
+        out[k] = a.astype(np.int32 if k == "ltype" else np.float32)
+    return out
+
+
+def grid_lights(n: int = 64, seed: int = 0, bright_k: int = 2):
+    """tests/test_analytic_ris.py's lights: n point lights on a grid high
+    above the floor, most dim, bright_k dominant."""
+    rs = np.random.RandomState(seed)
+    side = int(np.sqrt(n))
+    xs, zs = np.meshgrid(np.linspace(-6, 6, side), np.linspace(-6, 6, side))
+    power = rs.uniform(0.02, 0.2, n)
+    power[rs.choice(n, bright_k, replace=False)] = 25.0
+    return _lights_np(n, position=np.stack([xs.ravel(), np.full(n, 3.0),
+                                            zs.ravel()], -1),
+                      radiance=np.stack([power, power * 0.9, power * 0.8],
+                                        -1))
+
+
+def _floor_scene(lights: dict, half: float, blocker: bool = False):
+    """A grey Lambert floor quad of half-size `half` (and a 1x1 blocker
+    quad 0.8 above its centre), lit by `lights` only."""
+    from truetrace_tpu_torch.scene.ir import AnalyticLights
+    from truetrace_tpu_torch.scene.mesh import (
+        HostMaterial, HostMesh, compile_scene)
+    h = half
+    quads = [np.array([[-h, 0, -h], [h, 0, -h], [h, 0, h], [-h, 0, h]],
+                      np.float32)]
+    if blocker:
+        quads.append(np.array([[-0.5, 0.8, -0.5], [0.5, 0.8, -0.5],
+                               [0.5, 0.8, 0.5], [-0.5, 0.8, 0.5]],
+                              np.float32))
+    fi = np.array([[0, 2, 1], [0, 3, 2]], np.int32)
+    return compile_scene(
+        [HostMesh(q, fi, np.zeros(2, np.int32)) for q in quads],
+        [HostMaterial(base_color=(0.8, 0.8, 0.8), roughness=1.0)],
+        lights=AnalyticLights.from_numpy(lights, DEVICE), with_cwbvh=True,
+        device=DEVICE)
+
+
+def phase_modes_gates(results):
+    """The JAX package's checks of this slice's parts, rerun with the
+    port on the card at those tests' sizes: tests/test_analytic_ris.py
+    (RIS unbiased against uniform selection, its variance cut at 64
+    lights, the target weight, the reservoir's pick),
+    tests/test_light_softness.py (point and directional penumbrae, the
+    quad's z_rot), tests/test_post.py::test_taau_reconstructs_subpixel_
+    detail and tests/test_partial_exposure.py::test_partial_converges_
+    to_full and ::test_temporal_exposure_adapts_smoothly (the traversal
+    is the wavefront CWBVH where those tests took the BVH2)."""
+    import torch
+    from truetrace_tpu_torch.integrate.lights import (
+        analytic_target_weight, sample_analytic_ris)
+    from truetrace_tpu_torch.post.pipeline import (
+        auto_exposure_temporal, taau_jitter, taau_upscale)
+    from truetrace_tpu_torch.scene.ir import AnalyticLights, Camera
+    g = {}
+    # ---- RIS (tests/test_analytic_ris.py)
+    scene = _floor_scene(grid_lights(), 8.0)
+    cam = Camera.look_at((0, 7.0, 0.01), (0, 0, 0), fov_y_deg=55,
+                         device=DEVICE)
+    img = lambda ris, spp, base=0: render_image(
+        scene, cam, 32, 32, spp, base, bounces=1, bsdf="lambert",
+        analytic_ris=ris)
+    a, b = img(8, 512), img(0, 2048)
+    g["ris_mean_rel"] = float(abs(a.mean() - b.mean()) / b.mean())
+    g["ris_pixel_rel"] = float(np.abs(a - b).mean() / b.mean())
+    ref = img(8, 768)
+    g["mse_ris"] = float(np.mean((img(8, 8, 1000) - ref) ** 2))
+    g["mse_uniform"] = float(np.mean((img(0, 8, 1000) - ref) ** 2))
+    check(g["ris_mean_rel"] < 0.03 and g["ris_pixel_rel"] < 0.15,
+          f"RIS against uniform: {g}")
+    check(g["mse_ris"] < 0.4 * g["mse_uniform"], f"RIS variance: {g}")
+    four = AnalyticLights.from_numpy(grid_lights(4, bright_k=1), DEVICE)
+    w = analytic_target_weight(four, torch.arange(4, device=DEVICE),
+                               torch.zeros((4, 3), device=DEVICE))
+    bright = int(four.radiance[:, 0].argmax())
+    check(bool((w > 0).all()) and int(w.argmax()) == bright,
+          f"target weights {w.tolist()}")
+    sixteen = AnalyticLights.from_numpy(grid_lights(16, bright_k=1), DEVICE)
+    rs = np.random.RandomState(1)
+    u = lambda *s: torch.from_numpy(rs.uniform(size=s).astype(
+        np.float32)).to(DEVICE)
+    R = 4096
+    s = sample_analytic_ris(sixteen, torch.zeros((R, 3), device=DEVICE),
+                            u(R, 8), u(R, 8), u(R, 2))
+    bpos = sixteen.position[int(sixteen.radiance[:, 0].argmax())]
+    g["ris_pick_bright"] = float(((s.wi @ (bpos / bpos.norm())) > 0.999)
+                                 .float().mean())
+    check(g["ris_pick_bright"] > 0.3 and bool(torch.isfinite(s.pmf).all()),
+          f"the reservoir's pick: {g['ris_pick_bright']}")
+    # ---- softness and z_rot (tests/test_light_softness.py)
+    cam = Camera.look_at((0, 5.5, 0.01), (0, 0, 0), fov_y_deg=50,
+                         device=DEVICE)
+
+    def render(lights, spp=96, blocker=True):
+        return render_image(_floor_scene(lights, 4.0, blocker), cam, 48, 48,
+                            spp, bounces=1, bsdf="lambert")
+
+    def penumbra(lights):
+        lum = render(lights).mean(-1)
+        lum0 = render(lights, blocker=False).mean(-1)
+        ok = lum0 > 1e-3
+        v = np.where(ok, lum / np.maximum(lum0, 1e-6), 1.0)
+        return int(((v > 0.12) & (v < 0.88) & ok).sum())
+
+    hard = _lights_np(1, position=[(2.0, 2.0, 0.0)])
+    soft = _lights_np(1, position=[(2.0, 2.0, 0.0)], softness=[6.0])
+    g["point_penumbra"] = (penumbra(hard), penumbra(soft))
+    lum_h, lum_s = render(hard).mean(), render(soft).mean()
+    check(g["point_penumbra"][1] > 1.5 * g["point_penumbra"][0] + 4
+          and abs(lum_s - lum_h) < 0.15 * lum_h,
+          f"point softness: penumbra px {g['point_penumbra']}, mean "
+          f"{lum_h:.4f} -> {lum_s:.4f}")
+    d = [(-0.55, -1.0, 0.0)]
+    g["dir_penumbra"] = (
+        penumbra(_lights_np(1, ltype=[1], direction=d)),
+        penumbra(_lights_np(1, ltype=[1], direction=d, softness=[45.0])))
+    check(g["dir_penumbra"][1] > 1.5 * g["dir_penumbra"][0] + 4,
+          f"directional softness: penumbra px {g['dir_penumbra']}")
+
+    def spread(im):
+        lum = im.mean(-1)
+        lit = np.percentile(lum[lum > 0], 90)
+        ys, xs = np.nonzero((lum > 0.2 * lit) & (lum < 0.8 * lit))
+        return float(np.var(xs)), float(np.var(ys))
+
+    quad = dict(ltype=[3], extent=[(0.9, 0.1)])
+    ax, ay = spread(render(_lights_np(1, **quad), spp=128))
+    bx, by = spread(render(_lights_np(1, z_rot=[np.pi / 2], **quad),
+                           spp=128))
+    g["quad_spread"] = ((ax, ay), (bx, by))
+    check((ax - ay) * (bx - by) < 0, f"quad z_rot: spreads {g['quad_spread']}")
+    # ---- TAAU (tests/test_post.py)
+    scale, h, w = 2, 24, 24
+    pat = lambda py, px: np.repeat((0.5 + 0.5 * np.sin(
+        (px + 2.0 * py) * (2 * np.pi / 6.0)))[..., None], 3, -1
+    ).astype(np.float32)
+    yy, xx = np.mgrid[0:h * scale, 0:w * scale]
+    ly, lx = np.mgrid[0:h, 0:w]
+    hist = None
+    for i in range(48):
+        j = taau_jitter(torch.tensor(i, device=DEVICE))
+        jx, jy = (float(v) for v in j)
+        low = torch.from_numpy(pat((ly + jy) * scale, (lx + jx) * scale))
+        out, hist = taau_upscale(low.to(DEVICE), hist, scale=scale,
+                                 jitter=j, alpha=0.35)
+    g["taau_err"] = float(np.abs(out.cpu().numpy()
+                                 - pat(yy + 0.5, xx + 0.5)).mean())
+    box = np.repeat(np.repeat(pat((ly + 0.5) * scale, (lx + 0.5) * scale),
+                              scale, 0), scale, 1)
+    g["taau_box_err"] = float(np.abs(box - pat(yy + 0.5, xx + 0.5)).mean())
+    check(g["taau_err"] < 0.5 * g["taau_box_err"], f"TAAU detail: {g}")
+    # ---- partial rendering and exposure (tests/test_partial_exposure.py)
+    sc, cam = cornell_scene(DEVICE)
+
+    def run(k, frames):
+        r = make_renderer(sc, cam, dict(
+            width=32, height=32, bounces=2, bsdf="lambert",
+            traversal="wavefront", light_sampling="cdf",
+            partial_rendering=k))
+        st = r.init_state()
+        for _ in range(frames):
+            _, rad, st = r.step(st)
+        return rad.cpu().numpy()
+
+    full, part, early = run(1, 8), run(4, 11), run(4, 2)
+    ze, zp = (early.mean(-1) == 0).mean(), (part.mean(-1) == 0).mean()
+    g["partial"] = dict(zero_early=float(ze), zero_after=float(zp),
+                        mean_full=float(full.mean()),
+                        mean_partial=float(part.mean()))
+    check(bool(np.isfinite(part).all()) and zp < 0.2 and zp < ze - 0.2
+          and abs(part.mean() - full.mean()) <= 0.1 * full.mean(),
+          f"partial rendering: {g['partial']}")
+    bright = torch.ones((16, 16, 3), device=DEVICE) * 4.0
+    dim = torch.ones((16, 16, 3), device=DEVICE) * 0.05
+    cold = torch.full((), -1.0, device=DEVICE)
+    _, e0 = auto_exposure_temporal(bright, cold)
+    _, e1 = auto_exposure_temporal(bright, e0)
+    _, et = auto_exposure_temporal(dim, cold)
+    _, es = auto_exposure_temporal(dim, e0)
+    e = e0
+    for _ in range(400):
+        _, e = auto_exposure_temporal(dim, e)
+    e0, e1, et, es, e = (float(v) for v in (e0, e1, et, es, e))
+    g["exposure"] = dict(cold=e0, steady=e1, target=et, step=es, after=e)
+    check(e0 > 0 and abs(e1 - e0) < 0.02 * e0
+          and 0.0 < abs(es - e0) < 0.1 * abs(et - e0) + 1e-6
+          and abs(e - et) < 0.1 * abs(et), f"exposure: {g['exposure']}")
+    log(f"analytic-light, TAAU, partial-rendering and exposure gates on "
+        f"the card: {g}")
+    results["modes_gates"] = g
+
+
+def phase_modes_card_vs_cpu(results):
+    """Each new path's configuration at 16x16 on the Cornell box (2
+    bounces, Disney, the light tree; "interactive" with 16 analytic
+    lights in the box, TAAU traced at 8x8), two frames (the second
+    moving the camera), on the card and on the CPU: the displays within
+    1e-3 on >= 98% of pixels and in mean to 1e-3. No path has ReSTIR on,
+    so no reservoir rule is needed."""
+    import dataclasses
+    import torch
+    from truetrace_tpu_torch.scene.ir import AnalyticLights
+    small = dict(width=16, height=16, bounces=2, bsdf="disney",
+                 traversal="wavefront", light_sampling="tree")
+    cfgs = {"post": dict(small, denoiser="svgf", post=POST_CHAIN),
+            "interactive": dict(small, denoiser="svgf", upscale=2,
+                                partial_rendering=2),
+            "neural": dict(small, denoiser="neural_taa",
+                           neural_weights=NEURAL["neural_weights"])}
+    lights = analytic_lights_host((0.05, 0.25, 0.05), (0.5, 0.5, 0.5))
+    out = {}
+    for label, cfg in cfgs.items():
+        frames = {}
+        for dev in (DEVICE, "cpu"):
+            sc, cam = cornell_scene(dev)
+            if label == "interactive":
+                sc = dataclasses.replace(sc, lights=AnalyticLights.from_numpy(
+                    lights, dev))
+            r = make_renderer(sc, cam, cfg)
+            st = r.init_state()
+            frames[dev] = []
+            for c, moved in ((None, None), (moved_camera(cam), True)):
+                d, _, st = r.step(st, cam=c, cam_moved=moved)
+                frames[dev].append(d.cpu())
+        shares = []
+        for a, b in zip(frames[DEVICE], frames["cpu"]):
+            shares.append(float(((a - b).abs() <= 1e-3).all(-1).float()
+                                .mean()))
+            rel = abs(float(a.mean()) - float(b.mean())) / float(b.mean())
+            check(bool(torch.isfinite(a).all()) and shares[-1] >= 0.98
+                  and rel < 1e-3, f"{label} card vs CPU: {shares[-1]:.4f} "
+                  f"of pixels within 1e-3, mean rel {rel:.2e}")
+        out[label] = dict(display_share=shares)
+    log(f"post, interactive and neural Cornell 16x16x2 card vs CPU, two "
+        f"frames: display shares within 1e-3 "
+        f"{ {k: [round(x, 4) for x in v['display_share']] for k, v in out.items()} }")
+    results["modes_card_vs_cpu"] = out
 
 
 # ---------------------------------------------------------------------------
@@ -2037,10 +2468,13 @@ PATHS = {"atrium": _OPAQUE, "composed": _OPAQUE, "sponza": _OPAQUE,
          "asvgf": _OPAQUE, "composed_asvgf": _OPAQUE,
          "recur": ("closest_hit_wavefront", "any_hit_wavefront"),
          "glass": ("closest_hit_wavefront", "transmit_wavefront",
-                   "atrous_pass")}
-# the new frames of this slice, each with its own launch counts in the
-# kernels line
-NEW_PATHS = ("asvgf", "recur", "composed_asvgf", "glass")
+                   "atrous_pass"),
+         "post": _OPAQUE, "interactive": _OPAQUE,
+         "neural": ("closest_hit_wavefront", "any_hit_wavefront")}
+# the frames after the first three, each with its own launch counts in
+# the kernels line
+NEW_PATHS = ("asvgf", "recur", "composed_asvgf", "glass", "post",
+             "interactive", "neural")
 # a profiled frame's host copies and syncs (phase_profile)
 COPY_KEYS = ("memcpy_htod", "memcpy_dtoh", "stream_syncs",
              "blocking_memcpy_calls", "memcpy_dtod")
@@ -2122,6 +2556,12 @@ def main() -> int:
                        ("composed_asvgf", COMPOSED_ASVGF)):
         new_launches[label] = run_path(results, scenes[6], cam, label, cfg)
     phase_asvgf_split(results, scenes[6], cam)
+    new_launches["post"] = run_path(
+        results, scenes[6], cam, "post", POST_FRAME,
+        hook=lambda r, st: phase_post_tonemaps(results, st.accum.image))
+    new_launches["neural"] = run_path(
+        results, scenes[6], cam, "neural", NEURAL,
+        hook=lambda r, st: phase_unet(results, r.neural, st.accum.image))
     del scenes
     glass, g_cam = nested_glass_scene(DEVICE)
     log(f"nested glass scene: {glass.n_tris()} triangles, "
@@ -2148,12 +2588,17 @@ def main() -> int:
     phase_graph(results, sponza, s_cam, "sponza")
     phase_sponza_unbiased(sponza, s_cam)
     phase_sponza_card_vs_cpu(parts[:-1], sponza, s_cam)
+    new_launches["interactive"] = run_path(
+        results, sponza_lit(sponza, parts[0]), s_cam, "interactive",
+        INTERACTIVE)
     del parts, sponza
     phase_cornell()
     phase_composed_gates(results)
     phase_composed_card_vs_cpu(results)
     phase_glass_gates(results)
     phase_glass_card_vs_cpu(results)
+    phase_modes_gates(results)
+    phase_modes_card_vs_cpu(results)
 
     for k in (6, 3):
         log(f"traversal Mrays/s (bench mix, atrium K={k}): " + ", ".join(
@@ -2208,6 +2653,11 @@ def main() -> int:
         for f, p in results["asvgf_split"].items()}
     frames["glass"].update(gates=results["glass_gates"],
                            card_vs_cpu=results["glass_card_vs_cpu"])
+    frames["post"]["tonemaps"] = results["post_tonemaps"]
+    frames["neural"]["unet"] = results["unet"]
+    for label in ("post", "interactive", "neural"):
+        frames[label]["card_vs_cpu"] = results["modes_card_vs_cpu"][label]
+    frames["interactive"]["gates"] = results["modes_gates"]
     frames["composed"].update(
         scatter_ms=results["composed_profile"]["scatter_ms"],
         cache_update_ms=results["composed_cache"]["update_ms"],

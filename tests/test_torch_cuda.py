@@ -15,7 +15,9 @@ CUDA graphs bit for bit the eager frames; and the same two for the
 composed frame (ReSTIR DI and GI, the radiance cache), whose cache update
 gives the same bits run after run; the transmittance query bit for bit
 at every leaf width, and the same two frame checks for the ASVGF,
-ReSTIR-ASVGF, ReCur and nested-glass frames.
+ReSTIR-ASVGF, ReCur and nested-glass frames, and for the post chain
+with temporal auto exposure, TAAU with partial rendering and analytic
+lights, and the neural_taa denoiser.
 
 Needs an NVIDIA card and nvcc; skips elsewhere. It imports no JAX, so it
 runs on a machine without it (the JAX-side conftest is skipped):
@@ -737,3 +739,88 @@ def test_slice_graph_frames_match_eager(dev, name):
     assert (gs.captures, gm.captures) == (1, 1)
     if name == "asvgf":
         assert "asvgf.svgf.color" in te and int(sg.asvgf.prev_sid) == 3
+
+
+# (config) of each frame of the TAAU / partial rendering / neural slice,
+# on the small atrium; "interactive" adds 16 analytic lights to it
+MODES = {"post": dict(SLICE, denoiser="svgf", post=dict(
+             tonemap="aces", bloom_strength=0.08, sharpen=0.3,
+             auto_expose=True)),
+         "interactive": dict(SLICE, denoiser="svgf", upscale=2,
+                             partial_rendering=2),
+         "neural": dict(SLICE, denoiser="neural_taa",
+                        neural_weights="examples/denoiser.msgpack")}
+
+
+def _modes_frame(dev, name):
+    import dataclasses
+    import os
+
+    import chip_smoke
+    from truetrace_tpu_torch.scene.ir import AnalyticLights
+    sc, cam = _atrium_small(dev)
+    cfg = dict(MODES[name])
+    if name == "interactive":
+        lo = sc.tri_p0.amin(0).cpu().numpy()
+        hi = sc.tri_p0.amax(0).cpu().numpy()
+        sc = dataclasses.replace(sc, lights=AnalyticLights.from_numpy(
+            chip_smoke.analytic_lights_host(lo + 0.2 * (hi - lo),
+                                            hi - 0.2 * (hi - lo)), dev))
+    if name == "neural":
+        cfg["neural_weights"] = os.path.join(chip_smoke.HERE,
+                                             cfg["neural_weights"])
+    return sc, cam, cfg
+
+
+@pytest.mark.parametrize("name", ["post", "interactive", "neural"])
+def test_modes_frame_makes_no_host_sync(dev, name):
+    """The post chain with temporal auto exposure (its histogram is a
+    fixed-size scatter-add, no bincount), TAAU with partial rendering
+    and analytic lights (the subset, the jitter and the warm-up gate
+    from the sample id) and the neural_taa frame (the U-Net's cuDNN
+    convolutions): after a warm-up frame, one more and one moving the
+    camera with cam_moved=True, under set_sync_debug_mode("error")."""
+    import chip_smoke
+    sc, cam, cfg = _modes_frame(dev, name)
+    r = chip_smoke.make_renderer(sc, cam, cfg)
+    st = r.init_state()
+    _, _, st = r.step(st)
+    moved = chip_smoke.moved_camera(cam)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, st = r.step(st)
+        disp, _, st = r.step(st, cam=moved, cam_moved=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert st.sample == 3 and bool(torch.isfinite(disp).all())
+    assert disp.shape == (SLICE["height"], SLICE["width"], 3)
+
+
+@pytest.mark.parametrize("name", ["post", "interactive", "neural"])
+def test_modes_graph_frames_match_eager(dev, name):
+    """Renderer.graph_step against Renderer.step on the post,
+    interactive and neural frames, four frames (a camera move among
+    them): display, radiance and every state tensor (the exposure, the
+    TAAU history, partial rendering's buffers, the neural_taa history)
+    bit for bit."""
+    import chip_smoke
+    from truetrace_tpu_torch.renderer import _tensors
+    sc, cam, cfg = _modes_frame(dev, name)
+    moved = chip_smoke.moved_camera(cam)
+    re = chip_smoke.make_renderer(sc, cam, cfg)
+    rg = chip_smoke.make_renderer(sc, cam, cfg)
+    gs, gm = rg.graph_step(cam_moved=False), rg.graph_step(cam_moved=True)
+    se, sg = re.init_state(), rg.init_state()
+    for c, moved_now, frame in ((None, None, gs), (None, None, gs),
+                                (moved, True, gm), (moved, False, gs)):
+        de, ae, se = re.step(se, cam=c, cam_moved=moved_now)
+        dg, ag, sg = frame(sg, cam=c)
+        te, tg = dict(_tensors(se)), dict(_tensors(sg))
+        assert te.keys() == tg.keys()
+        assert all(chip_smoke.torch_equal_bits(a, b) for a, b in
+                   [(de, dg), (ae, ag)] + [(te[k], tg[k]) for k in te])
+    assert (gs.captures, gm.captures) == (1, 1)
+    want = {"post": "exposure", "interactive": "partial.rad",
+            "neural": "neural_hist"}[name]
+    assert want in te

@@ -2,6 +2,9 @@
 Renderer.step frames with SVGF against the JAX package on the same
 (carried-across) Cornell scene, camera and sample ids, and the port's
 own twin of scripts/verify_drive.py's physics checks."""
+import dataclasses
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +20,9 @@ from truetrace_tpu.scene import cornell as jcornell
 from truetrace_tpu.scene.mesh import compile_scene as jcompile
 from truetrace_tpu_torch.integrate.pathtrace import (
     RenderConfig, render_sample_with_stats)
-from truetrace_tpu_torch.renderer import FrameState, Renderer, RendererConfig
+from truetrace_tpu_torch.post.pipeline import PostConfig
+from truetrace_tpu_torch.renderer import (FrameState, Renderer,
+                                          RendererConfig, _tensors)
 from truetrace_tpu_torch.scene import cornell as tcornell
 from truetrace_tpu_torch.scene.ir import Camera, Scene
 from truetrace_tpu_torch.scene.mesh import compile_scene as tcompile
@@ -137,11 +142,15 @@ def test_graph_step_state_flow_matches_step(cornell_pair, monkeypatch):
     """graph_step's bookkeeping on the CPU, with the CUDA capture replaced
     by what a replay amounts to (run the captured function again and
     copy its results into the tensors the capture returned): four
-    composed frames (SVGF, ReSTIR DI and GI, the radiance cache), the
-    first eager, then the graphs of both cam_moved values, the first
-    moving the camera, each fed the other's state, and a replay fed its
-    own state; equal bit for bit to Renderer.step's display, radiance and
-    state, the reservoirs and the cache tables included."""
+    frames of two configurations, the first eager, then the graphs of
+    both cam_moved values, the first moving the camera, each fed the
+    other's state, and a replay fed its own state; equal bit for bit to
+    Renderer.step's display, radiance and every state tensor. The
+    composed frame (SVGF, ReSTIR DI and GI, the radiance cache) under
+    TAAU and partial rendering with temporal auto exposure, bloom and
+    CAS: the reservoirs, the cache tables, the TAA and TAAU histories,
+    partial rendering's buffers and the exposure; and the neural_taa
+    frame: its history."""
     import truetrace_tpu_torch.renderer as rmod
 
     def capture(fn, device):
@@ -156,39 +165,43 @@ def test_graph_step_state_flow_matches_step(cornell_pair, monkeypatch):
     monkeypatch.setattr(rmod, "_capture", capture)
     monkeypatch.setattr(rmod, "_check_device", lambda device: None)
     _, _, ts, tcam = cornell_pair
-    cfg = RendererConfig(width=8, height=8, denoiser="svgf", bounces=2,
-                         use_restir=True, use_restir_di=True,
-                         use_radiance_cache=True, cache_query_bounce=1,
-                         cache_capacity=1 << 10,
-                         **{k: v for k, v in FRAME.items()
-                            if k != "bounces"})
+    base = {k: v for k, v in FRAME.items() if k != "bounces"}
+    composed = RendererConfig(
+        width=8, height=8, denoiser="svgf", bounces=2, use_restir=True,
+        use_restir_di=True, use_radiance_cache=True, cache_query_bounce=1,
+        cache_capacity=1 << 10, upscale=2, partial_rendering=2,
+        post=PostConfig(auto_expose=True, bloom_strength=0.08, sharpen=0.3),
+        **base)
+    neural = RendererConfig(
+        width=8, height=8, bounces=2, denoiser="neural_taa",
+        neural_weights=os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "examples", "denoiser.msgpack"),
+        **base)
     c2w = tcam.c2w.clone()
     c2w[3, 0] += 0.1                                    # the eye moves
     moved = Camera(c2w=c2w, fov_y=tcam.fov_y, aperture=tcam.aperture,
                    focus_dist=tcam.focus_dist)
-    re, rg = Renderer(ts, tcam, cfg), Renderer(ts, tcam, cfg)
-    gs, gm = rg.graph_step(cam_moved=False), rg.graph_step(cam_moved=True)
-    se, sg = re.init_state(), rg.init_state()
-    for cam, moved_now, frame in ((None, None, gs), (moved, True, gm),
-                                  (moved, False, gs), (None, None, gs)):
-        de, ae, se = re.step(se, cam=cam, cam_moved=moved_now)
-        dg, ag, sg = frame(sg, cam=cam)
-        got = _flat((dg, ag, sg.accum.image, sg.accum.count,
-                     sg.svgf.__dict__, sg.taa_history, sg.prev_cam.__dict__,
-                     sg.restir.__dict__, sg.restir_di.__dict__,
-                     sg.cache.__dict__))
-        want = _flat((de, ae, se.accum.image, se.accum.count,
-                      se.svgf.__dict__, se.taa_history,
-                      se.prev_cam.__dict__, se.restir.__dict__,
-                      se.restir_di.__dict__, se.cache.__dict__))
-        assert len(got) == len(want) == 34
-        assert all(torch.equal(a.view(torch.int32) if a.is_floating_point()
-                               else a, b.view(torch.int32)
-                               if b.is_floating_point() else b)
-                   for a, b in zip(got, want))
-        assert sg.sample == se.sample
-    assert float(sg.accum.count) == 3.0
-    assert (gs.captures, gm.captures) == (1, 1)
+    for cfg, n_state in ((composed, 41), (neural, 4)):
+        re, rg = Renderer(ts, tcam, cfg), Renderer(ts, tcam, cfg)
+        gs = rg.graph_step(cam_moved=False)
+        gm = rg.graph_step(cam_moved=True)
+        se, sg = re.init_state(), rg.init_state()
+        for cam, moved_now, frame in ((None, None, gs), (moved, True, gm),
+                                      (moved, False, gs), (None, None, gs)):
+            de, ae, se = re.step(se, cam=cam, cam_moved=moved_now)
+            dg, ag, sg = frame(sg, cam=cam)
+            te, tg = _tensors(se), _tensors(sg)
+            assert [k for k, _ in te] == [k for k, _ in tg]
+            assert len(te) == n_state
+            got = _flat((dg, ag, [t for _, t in tg], sg.prev_cam.__dict__))
+            want = _flat((de, ae, [t for _, t in te], se.prev_cam.__dict__))
+            assert all(torch.equal(
+                a.view(torch.int32) if a.is_floating_point() else a,
+                b.view(torch.int32) if b.is_floating_point() else b)
+                for a, b in zip(got, want))
+            assert sg.sample == se.sample
+        assert float(sg.accum.count) == 3.0
+        assert (gs.captures, gm.captures) == (1, 1)
 
 
 def _render(scene, cam, W, spp, **cfg):
@@ -223,11 +236,19 @@ def test_cornell_physics():
 
 
 @pytest.mark.parametrize("opt,value", [
-    ("denoiser", "neural_taa"), ("traversal", "tlas"), ("denoiser", "neural"),
-    ("upscale", 2), ("partial_rendering", 2), ("traversal", "bvh2")])
+    ("traversal", "cwbvh"), ("traversal", "tlas"), ("traversal", "brute"),
+    ("traversal", "woop"), ("terrain", "scene"), ("traversal", "bvh2")])
 def test_unported_renderer_options_raise(cornell_pair, opt, value):
+    """Options and scene parts outside the port raise naming their item:
+    the other traversals (the CWBVH oracle, the TLAS, the MXU brute
+    force, BVH2, which the JAX package also takes for any other name)
+    and a scene with terrain. (The TAAU, partial rendering and neural
+    denoiser cases of this list run now: tests/test_torch_modes.py and
+    tests/test_torch_neural.py hold them against the JAX package.)"""
     _, _, ts, tcam = cornell_pair
+    if opt == "terrain":
+        ts = dataclasses.replace(ts, terrain=object())
+    kw = {} if opt == "terrain" else {opt: value}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        r = Renderer(ts, tcam, RendererConfig(width=8, height=8,
-                                              **{opt: value}))
+        r = Renderer(ts, tcam, RendererConfig(width=8, height=8, **kw))
         r.step(r.init_state())

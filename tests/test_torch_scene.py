@@ -16,6 +16,7 @@ from truetrace_tpu.scene import cornell as jcornell
 from truetrace_tpu.scene.mesh import compile_scene as jcompile
 from truetrace_tpu_torch.build import env_cdf as tenv_cdf
 from truetrace_tpu_torch.kernels import cwbvh_wavefront as twf
+from truetrace_tpu_torch.post import neural as tneural
 from truetrace_tpu_torch.post import pipeline as tpipe
 from truetrace_tpu_torch.post import svgf as tsvgf
 from truetrace_tpu_torch.scene import atrium as tatrium
@@ -168,7 +169,7 @@ def _raises(fn):
 
 
 @pytest.mark.parametrize("opt", ["presplit", "hot_order", "bvh2_only",
-                                 "cache_dir", "lights", "terrain"])
+                                 "cache_dir", "terrain"])
 def test_unported_build_options_raise(opt):
     m, mats, _ = tcornell.make(device="cpu")
     kw = dict(with_cwbvh=True, device="cpu")
@@ -176,21 +177,47 @@ def test_unported_build_options_raise(opt):
                    hot_order=dict(hot_order=True),
                    bvh2_only=dict(with_cwbvh=False),
                    cache_dir=dict(cache_dir="x"),
-                   lights=dict(lights=tir.AnalyticLights.none("cpu")),
                    terrain=dict(terrain=object()))[opt])
     _raises(lambda: tcompile(m, mats, **kw))
+
+
+@pytest.mark.parametrize("opt", ["lights"])
+def test_build_options_match_jax(opt):
+    """compile_scene options the port once refused, against the JAX
+    package's build of the Cornell box: `lights` (16 analytic lights of
+    the five kinds) gives equal light tables, exactly, and the same
+    CWBVH."""
+    from chip_smoke import analytic_lights_host
+    from truetrace_tpu.scene.ir import AnalyticLights as JAnalyticLights
+    d = analytic_lights_host((0.05, 0.25, 0.05), (0.5, 0.5, 0.5))
+    jm, jmat, _ = jcornell.make()
+    tm, tmat, _ = tcornell.make(device="cpu")
+    js = jcompile(jm, jmat, with_cwbvh=True, with_light_bvh=True,
+                  lights=JAnalyticLights(**d))
+    ts = tcompile(tm, tmat, with_cwbvh=True, with_light_bvh=True,
+                  lights=tir.AnalyticLights.from_numpy(d, "cpu"),
+                  device="cpu")
+    for f in dataclasses.fields(ts.lights):
+        want = np.asarray(getattr(js.lights, f.name))
+        got = getattr(ts.lights, f.name).numpy()
+        assert got.shape == want.shape and (got == want).all(), f.name
+    assert (ts.cw_nodes.numpy().view(np.uint32)
+            == np.asarray(js.cw_nodes).view(np.uint32)).all()
 
 
 @pytest.mark.parametrize("fn", [tcompile, tir.Camera.look_at, tatrium.make,
                                 tcornell.make, tsvgf.SVGFState.create,
                                 tpipe.Accumulator.create,
                                 tir.EnvMap.constant, tir.AnalyticLights.none,
-                                tenv_cdf.build_env_cdf, tsponza.make],
+                                tenv_cdf.build_env_cdf, tsponza.make,
+                                tpipe.bake_tonemap_lut,
+                                tneural.load_denoiser],
                          ids=["compile_scene", "Camera.look_at",
                               "atrium.make", "cornell.make",
                               "SVGFState.create", "Accumulator.create",
                               "EnvMap.constant", "AnalyticLights.none",
-                              "build_env_cdf", "sponza_like.make"])
+                              "build_env_cdf", "sponza_like.make",
+                              "bake_tonemap_lut", "load_denoiser"])
 def test_entry_points_default_to_the_card(fn):
     """The port's scene entry points build on the card unless the caller
     asks for the CPU (every CPU test passes device="cpu")."""

@@ -128,9 +128,27 @@ def test_post_chain_matches():
 
 @pytest.mark.parametrize("opt", ["tonemap", "auto_expose", "bloom_strength",
                                  "sharpen"])
-def test_unported_post_options_raise(opt):
+def test_post_options_match_jax(opt):
+    """postprocess with each option the port once refused (AgX, temporal
+    auto exposure from a warm state, bloom, CAS sharpening) against the
+    JAX package's, with a TAA history and motion: the display and the
+    new history to rtol 1e-5 / atol 1e-6, the new exposure likewise."""
     kw = dict(tonemap=dict(tonemap="agx"), auto_expose=dict(auto_expose=True),
               bloom_strength=dict(bloom_strength=0.1),
               sharpen=dict(sharpen=0.3))[opt]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpipe.postprocess(torch.zeros((4, 4, 3)), tpipe.PostConfig(**kw))
+    r = np.random.default_rng(11)
+    img = (r.exponential(size=(H, W, 3)) * 1.5).astype(np.float32)
+    hist = r.uniform(size=(H, W, 3)).astype(np.float32)
+    mo = r.normal(scale=2.0, size=(H, W, 2)).astype(np.float32)
+    jargs = (jnp.asarray(img), jpipe.PostConfig(**kw), jnp.asarray(hist),
+             jnp.asarray(mo))
+    targs = (_t(img), tpipe.PostConfig(**kw), _t(hist), _t(mo))
+    if opt == "auto_expose":
+        jout = jpipe.postprocess(*jargs, exposure_state=jnp.float32(0.7))
+        tout = tpipe.postprocess(*targs, exposure_state=torch.tensor(0.7))
+        assert len(tout) == 3
+    else:
+        jout, tout = jpipe.postprocess(*jargs), tpipe.postprocess(*targs)
+    for j, t in zip(jout, tout):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5,
+                                   atol=1e-6)

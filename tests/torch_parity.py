@@ -14,8 +14,8 @@ torch.set_num_threads(1)
 
 
 def leaves(obj):
-    """A JAX dataclass / NamedTuple pytree -> nested dict of numpy leaves
-    (Python scalars and None pass through)."""
+    """A JAX dataclass / NamedTuple / dict pytree -> nested dict of numpy
+    leaves (Python scalars and None pass through)."""
     if obj is None or isinstance(obj, (bool, int, float, str)):
         return obj
     if dataclasses.is_dataclass(obj):
@@ -23,6 +23,8 @@ def leaves(obj):
                 for f in dataclasses.fields(obj)}
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         return {k: leaves(v) for k, v in obj._asdict().items()}
+    if isinstance(obj, dict):
+        return {k: leaves(v) for k, v in obj.items()}
     return np.asarray(obj)
 
 

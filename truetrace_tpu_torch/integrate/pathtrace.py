@@ -7,8 +7,10 @@ triangles, by light-tree cut selection or the power CDF; Disney or
 Lambert BSDF; Russian roulette; primary-hit G-buffer.
 
 What the port covers is the single-BLAS scene under a constant or
-textured environment (env NEE + MIS), with atlas textures fetched at
-ray-cone mip levels, traversed by the CWBVH wavefront kernels; glass and
+textured environment (env NEE + MIS) and analytic lights (a third NEE
+group, uniform or RIS selection; integrate/lights.py), with atlas
+textures fetched at ray-cone mip levels, traversed by the CWBVH
+wavefront kernels; a per-frame TAAU subpixel jitter; glass and
 cutout materials (shadow transmittance through the tinted surfaces, the
 stochastic cutout pass-through, and the nested-dielectric medium stack
 with Beer-Lambert absorption), and the
@@ -92,8 +94,6 @@ def check_supported(scene: Scene, cfg: RenderConfig) -> None:
         raise ValueError(f"unknown nee_mis {cfg.nee_mis!r}")
     if cfg.light_sampling not in ("tree", "cdf"):
         raise ValueError(f"unknown light_sampling {cfg.light_sampling!r}")
-    if scene.lights.position.shape[0] > 0:
-        _todo("analytic lights", "A.8")
     if scene.terrain is not None:
         _todo("heightmap terrain", "A.14")
 
@@ -218,6 +218,24 @@ def _di_light_sample(di, p) -> LightSample:
                        pdf_w=pdf)
 
 
+def _analytic_sample(scene: Scene, cfg: RenderConfig, p, u_resc, u_l2, u2,
+                     b: int):
+    """One analytic light sample a lane: streaming RIS over
+    cfg.analytic_ris candidates where there are more lights than that,
+    else a uniform pick. Candidate c draws its pick and keep uniforms in
+    the light-select dimension offset by 0x9E3779 (c + 1)."""
+    from truetrace_tpu_torch.integrate.lights import (
+        sample_analytic, sample_analytic_ris)
+    N = cfg.analytic_ris
+    if 0 < N < scene.lights.position.shape[0]:
+        base = rng.path_dim(b, rng.DIM_LIGHT_SELECT)
+        u = torch.stack([u2(rng.u32(base + 0x9E3779 * (c + 1)))
+                         for c in range(N)], 1)            # [R,N,2]
+        return sample_analytic_ris(scene.lights, p, u[..., 0], u[..., 1],
+                                   u_l2)
+    return sample_analytic(scene.lights, p, u_resc, u_l2)
+
+
 # ---------------------------------------------------------------------------
 # traversal dispatch
 # ---------------------------------------------------------------------------
@@ -329,12 +347,15 @@ def render_sample_with_stats(scene: Scene, cam: Camera, cfg: RenderConfig,
     normal, depth and emitted0 (primary-hit G-buffer), and the captures
     `trace_rays` describes. `cache` is the radiance cache the query reads
     (integrate/radiance_cache.py), `di_sample` the ReSTIR DI reservoir
-    samples (integrate/restir_di.py)."""
-    if jitter is not None:
-        _todo("TAAU jitter", "A.10")
+    samples (integrate/restir_di.py). `jitter` is a [2] subpixel offset
+    that every pixel takes this frame (the TAAU sequence,
+    post/pipeline.py taau_jitter); None draws each pixel its own."""
     W, H = cfg.width, cfg.height
     pixel = pixel.to(torch.int64)
-    jit2 = rng.uniform2(pixel, sample_id, rng.DIM_CAMERA_JITTER)
+    if jitter is None:
+        jit2 = rng.uniform2(pixel, sample_id, rng.DIM_CAMERA_JITTER)
+    else:
+        jit2 = jitter.to(torch.float32).expand(pixel.shape[0], 2)
     lens_u = rng.uniform2(pixel, rng.u32(sample_id) + 0x9E3779B9,
                           rng.DIM_CAMERA_JITTER)
     ro, rd = camera_rays(cam, W, H, pixel, jit2, lens_u=lens_u)
@@ -530,10 +551,13 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
     use_tree = (cfg.light_sampling == "tree"
                 and scene.lbvh_pairs.shape[0] > 0)
     # NEE strategy mix (the reference picks a light group per shade,
-    # RayTracingShader.compute:328-344): mesh emitters and the env map
+    # RayTracingShader.compute:328-344): mesh emitters, the env map and
+    # the analytic lights
     has_mesh = scene.light_tris.tri_index.shape[0] > 0
     has_env_tex = scene.env.image.shape[0] > 1
-    n_groups = (int(has_mesh) + int(has_env_tex)) if cfg.use_nee else 0
+    has_analytic = scene.lights.position.shape[0] > 0
+    n_groups = ((int(has_mesh) + int(has_env_tex) + int(has_analytic))
+                if cfg.use_nee else 0)
     p_group = 1.0 / n_groups if n_groups else 1.0
     if not has_env_tex:
         env_rgb = scene.env.image[0, 0] * scene.env.intensity
@@ -714,6 +738,20 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
                 pdf_l = _pick(sel, p_env * p_group, pdf_l)
                 pdfw_l = _pick(sel, p_env * p_group, pdfw_l)
                 valid_l = _pick(sel, p_env > 1e-12, valid_l)
+                gi += 1
+            if has_analytic:
+                al = _analytic_sample(scene, cfg, p, u_resc, u_l2, u2, b)
+                sel = None if n_groups == 1 else g_pick == gi
+                wi_l = _pick(sel, al.wi, wi_l)
+                dist_l = _pick(sel, al.dist, dist_l)
+                # the selection pmf goes into the radiance (a delta
+                # light's pdf_sa is 1)
+                rad_l = _pick(sel, al.radiance / al.pmf[..., None], rad_l)
+                pdf_l = _pick(sel, al.pdf_sa * p_group, pdf_l)
+                pdfw_l = _pick(sel, al.pdf_sa * p_group, pdfw_l)
+                valid_l = _pick(sel, al.valid, valid_l)
+                delta = _pick(sel, al.is_delta, torch.zeros_like(valid_l)
+                              if delta is None else delta)
                 gi += 1
 
             f_l, pdf_b = bsdf_eval(mat, sn, wo, wi_l)

@@ -1,18 +1,21 @@
 """Frame orchestrator: the user-facing renderer.
 
-Port of `truetrace_tpu/renderer.py` for the frames the port covers: the
-ReSTIR DI prepass (a 1-bounce G-buffer trace feeding the light
-reservoirs), one path-traced sample per pixel (through the radiance
-cache, which it queries and feeds, where that is on), the cache's
+Port of `truetrace_tpu/renderer.py` for single-BLAS scenes: the ReSTIR
+DI prepass (a 1-bounce G-buffer trace feeding the light reservoirs), one
+path-traced sample per pixel (through the radiance cache, which it
+queries and feeds, where that is on; with one Halton subpixel offset a
+frame under TAAU; for a rolling 1/k of the pixels under partial
+rendering, composed with the earlier frames' buffers), the cache's
 per-frame resolve, ReSTIR GI from the trace's captures, the denoiser
-(SVGF, ASVGF with its stratum replay or ReSTIR GI's gradients, ReCur, or
-none), the firefly clamp, accumulation and post-processing; the
-JAX package's composed production frame with every option on. Per-frame
-state is an explicit `FrameState` threaded through `Renderer.step`,
-which runs eagerly on the scene's device. `Renderer.graph_step` is the counterpart of the JAX `jit_step`:
+(SVGF, ASVGF with its stratum replay or ReSTIR GI's gradients, ReCur,
+the neural U-Net with or without its temporal blend, or none), the
+firefly clamp, TAAU upscaling, accumulation and post-processing (with
+temporal auto exposure). Per-frame state is an explicit `FrameState`
+threaded through `Renderer.step`, which runs eagerly on the scene's
+device. `Renderer.graph_step` is the counterpart of the JAX `jit_step`:
 on a CUDA card it captures the frame once as a CUDA graph and replays it,
 so the device runs the frame's kernels without the host launching each
-one. Options outside the slice raise NotImplementedError naming their
+one. Options outside the port raise NotImplementedError naming their
 ROADMAP.md item.
 """
 from __future__ import annotations
@@ -37,15 +40,14 @@ from truetrace_tpu_torch.post.asvgf import (
     ASVGFState, asvgf_filter, asvgf_gradient, gradient_alpha,
     sample_id_tensor)
 from truetrace_tpu_torch.post.motion import motion_vectors
+from truetrace_tpu_torch.post.neural import denoise as neural_denoise
+from truetrace_tpu_torch.post.neural import load_denoiser
 from truetrace_tpu_torch.post.pipeline import (
-    Accumulator, PostConfig, firefly_clamp, postprocess)
+    Accumulator, PostConfig, firefly_clamp, postprocess, taa, taau_jitter,
+    taau_upscale, upscale_motion)
 from truetrace_tpu_torch.post.recur import ReCurState, recur_denoise
 from truetrace_tpu_torch.post.svgf import SVGFState, svgf_denoise
 from truetrace_tpu_torch.scene.ir import Camera, Scene
-
-
-def _todo(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
 @dataclass(frozen=True)
@@ -58,32 +60,49 @@ class RendererConfig:
     traversal: str = "wavefront"
     light_sampling: str = "tree"
     use_nee: bool = True
-    denoiser: str = "none"          # none | svgf | asvgf | recur
-    neural_weights: str = ""
+    denoiser: str = "none"   # none | svgf | asvgf | recur | neural
+                             # | neural_taa (the U-Net, then a clamped
+                             # temporal blend of its output)
+    neural_weights: str = ""        # flax msgpack checkpoint of the U-Net
     use_restir: bool = False
     use_restir_di: bool = False
     use_radiance_cache: bool = False
     cache_query_bounce: int = 2
     cache_capacity: int = 1 << 20
+    # TAAU: trace at width/upscale x height/upscale with one Halton
+    # subpixel offset a frame and reconstruct the output temporally
+    # (post/pipeline.py taau_upscale); 1 = off
     upscale: int = 1
+    # trace a rolling 1/k of the pixels a frame and compose them with
+    # the earlier frames' buffers (reprojected on a camera move); every
+    # later pass runs on the whole composed frame (reference
+    # DoPartialRendering, RayTracingShader.compute:91-97); 1 = off
     partial_rendering: int = 1
-    step_barrier: bool = False
+    step_barrier: bool = False      # an XLA fusion barrier; no-op in torch
     post: PostConfig = field(default_factory=PostConfig)
 
+    @property
+    def internal_size(self):
+        """(height, width) of the traced frame."""
+        s = max(self.upscale, 1)
+        return self.height // s, self.width // s
+
     def check_supported(self) -> None:
-        if self.denoiser.startswith("neural"):
-            _todo(f"denoiser={self.denoiser!r}", "A.13")
-        if self.denoiser not in ("none", "svgf", "asvgf", "recur"):
+        if self.denoiser not in ("none", "svgf", "asvgf", "recur", "neural",
+                                 "neural_taa"):
             raise ValueError(f"unknown denoiser {self.denoiser!r}")
-        if self.upscale > 1:
-            _todo("TAAU upscaling", "A.10")
-        if self.partial_rendering > 1:
-            _todo("partial rendering", "A.10")
+        ih, iw = self.internal_size
+        if self.partial_rendering > 1 and (ih * iw) % self.partial_rendering:
+            raise ValueError("partial_rendering must divide the pixel count")
+        if self.denoiser.startswith("neural") and (ih % 4 or iw % 4):
+            raise ValueError("the neural denoiser's U-Net needs the traced "
+                             "height and width to be multiples of 4")
         self.post.check_supported()
 
     def render_config(self) -> RenderConfig:
+        ih, iw = self.internal_size
         return RenderConfig(
-            width=self.width, height=self.height, bounces=self.bounces,
+            width=iw, height=ih, bounces=self.bounces,
             bsdf=self.bsdf, traversal=self.traversal,
             light_sampling=self.light_sampling, use_nee=self.use_nee,
             restir_capture=self.use_restir,
@@ -96,6 +115,8 @@ class RendererConfig:
 _PARTS = {"svgf": SVGFState, "asvgf": ASVGFState, "recur": ReCurState,
           "restir": ReSTIRState, "restir_di": ReSTIRDIState,
           "cache": RadianceCache}
+# the optional per-frame tensors (partial: a dict of them)
+_EXTRA = ("taau_history", "partial", "exposure", "neural_hist")
 
 
 @dataclass
@@ -110,23 +131,39 @@ class FrameState:
     restir: Optional[ReSTIRState] = None        # ReSTIR GI reservoirs
     restir_di: Optional[ReSTIRDIState] = None   # ReSTIR DI reservoirs
     cache: Optional[RadianceCache] = None       # the radiance cache
+    taau_history: Optional[torch.Tensor] = None  # output-size TAAU history
+    # partial rendering's compose buffers at the traced size, flat [h*w,
+    # ...]: rad, albedo, normal, depth, emitted0; direct, x1, mat1 with
+    # ReSTIR GI; di_x1, di_n, di_d (the prepass G-buffer) with ReSTIR DI
+    partial: Optional[dict] = None
+    exposure: Optional[torch.Tensor] = None     # [] adapted; < 0: cold
+    neural_hist: Optional[torch.Tensor] = None  # neural_taa's last output
 
     @staticmethod
     def from_numpy(d: dict, device) -> "FrameState":
         """FrameState from the JAX FrameState's leaves (numpy arrays in
-        nested dicts keyed by field name)."""
-        for key, item in (("taau_history", "A.10"), ("partial", "A.10"),
-                          ("exposure", "A.10"), ("neural_hist", "A.13")):
-            if d.get(key) is not None:
-                _todo(f"FrameState.{key}", item)
-        t = lambda a: None if a is None else torch.from_numpy(
-            np.array(a, np.float32)).to(device)
+        nested dicts keyed by field name). The JAX partial dict's `inst`
+        (the instance G-buffer, -1 on a single-BLAS scene; ROADMAP.md
+        A.14) is left out, and integer buffers become int64."""
+        def t(a):
+            if a is None:
+                return None
+            a = np.asarray(a)
+            return torch.from_numpy(np.array(
+                a, np.int64 if a.dtype.kind in "iu" else
+                bool if a.dtype == bool else np.float32)).to(device)
+        part = d.get("partial")
         return FrameState(
             accum=Accumulator.from_numpy(d["accum"], device),
             sample=int(d["sample"]),
             taa_history=t(d.get("taa_history")),
             prev_cam=Camera.from_numpy(d["prev_cam"], device)
             if d.get("prev_cam") is not None else None,
+            taau_history=t(d.get("taau_history")),
+            partial=None if part is None else {
+                k: t(v) for k, v in part.items() if k != "inst"},
+            exposure=t(d.get("exposure")),
+            neural_hist=t(d.get("neural_hist")),
             **{k: cls.from_numpy(d[k], device) if d.get(k) is not None
                else None for k, cls in _PARTS.items()})
 
@@ -140,12 +177,31 @@ class Renderer:
         self.cam = cam.to(scene.device)
         self.cfg = cfg
         self.rcfg = cfg.render_config()
+        self.neural = (load_denoiser(cfg.neural_weights, scene.device)
+                       if cfg.denoiser.startswith("neural") else None)
+
+    def _init_partial(self, h: int, w: int) -> dict:
+        """Partial rendering's compose buffers (FrameState.partial)."""
+        dev = self.scene.device
+        z = lambda *s, dtype=torch.float32: torch.zeros(
+            (h * w,) + s, dtype=dtype, device=dev)
+        p = dict(rad=z(3), albedo=torch.ones((h * w, 3), device=dev),
+                 normal=z(3), depth=z(), emitted0=z(3))
+        if self.cfg.use_restir:
+            p.update(direct=z(3), x1=z(3), mat1=z(dtype=torch.int64))
+        if self.cfg.use_restir_di:
+            p.update(di_x1=z(3), di_n=z(3), di_d=z())
+        return p
 
     def init_state(self) -> FrameState:
+        """Trace-size states (denoisers, reservoirs, partial rendering's
+        buffers) at the internal size; accumulation and the TAA and TAAU
+        histories at the output size."""
         cfg = self.cfg
-        h, w, dev = cfg.height, cfg.width, self.scene.device
+        dev = self.scene.device
+        h, w = cfg.internal_size
         return FrameState(
-            accum=Accumulator.create(h, w, dev), sample=0,
+            accum=Accumulator.create(cfg.height, cfg.width, dev), sample=0,
             svgf=SVGFState.create(h, w, dev)
             if cfg.denoiser == "svgf" else None,
             asvgf=ASVGFState.create(h, w, dev)
@@ -158,7 +214,13 @@ class Renderer:
             restir_di=ReSTIRDIState.create(h, w, dev)
             if cfg.use_restir_di else None,
             cache=RadianceCache.create(cfg.cache_capacity, dev)
-            if cfg.use_radiance_cache else None)
+            if cfg.use_radiance_cache else None,
+            partial=self._init_partial(h, w)
+            if cfg.partial_rendering > 1 else None,
+            exposure=torch.full((), -1.0, device=dev)
+            if cfg.post.auto_expose else None,
+            neural_hist=torch.zeros((h, w, 3), device=dev)
+            if cfg.denoiser == "neural_taa" else None)
 
     def reset_accumulation(self, state: FrameState) -> FrameState:
         return replace(state, accum=state.accum.reset())
@@ -197,16 +259,39 @@ class Renderer:
     def _frame(self, state: FrameState, cam: Camera, sid, cam_moved: bool):
         """The device work of one frame from `state`, seen by `cam`, with
         sample id `sid` (a Python int, or a 0-d int64 tensor on the card,
-        as graph_step captures it); `cam_moved` runs the cache's
-        reprojection merge. Returns (display, the new state's fields
-        other than the sample id and camera)."""
+        as graph_step captures it: the partial subset, the TAAU jitter
+        and the warm-up gate then come from it on the device); with
+        `cam_moved`, partial rendering reprojects its buffers and the
+        cache runs its reprojection merge. Returns (display, the new
+        state's fields other than the sample id and camera)."""
         cfg, rcfg, scene = self.cfg, self.rcfg, self.scene
-        h, w = cfg.height, cfg.width
+        dev = scene.device
+        h, w = cfg.internal_size
         prev_cam = state.prev_cam
         motion_of = lambda depth: (None if prev_cam is None else
                                    motion_vectors(prev_cam, cam, depth))
-        pixel = torch.arange(h * w, device=scene.device)
-        new = {k: getattr(state, k) for k in _PARTS}
+        new = {k: getattr(state, k) for k in (*_PARTS, *_EXTRA)}
+        k = cfg.partial_rendering
+        if k > 1:
+            # the rolling 1/k interleave: only these pixels are traced;
+            # every later pass runs on the composed frame
+            pixel = torch.arange(h * w // k, device=dev) * k + sid % k
+            P = dict(state.partial)
+            if cam_moved and prev_cam is not None:
+                # stale pixels follow the new view (the traced subset
+                # overwrites them after)
+                mv = motion_vectors(prev_cam, cam, P["depth"].reshape(h, w))
+                ys = torch.clamp(torch.round(torch.arange(h, device=dev)[
+                    :, None] - mv[..., 1]).to(torch.int64), 0, h - 1)
+                xs = torch.clamp(torch.round(torch.arange(w, device=dev)[
+                    None, :] - mv[..., 0]).to(torch.int64), 0, w - 1)
+                P = {key: buf.reshape((h, w) + buf.shape[1:])[ys, xs]
+                     .reshape(buf.shape) for key, buf in P.items()}
+            scatter = lambda key, src: P[key].index_copy(0, pixel, src)
+        else:
+            pixel = torch.arange(h * w, device=dev)
+        jitter = (taau_jitter(sample_id_tensor(sid, dev))
+                  if cfg.upscale > 1 else None)
 
         # ---- ReSTIR DI prepass: the primary G-buffer feeds the light
         # reservoirs, whose samples drive the main trace's bounce-0 NEE
@@ -216,18 +301,29 @@ class Renderer:
                            restir_capture=True, cache_capture=False,
                            cache_query_bounce=-1)
             _, gst = render_sample_with_stats(scene, cam, gcfg, pixel, sid)
-            g_d = gst["depth"].reshape(h, w)
+            g_x1, g_n, g_d = gst["x1"], gst["normal"], gst["depth"]
+            if k > 1:
+                # the prepass G-buffer: the fresh subset over the stale
+                # rest; the reservoirs reproject by themselves
+                P["di_x1"], P["di_n"], P["di_d"] = (
+                    scatter("di_x1", g_x1), scatter("di_n", g_n),
+                    scatter("di_d", g_d))
+                g_x1, g_n, g_d = P["di_x1"], P["di_n"], P["di_d"]
+            g_d = g_d.reshape(h, w)
             di_sample, new["restir_di"] = restir_di_reservoirs(
-                scene, cam, rcfg, state.restir_di, sid,
-                gst["x1"].reshape(h, w, 3), gst["normal"].reshape(h, w, 3),
-                g_d, prev_cam=prev_cam, motion=motion_of(g_d))
+                scene, cam, rcfg, state.restir_di, sid, g_x1.reshape(h, w, 3),
+                g_n.reshape(h, w, 3), g_d, prev_cam=prev_cam,
+                motion=motion_of(g_d) if k == 1 else None)
+            if k > 1:
+                # the main trace shades the fresh subset only
+                di_sample = {key: v[pixel] for key, v in di_sample.items()}
 
         # ---- the one trace: integrator, ReSTIR GI captures and the
         # radiance cache's records come out of one bounce loop
         if cfg.use_radiance_cache:
             rad, st, cache = render_sample_cached(
                 scene, cam, rcfg, state.cache, pixel, sid,
-                di_sample=di_sample)
+                di_sample=di_sample, jitter=jitter)
             if cam_moved and prev_cam is not None:
                 # re-levelled cells inherit their previous level's
                 # accumulation (reference GetReprojectedHash)
@@ -238,7 +334,35 @@ class Renderer:
             new["cache"] = cache
         else:
             rad, st = render_sample_with_stats(scene, cam, rcfg, pixel, sid,
-                                               di_sample=di_sample)
+                                               di_sample=di_sample,
+                                               jitter=jitter)
+        if k > 1:
+            # compose the frame: stale pixels keep their (reprojected)
+            # values, the traced subset scatters fresh ones
+            for key, src in (("rad", rad), ("albedo", st["albedo"]),
+                             ("normal", st["normal"]),
+                             ("depth", st["depth"]),
+                             ("emitted0", st["emitted0"])):
+                P[key] = scatter(key, src)
+            rad = P["rad"]
+            comp = dict(st, albedo=P["albedo"], normal=P["normal"],
+                        depth=P["depth"], emitted0=P["emitted0"])
+            if cfg.use_restir:
+                # the persistent channels (the final shade reads every
+                # pixel); the candidate channels go into zeros, so stale
+                # pixels submit no fresh candidate and their reservoirs
+                # persist
+                for key in ("direct", "x1", "mat1"):
+                    P[key] = scatter(key, st[key])
+                    comp[key] = P[key]
+                for key in ("x2", "n2", "tp1", "indirect", "pdf1",
+                            "cand_valid"):
+                    src = st[key]
+                    comp[key] = torch.zeros(
+                        (h * w,) + src.shape[1:], dtype=src.dtype,
+                        device=dev).index_copy(0, pixel, src)
+            new["partial"] = P
+            st = comp
         frame = rad.reshape(h, w, 3)
         albedo = st["albedo"].reshape(h, w, 3)
         normal = st["normal"].reshape(h, w, 3)
@@ -264,7 +388,7 @@ class Renderer:
                 # no replay stratum, no extra trace
                 alpha_map, _ = gradient_alpha(aux["gradient"], h, w)
                 cur_lum = ast.prev_lum
-                s2 = sample_id_tensor(sid, scene.device)
+                s2 = sample_id_tensor(sid, dev)
             else:
                 alpha_map, _, cur_lum, s2 = asvgf_gradient(
                     scene, cam, rcfg, ast, sid, rad)
@@ -278,11 +402,43 @@ class Renderer:
             frame, new["recur"] = recur_denoise(frame, albedo, normal, depth,
                                                 state.recur, motion=motion,
                                                 emissive=emissive)
+        elif cfg.denoiser in ("neural", "neural_taa"):
+            frame = neural_denoise(self.neural, frame, albedo, normal)
+            if cfg.denoiser == "neural_taa":
+                # the U-Net has no temporal term: a reprojected,
+                # neighbourhood-clamped blend of its output stops it
+                # flickering
+                frame = taa(frame, state.neural_hist, alpha=0.2,
+                            motion=motion)
+                new["neural_hist"] = frame
         if cfg.post.firefly > 0.0:
             frame = firefly_clamp(frame, cfg.post.firefly)
-        new["accum"] = state.accum.add(frame)
-        display, new["taa_history"] = postprocess(
-            new["accum"].image, cfg.post, state.taa_history, motion=motion)
+        if cfg.upscale > 1:
+            # TAAU to the output size; the post chain's TAA runs there too
+            frame, new["taau_history"] = taau_upscale(
+                frame, state.taau_history, scale=cfg.upscale, jitter=jitter,
+                motion=motion)
+            if motion is not None:
+                motion = upscale_motion(motion, cfg.upscale, cfg.height,
+                                        cfg.width)
+        accum = state.accum
+        if k > 1:
+            # until every interleave phase has traced once the composed
+            # frame holds cold (zero) pixels: restart the running mean in
+            # each of those frames
+            keep = (1.0 - (sid < k - 1).to(torch.float32)
+                    if isinstance(sid, torch.Tensor) else float(sid >= k - 1))
+            accum = Accumulator(image=accum.image * keep,
+                                count=accum.count * keep)
+        new["accum"] = accum.add(frame)
+        if state.exposure is not None:
+            display, new["taa_history"], new["exposure"] = postprocess(
+                new["accum"].image, cfg.post, state.taa_history,
+                motion=motion, exposure_state=state.exposure)
+        else:
+            display, new["taa_history"] = postprocess(
+                new["accum"].image, cfg.post, state.taa_history,
+                motion=motion)
         return display, new
 
     def graph_step(self, cam_moved: bool = False) -> "GraphFrame":
@@ -321,12 +477,17 @@ def _build(cls, t: dict, prefix: str):
 
 def _tensors(state: FrameState) -> list:
     """(name, tensor) of a frame state's tensors besides its cameras:
-    the accumulator, the TAA history, and every tensor of the denoiser's
-    histories, the ReSTIR GI and DI reservoirs and the radiance cache."""
+    the accumulator, the TAA and TAAU histories, the exposure, the
+    neural_taa history, partial rendering's buffers ("partial.rad",
+    ...), and every tensor of the denoiser's histories, the ReSTIR GI
+    and DI reservoirs and the radiance cache."""
     out = [("accum.image", state.accum.image),
            ("accum.count", state.accum.count)]
-    if state.taa_history is not None:
-        out.append(("taa_history", state.taa_history))
+    for key in ("taa_history", "taau_history", "exposure", "neural_hist"):
+        if getattr(state, key) is not None:
+            out.append((key, getattr(state, key)))
+    if state.partial is not None:
+        out += [(f"partial.{k}", v) for k, v in state.partial.items()]
     for part in _PARTS:
         obj = getattr(state, part)
         if obj is not None:
@@ -344,10 +505,14 @@ def _state(t: dict, sample: int, prev: str) -> FrameState:
     parts = {part: _build(cls, t, f"{part}.")
              if any(k.startswith(f"{part}.") for k in t) else None
              for part, cls in _PARTS.items()}
+    partial = {k[len("partial."):]: v for k, v in t.items()
+               if k.startswith("partial.")}
     return FrameState(
         accum=Accumulator(image=t["accum.image"], count=t["accum.count"]),
-        sample=sample, taa_history=t.get("taa_history"),
-        prev_cam=Camera(**{k: t[f"{prev}.{k}"] for k in _CAM}), **parts)
+        sample=sample, prev_cam=Camera(**{k: t[f"{prev}.{k}"] for k in _CAM}),
+        partial=partial or None,
+        **{k: t.get(k) for k in ("taa_history", "taau_history", "exposure",
+                                 "neural_hist")}, **parts)
 
 
 def _capture(fn, device):

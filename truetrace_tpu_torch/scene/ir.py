@@ -132,16 +132,17 @@ class LightTris:
 
 @dataclass
 class AnalyticLights:
-    """Unity-style analytic lights. The port's frame takes none of them
-    (analytic lights + RIS are ROADMAP.md A.8)."""
-    position: torch.Tensor
-    direction: torch.Tensor
-    radiance: torch.Tensor
-    ltype: torch.Tensor
-    spot_cos: torch.Tensor
-    extent: torch.Tensor
-    softness: torch.Tensor
-    z_rot: Optional[torch.Tensor] = None
+    """Unity-style analytic lights (reference RayTracingLights.cs
+    LightData): ltype 0 point, 1 directional, 2 spot, 3 quad, 4 disk
+    (integrate/lights.py)."""
+    position: torch.Tensor     # [K,3]
+    direction: torch.Tensor    # [K,3]
+    radiance: torch.Tensor     # [K,3]
+    ltype: torch.Tensor        # [K] int64
+    spot_cos: torch.Tensor     # [K,2] a spot's inner / outer cosine
+    extent: torch.Tensor       # [K,2] quad half-extents / disk radius
+    softness: torch.Tensor     # [K] point / spot / directional penumbra
+    z_rot: Optional[torch.Tensor] = None   # [K] a quad's in-plane turn
 
     @staticmethod
     def none(device="cuda") -> "AnalyticLights":
@@ -155,6 +156,12 @@ class AnalyticLights:
     @staticmethod
     def from_numpy(d: dict, device) -> "AnalyticLights":
         return _from_dict(AnalyticLights, d, device)
+
+    def to(self, device) -> "AnalyticLights":
+        return AnalyticLights(**{
+            f.name: None if getattr(self, f.name) is None
+            else getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)})
 
 
 @dataclass

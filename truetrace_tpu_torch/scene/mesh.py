@@ -4,8 +4,8 @@ Port of `truetrace_tpu/scene/mesh.py` for the single-BLAS CWBVH scene:
 numpy in, a `Scene` of tensors on `device` out. The tables are bitwise
 equal to the JAX package's (tests/test_torch_scene.py), the texture
 atlas and per-triangle texture LOD included (tests/test_torch_sponza.py).
-Presplit, the on-disk build cache, the MXU brute-force tables, analytic
-lights, terrain and heat-ordered leaf rows are not ported and raise.
+Presplit, the on-disk build cache, the MXU brute-force tables, terrain
+and heat-ordered leaf rows are not ported and raise.
 """
 from __future__ import annotations
 
@@ -247,8 +247,7 @@ def compile_scene(meshes: List[HostMesh], mats: List[HostMaterial],
     None picks the JAX package's rule (6 up to 400k triangles, else 12),
     so both packages build the same scene; the port's own default on the
     H100 is open (ROADMAP.md)."""
-    for name, val, item in (("lights", lights, "A.8"),
-                            ("terrain", terrain, "A.14"),
+    for name, val, item in (("terrain", terrain, "A.14"),
                             ("cache_dir", cache_dir, "A.18")):
         if val is not None:
             raise NotImplementedError(f"compile_scene({name}=...) is not "
@@ -324,6 +323,7 @@ def compile_scene(meshes: List[HostMesh], mats: List[HostMaterial],
         **lb_np)
     return Scene.from_parts(
         d, material_table(mats, device), light_tris,
-        AnalyticLights.none(device),
+        lights.to(device) if lights is not None
+        else AnalyticLights.none(device),
         env.to(device) if env is not None
         else EnvMap.constant((0.0, 0.0, 0.0), device), device)
