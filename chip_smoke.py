@@ -86,7 +86,21 @@ Phases, each of which raises on a failed check:
    denoiser and the in-repo checkpoint examples/denoiser.msgpack; the
    JAX package's checks of analytic lights (RIS, softness, z_rot), TAAU,
    partial rendering and temporal exposure on the card; and each of the
-   three configurations at 16x16 on the Cornell box, card against CPU.
+   three configurations at 16x16 on the Cornell box, card against CPU;
+8. instanced scenes and terrain: the forest (FOREST: 2,048 trees and 64
+   emissive lanterns scattered on a 257^2 hills terrain under the baked
+   sky, 512x512x4, the two-level traversal, SVGF): the TLAS closest and
+   any hits, the transmittance (tints of zeros and a third passing) and
+   the march's closest and any hits, each bit for bit its plain version
+   on the forest frame's own rays (bounce 0 timed and bounded from the
+   plain version's counted work); the forest frames with the lanterns
+   moved by update_instance_transforms and the camera along x between
+   frames (update_s timed apart), sync-free, profiled, and as CUDA graphs
+   over the updates with one capture, bit for bit; the instanced glass
+   scene of tests/test_tlas_transmit.py as the transmittance's frame
+   ("tinted"); the JAX package's instancing, object-motion, tinted-TLAS
+   and terrain checks on the card; the forest, scripts/demo.py scene 4
+   and the tinted scene at 16x16, card against CPU.
 
 It prints the card line, one JSON line of kernel results (time, plain
 time, bound and what sets it, launches per frame, ptxas registers,
@@ -94,8 +108,8 @@ spills and shared memory, for the traversal the work per ray, for
 a-trous the time at each step and of packing; under "sponza" each
 kernel's launches, time and bound on the sponza_like path, under
 "composed" its launches on the composed frame, and so under "asvgf",
-"recur", "composed_asvgf", "glass", "post", "interactive" and
-"neural"; under "frames" each
+"recur", "composed_asvgf", "glass", "post", "interactive", "neural",
+"forest" and "tinted"; under "frames" each
 path's eager and replayed frame times, device busy, kernel counts and
 host copies, and the composed frame's cache numbers and gates), and as
 its last line
@@ -163,8 +177,12 @@ ATROUS_STEPS = (1, 2, 4, 8, 16)   # svgf_denoise's five passes
 STEP_CORE_LANES = (65536, 262144)
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """Print a line, stamped with the seconds since the script began."""
+    print(f"[{time.perf_counter() - _T0:6.1f} s]", *a, flush=True)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -181,6 +199,21 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(fn(), its milliseconds on the current stream by CUDA events): one
+    call, no warm-up, for the plain versions, which are checked against
+    a kernel once a ray set."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def check(cond: bool, what: str):
@@ -676,12 +709,18 @@ def make_renderer(scene, cam, cfg: dict):
 
 def launch_counters():
     from truetrace_tpu_torch.kernels import atrous_pallas, cwbvh_wavefront
+    from truetrace_tpu_torch.kernels import cwbvh_tlas, heightmap
     from truetrace_tpu_torch.kernels import step_pallas
     return {"closest_hit_wavefront": cwbvh_wavefront.closest_hit_wavefront,
             "any_hit_wavefront": cwbvh_wavefront.any_hit_wavefront,
             "transmit_wavefront": cwbvh_wavefront.transmit_wavefront,
             "step_core": step_pallas.step_core,
-            "atrous_pass": atrous_pallas.atrous_pass_packed}
+            "atrous_pass": atrous_pallas.atrous_pass_packed,
+            "closest_hit_tlas": cwbvh_tlas.closest_hit_tlas,
+            "any_hit_tlas": cwbvh_tlas.any_hit_tlas,
+            "transmit_tlas": cwbvh_tlas.transmit_tlas,
+            "heightmap_closest": heightmap.heightmap_closest,
+            "heightmap_any": heightmap.heightmap_any}
 
 
 def phase_frame(results, scene, cam, label: str, cfg: dict = FRAME):
@@ -731,6 +770,60 @@ def phase_frame(results, scene, cam, label: str, cfg: dict = FRAME):
     return launches, r, state
 
 
+def dev_us(e) -> float:
+    """A profiler event's own device microseconds."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def profiled(fn):
+    """(torch.profiler's key_averages of fn(), its wall seconds). The
+    CUDA activity alone records the kernels, the device copies and the
+    CUDA runtime calls (launches, syncs, blocking copies), which is all
+    phase_profile reads; the CPU activity's operator events would only
+    slow the trace's processing (phase_profile_sees_syncs shows the syncs
+    and copies are seen)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return prof.key_averages(), wall
+
+
+def copies_of(events) -> dict:
+    """The host copies and syncs among profiler events (COPY_KEYS)."""
+    count = lambda pred: sum(e.count for e in events if pred(e.key))
+    return dict(
+        memcpy_htod=count(lambda k: "Memcpy HtoD" in k),
+        memcpy_dtoh=count(lambda k: "Memcpy DtoH" in k),
+        stream_syncs=count(lambda k: k.startswith("cudaStreamSynchronize")),
+        blocking_memcpy_calls=count(lambda k: k in ("cudaMemcpy",
+                                                    "cudaMemcpy2D")),
+        memcpy_dtod=count(lambda k: "Memcpy DtoD" in k))
+
+
+def phase_profile_sees_syncs():
+    """The host-copy and sync gate is not blind: a function that copies
+    to the card, reads a value back (a device-to-host copy and a stream
+    sync) and copies a pinned tensor back synchronously shows each under
+    `profiled`."""
+    import torch
+
+    def syncing():
+        x = torch.tensor([1.0, 2.0], device=DEVICE)
+        float(x.sum())
+        torch.empty(2, pin_memory=True).copy_(x)
+
+    copies = copies_of(profiled(syncing)[0])
+    log(f"profiler sees a syncing function's host copies and syncs: "
+        f"{copies}")
+    for k in ("memcpy_htod", "memcpy_dtoh", "stream_syncs"):
+        check(copies[k] > 0, f"the profiler missed {k}: {copies}")
+
+
 def phase_profile(r, state, frame=None, label: str = "frame"):
     """One more frame under torch.profiler (`r.step(state)`, or `frame()`
     where given): device time by kernel, the number of kernels, the
@@ -743,39 +836,25 @@ def phase_profile(r, state, frame=None, label: str = "frame"):
     sync: a replay's camera and state hand-over). The profiler's own
     overhead inflates the wall time; the busy time is the kernels'."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     frame = frame or (lambda: r.step(state))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        frame()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
-    events = prof.key_averages()
+    events, wall = profiled(frame)
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
                and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in kernels) / 1e3
     n = sum(e.count for e in kernels)
     of = lambda name: sum(dev_us(e) for e in kernels if name in e.key) / 1e3
-    trav, atr = of("traverse_kernel"), of("atrous_")
+    trav, atr = of("traverse_kernel") + of("tlas_kernel"), of("atrous_")
+    march = of("heightmap_kernel")
     # the radiance cache's sums: index_put_'s sort path (a radix sort of
     # the slots, then one segmented sum a slot)
     scatter = of("indexing_backward") + of("RadixSort")
-    count = lambda pred: sum(e.count for e in events if pred(e.key))
-    copies = dict(
-        memcpy_htod=count(lambda k: "Memcpy HtoD" in k),
-        memcpy_dtoh=count(lambda k: "Memcpy DtoH" in k),
-        stream_syncs=count(lambda k: k.startswith("cudaStreamSynchronize")),
-        blocking_memcpy_calls=count(lambda k: k in ("cudaMemcpy",
-                                                    "cudaMemcpy2D")),
-        memcpy_dtod=count(lambda k: "Memcpy DtoD" in k))
+    copies = copies_of(events)
     log(f"profiled {label}: wall {wall * 1e3:.1f} ms, {n} kernels, device "
         f"busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of wall), "
         f"traversal {trav:.3f} ms ({100 * trav / busy:.1f}% of busy), "
         f"a-trous {atr:.3f} ms ({100 * atr / busy:.2f}% of busy), "
+        f"heightmap march {march:.3f} ms, "
         f"index_put sort and sums {scatter:.3f} ms; host copies and syncs: "
         f"{copies}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
@@ -784,14 +863,15 @@ def phase_profile(r, state, frame=None, label: str = "frame"):
         check(copies[k] == 0, f"profiled {label}: {copies[k]} {k}")
     return dict(kernels=n, busy_ms=busy, wall_ms=wall * 1e3,
                 traversal_ms=trav, atrous_ms=atr, scatter_ms=scatter,
+                heightmap_ms=march,
                 **copies)
 
 
-def moved_camera(cam):
-    """cam with its eye 0.05 along x (made on the card)."""
+def moved_camera(cam, dx: float = 0.05):
+    """cam with its eye dx along x (made on the card)."""
     from truetrace_tpu_torch.scene.ir import Camera
     c2w = cam.c2w.clone()
-    c2w[3, 0] += 0.05
+    c2w[3, 0] += dx
     return Camera(c2w=c2w, fov_y=cam.fov_y, aperture=cam.aperture,
                   focus_dist=cam.focus_dist)
 
@@ -1271,6 +1351,111 @@ def glass_cornell_host(mesh_cls, mat_cls, make_cornell, prim,
                      mid.astype(np.int32))], mats, cam
 
 
+# the forest frame: an instanced scene (trees and moving lanterns scattered
+# over a heightfield terrain) under the baked physical sky, traced with the
+# two-level traversal; the lanterns bob between frames
+# The full-size forest samples its lanterns by the power CDF: every
+# lantern move rebuilds the light BVH on the host (as the JAX package's
+# update_instance_transforms does), which over its 10,752 world light rows
+# takes about a minute (scripts/torch_forest_build.py), and the forest
+# path moves them 23 times. The small forests (phase_forest_card_vs_cpu,
+# tests/test_torch_forest.py, the card tests) take the light tree.
+FOREST = dict(FRAME, traversal="tlas", light_sampling="cdf")
+FOREST_TREE = dict(FOREST, light_sampling="tree")
+FOREST_SIZE = dict(n_hm=257, n_trees=2048, n_lanterns=64)
+FOREST_SKY = dict(sun_dir=(0.4, 0.5, 0.3), sun_irradiance=25.0)
+FOREST_BOB = 0.05       # the lanterns' bob (world units)
+FOREST_MATS = (dict(base_color=(0.35, 0.45, 0.2), roughness=0.9),     # grass
+               dict(base_color=(0.45, 0.38, 0.3), roughness=0.95),    # dirt
+               dict(base_color=(0.3, 0.2, 0.12), roughness=0.8),      # bark
+               dict(base_color=(0.15, 0.4, 0.12), roughness=0.6,
+                    sheen=0.3),                                       # leaves
+               dict(base_color=(0.0, 0.0, 0.0), emission=(6.0, 4.0, 2.0)))
+
+
+def forest_host(mesh_cls, mat_cls, prim, terrain_mod, n_hm: int = 257,
+                n_trees: int = 2048, n_lanterns: int = 64):
+    """The forest from one package's HostMesh / HostMaterial, primitives
+    and scene.terrain module (the port's here; tests/test_torch_forest.py
+    builds the JAX package's from the same numbers): a demo_hills terrain
+    (64 x 64 world units, heights to 6, grass and dirt blended by a
+    slope-based alphamap as scripts/demo.py scene 4 makes one), source 0
+    a tree (cylinder(24, 8) bark trunk, uv_sphere(24, 36) leaf crown),
+    source 1 an emissive lantern (uv_sphere(8, 12, radius=0.25)),
+    n_trees trees and n_lanterns lanterns scattered on the terrain (the
+    lanterns raised 1.5). Returns (sources, materials, instances,
+    (heightmap, make_terrain's keyword arguments), camera (eye, target,
+    fov_y_deg))."""
+    hm = terrain_mod.demo_hills(n_hm, seed=4)
+    k = max(n_hm // 16, 1)
+    slope = np.maximum(np.abs(np.gradient(hm, axis=0)),
+                       np.abs(np.gradient(hm, axis=1)))
+    am = np.zeros((16, 16, 4), np.float32)
+    am[..., 1] = np.clip(slope[::k, ::k][:16, :16] * 40 * k, 0, 1)
+    am[..., 0] = 1.0 - am[..., 1]
+    ter = dict(origin=(-32.0, 0.0, -32.0), size_xz=(64.0, 64.0),
+               mat_ids=[0, 1], alphamap=am, height_scale=6.0)
+    tv, ti, _ = prim.cylinder(24, 8, radius=0.15, height=1.6)
+    cv, ci, _ = prim.uv_sphere(24, 36, radius=0.9)
+    tree = mesh_cls(
+        np.concatenate([tv, prim.transform(cv, translate=(0, 2.1, 0))]
+                       ).astype(np.float32),
+        np.concatenate([ti, ci + len(tv)]).astype(np.int32),
+        np.concatenate([np.full(len(ti), 2), np.full(len(ci), 3)]
+                       ).astype(np.int32))
+    lv, li, _ = prim.uv_sphere(8, 12, radius=0.25)
+    lantern = mesh_cls(lv.astype(np.float32), li.astype(np.int32),
+                       np.full(len(li), 4, np.int32))
+    place = dict(origin=ter["origin"], size_xz=ter["size_xz"],
+                 height_scale=ter["height_scale"])
+    trees = terrain_mod.scatter_on_terrain(hm, n=n_trees, seed=3,
+                                           max_slope=1.0, **place)
+    lanterns = terrain_mod.scatter_on_terrain(hm, n=n_lanterns, source_id=1,
+                                              seed=5, **place)
+    for _, m in lanterns:
+        m[3, 1] += 1.5
+    mats = [mat_cls(**m) for m in FOREST_MATS]
+    return ([tree, lantern], mats, trees + lanterns, (hm, ter),
+            ((0.0, 14.0, 30.0), (0.0, 3.0, 0.0), 50.0))
+
+
+def forest_bob(instances, frame: int):
+    """The instances with every lantern (source 1) moved up by FOREST_BOB
+    sin(frame + its index): their per-frame motion."""
+    out = []
+    for i, (src, m) in enumerate(instances):
+        if src == 1:
+            m = m.copy()
+            m[3, 1] += FOREST_BOB * np.sin(frame + i)
+        out.append((src, m))
+    return out
+
+
+def forest_scene(device: str, sky=None, with_light_bvh: bool = False,
+                 **size):
+    """forest_host's scene compiled by the port on `device`, its terrain
+    attached (with the light BVH over the lanterns' world light rows
+    where asked): (scene, InstancedScene, materials, instances,
+    camera)."""
+    import dataclasses
+    from truetrace_tpu_torch.scene import primitives, terrain
+    from truetrace_tpu_torch.scene.atmosphere import bake_sky_env
+    from truetrace_tpu_torch.scene.instances import compile_scene_instanced
+    from truetrace_tpu_torch.scene.ir import Camera
+    from truetrace_tpu_torch.scene.mesh import HostMaterial, HostMesh
+    sources, mats, inst, (hm, ter), (eye, target, fov) = forest_host(
+        HostMesh, HostMaterial, primitives, terrain, **size)
+    if sky is None:
+        sky = bake_sky_env(**FOREST_SKY, device=device)
+    scene, isc = compile_scene_instanced(sources, mats, inst, env=sky,
+                                         with_light_bvh=with_light_bvh,
+                                         device=device)
+    scene = dataclasses.replace(
+        scene, terrain=terrain.make_terrain(hm, device=device, **ter))
+    cam = Camera.look_at(eye, target, fov_y_deg=fov, device=device)
+    return scene, isc, mats, inst, cam
+
+
 def analytic_lights_host(lo, hi, counts=(4, 4, 4, 3, 1), seed: int = 0):
     """numpy fields of AnalyticLights (either package's from_numpy or
     constructor takes them) for counts[i] lights of each kind, in this
@@ -1394,9 +1579,9 @@ def phase_transmit_glass(results, scene, cam):
     seen = []
     orig = pathtrace._transmission
 
-    def grab(sc, ro, rd, tm):
+    def grab(sc, ro, rd, tm, cfg):
         seen.append((ro.clone(), rd.clone(), tm.clone()))
-        return orig(sc, ro, rd, tm)
+        return orig(sc, ro, rd, tm, cfg)
 
     r = make_renderer(scene, cam, GLASS)
     pathtrace._transmission = grab
@@ -1844,7 +2029,7 @@ def render_image(scene, cam, W: int, H: int, spp: int, base: int = 0,
     import torch
     from truetrace_tpu_torch.integrate.pathtrace import (
         RenderConfig, render_sample_with_stats)
-    c = RenderConfig(width=W, height=H, traversal="wavefront", **cfg)
+    c = RenderConfig(width=W, height=H, **{"traversal": "wavefront", **cfg})
     acc = torch.zeros((W * H, 3), device=scene.device)
     for s0 in range(0, spp, 256):
         b = min(256, spp - s0)
@@ -2105,6 +2290,800 @@ def phase_modes_card_vs_cpu(results):
         f"frames: display shares within 1e-3 "
         f"{ {k: [round(x, 4) for x in v['display_share']] for k, v in out.items()} }")
     results["modes_card_vs_cpu"] = out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: instanced scenes and terrain (the forest frame)
+# ---------------------------------------------------------------------------
+
+OPS_ENTER = 40        # an instance entry: 2 x 3 W2L rows (fma) and the
+                      # translation, the squared length, sqrt, 3 divisions,
+                      # 3 reciprocals and the push
+OPS_HM_SAMPLE = 37    # one bilinear height sample of the march: the grid
+                      # coordinates (10), weights (6), the blend (9), the
+                      # ray point and f (7), the step and the sign test (5)
+
+
+def tinted_tlas_host(mesh_cls, mat_cls, make_transform):
+    """tests/test_tlas_transmit.py's instanced scene (a floor, two red
+    glass panes, a cut-out pane and a light, the glass sources shared)
+    from one package's classes: (sources, materials, instances, camera
+    (eye, target, fov_y_deg))."""
+    def quad(y, half, mat):
+        pos = np.array([[-half, y, -half], [half, y, -half],
+                        [half, y, half], [-half, y, half]], np.float32)
+        return mesh_cls(pos, np.array([[0, 2, 1], [0, 3, 2]], np.int32),
+                        np.full(2, mat, np.int32))
+    mats = [mat_cls(base_color=(0.7, 0.7, 0.7)),
+            mat_cls(base_color=(0.9, 0.15, 0.1), alpha=1.0, spec_trans=1.0),
+            mat_cls(base_color=(0.2, 0.9, 0.3), alpha=0.35, spec_trans=1.0),
+            mat_cls(emission=(10.0, 10.0, 10.0))]
+    sources = [quad(0.0, 1.0, 1), quad(0.0, 1.0, 2), quad(0.0, 4.0, 0),
+               quad(0.0, 0.5, 3)]
+    inst = [(2, make_transform((0, 0, 0))),
+            (0, make_transform((0.0, 1.0, 0.0), rot_y=0.3)),
+            (0, make_transform((0.3, 1.8, 0.2), rot_y=-0.5, scale=0.7)),
+            (1, make_transform((-0.2, 2.4, -0.1), rot_y=0.9)),
+            (3, make_transform((0.0, 3.2, 0.0)))]
+    return sources, mats, inst, ((0.0, 1.4, 4.5), (0.0, 0.8, 0.0), 45.0)
+
+
+def flatten_instances(mesh_cls, sources, instances):
+    """The world-space meshes of an instanced scene (one per instance)."""
+    return [mesh_cls((sources[s].positions @ m[:3, :3] + m[3, :3]).astype(
+        np.float32), sources[s].indices, sources[s].mat_id)
+        for s, m in instances]
+
+
+def tinted_tlas_scene(device: str, flat: bool = False, env=None):
+    """tinted_tlas_host's scene compiled by the port (instanced, or
+    flattened into one BLAS), under `env` where given (its light quad
+    faces up: without a sky the camera sees no light): (scene,
+    camera)."""
+    from truetrace_tpu_torch.scene.instances import (
+        compile_scene_instanced, make_transform)
+    from truetrace_tpu_torch.scene.ir import Camera
+    from truetrace_tpu_torch.scene.mesh import (
+        HostMaterial, HostMesh, compile_scene)
+    sources, mats, inst, (eye, target, fov) = tinted_tlas_host(
+        HostMesh, HostMaterial, make_transform)
+    cam = Camera.look_at(eye, target, fov_y_deg=fov, device=device)
+    if flat:
+        return compile_scene(flatten_instances(HostMesh, sources, inst),
+                             mats, env=env, with_cwbvh=True,
+                             device=device), cam
+    return compile_scene_instanced(sources, mats, inst, env=env,
+                                   device=device)[0], cam
+
+
+def terrain_demo_scene(device: str, sky=None):
+    """scripts/demo.py scene 4 built by the port: the hills terrain (grass
+    and dirt by slope), a normal-mapped sphere and a matcap sphere under
+    the baked sky, compiled with its CWBVH: (scene, camera)."""
+    from truetrace_tpu_torch.scene.atlas import AtlasBuilder
+    from truetrace_tpu_torch.scene.atmosphere import bake_sky_env
+    from truetrace_tpu_torch.scene.ir import Camera
+    from truetrace_tpu_torch.scene.mesh import (
+        HostMaterial, HostMesh, compile_scene)
+    from truetrace_tpu_torch.scene.primitives import transform, uv_sphere
+    from truetrace_tpu_torch.scene.terrain import demo_hills, make_terrain
+    builder = AtlasBuilder()
+    n = 64
+    yy, xx = np.mgrid[0:n, 0:n] / n * 8 * np.pi
+    hgt = 0.35 * np.sin(xx) * np.sin(yy)
+    gx, gy = np.gradient(hgt, axis=1), np.gradient(hgt, axis=0)
+    nz = 1.0 / np.sqrt(1 + gx ** 2 + gy ** 2)
+    nm_id = builder.add((np.stack([-gx * nz, -gy * nz, nz], -1) * 0.5
+                         + 0.5).astype(np.float32))
+    vv, uu = np.mgrid[0:n, 0:n] / (n - 1) * 2 - 1
+    r2 = uu ** 2 + vv ** 2
+    mc = (np.clip(0.8 - 0.6 * vv, 0, 1)[..., None] * np.array([1.0, 0.85, 0.6])
+          + np.clip(r2 - 0.5, 0, 1)[..., None] * np.array([0.1, 0.2, 0.5]))
+    mc_id = builder.add(mc.astype(np.float32))
+    atlas, rects, level_y = builder.build()
+    hm = demo_hills(97, seed=4)
+    mats = [HostMaterial(base_color=(0.35, 0.45, 0.2), roughness=0.9),
+            HostMaterial(base_color=(0.45, 0.38, 0.3), roughness=0.95),
+            HostMaterial(base_color=(0.8, 0.3, 0.2), roughness=0.35,
+                         tex_normal=nm_id),
+            HostMaterial(base_color=(1.0, 1.0, 1.0), metallic=1.0,
+                         roughness=0.2, tex_matcap=mc_id)]
+    am = np.zeros((16, 16, 4), np.float32)
+    slope = np.maximum(np.abs(np.gradient(hm, axis=0)),
+                       np.abs(np.gradient(hm, axis=1)))
+    am[..., 1] = np.clip(slope[::6, ::6][:16, :16] * 40, 0, 1)
+    am[..., 0] = 1.0 - am[..., 1]
+    ter = make_terrain(hm, origin=(-8, 0, -8), size_xz=(16, 16),
+                       mat_ids=[0, 1], alphamap=am, height_scale=2.2,
+                       device=device)
+    sv, si, _ = uv_sphere(20, 30, radius=0.9)
+    nrm = sv / np.linalg.norm(sv, axis=-1, keepdims=True)
+    uv = np.stack([np.arctan2(nrm[:, 2], nrm[:, 0]) / (2 * np.pi) + 0.5,
+                   nrm[:, 1] * 0.5 + 0.5], -1).astype(np.float32)
+    spheres = [HostMesh(transform(sv, translate=t), si,
+                        np.full(len(si), mid, np.int32), uvs=uv)
+               for t, mid in (((-1.6, 2.6, 0.5), 2), ((1.6, 2.8, -0.5), 3))]
+    if sky is None:
+        sky = bake_sky_env(**FOREST_SKY, device=device)
+    scene = compile_scene(spheres, mats, env=sky, atlas=atlas,
+                          atlas_rects=rects, atlas_level_y=level_y,
+                          terrain=ter, with_cwbvh=True, device=device)
+    return scene, Camera.look_at((0.0, 4.5, 9.5), (0, 1.8, 0),
+                                 fov_y_deg=45, device=device)
+
+
+def grab_rays(r, state, names=("_trace", "_occluded_mesh")):
+    """The rays one eager frame of renderer r hands pathtrace's `names`
+    (ro, rd and the third argument, cloned), per name in call order."""
+    from truetrace_tpu_torch.integrate import pathtrace
+    seen = {n: [] for n in names}
+    orig = {n: getattr(pathtrace, n) for n in names}
+
+    def wrap(n):
+        def f(scene, ro, rd, third, cfg):
+            seen[n].append((ro.clone(), rd.clone(), third.clone()))
+            return orig[n](scene, ro, rd, third, cfg)
+        return f
+
+    for n in names:
+        setattr(pathtrace, n, wrap(n))
+    try:
+        r.step(state)
+    finally:
+        for n in names:
+            setattr(pathtrace, n, orig[n])
+    return seen
+
+
+def tlas_work(counts: dict, R: int, W: int) -> dict:
+    """Per-ray work of the two-level traversal (the plain version's
+    counts) and its bound: decodes, triangle tests and instance entries
+    at OPS_NODE / OPS_TRI / OPS_ENTER (+ OPS_TINT a tinted triangle), the
+    touched table rows read once, 48 bytes a walked ray (origin,
+    direction, t_max in; t, tri, u, v, inst out; transmittance: 40) and
+    24 a dead one (16)."""
+    nd, lr, tt, ne = (float(counts[f].sum()) for f in (
+        "node_decodes", "leaf_rows", "tri_tests", "inst_entries"))
+    live = counts["live_rays"]
+    out = dict(node_decodes_per_ray=nd / R, leaf_rows_per_ray=lr / R,
+               tri_tests_per_ray=tt / R, inst_entries_per_ray=ne / R,
+               rows_touched=counts["rows_touched"], live_share=live / R)
+    ops = OPS_NODE * nd + OPS_TRI * tt + OPS_ENTER * ne
+    nbytes = 4 * W * counts["rows_touched"]
+    if "accepted" in counts:
+        acc = float(counts["accepted"].sum())
+        out.update(tinted_per_ray=acc / R, tint_rows=counts["tint_rows"])
+        return dict(out, **bound(ops + OPS_TINT * acc, nbytes + 40 * live
+                                 + 16 * (R - live) + 12 * counts["tint_rows"]))
+    return dict(out, **bound(ops, nbytes + 48 * live + 24 * (R - live)))
+
+
+def hm_work(counts: dict, R: int, grid: int, closest: bool) -> dict:
+    """Per-ray work of the march (the plain version's sample counts) and
+    its bound: OPS_HM_SAMPLE a sample, the height grid read once, 28
+    bytes a ray in and 25 (closest: t, valid, normal, uv) or 1 out."""
+    n = float(counts["samples"].sum())
+    return dict(samples_per_ray=n / R,
+                march_steps_per_ray=float(counts["march_steps"].sum()) / R,
+                **bound(OPS_HM_SAMPLE * n,
+                        4 * grid + R * (28 + (25 if closest else 1))))
+
+
+def hold_tlas(scene, ro, rd, tm, label: str, query: str, tint=None,
+              time_it=False):
+    """A TLAS kernel against its plain version, bit for bit, on one ray
+    set (query "closest", "any" or "transmit"). With `time_it` the plain
+    run also counts the work (which sets the bound) and is timed once
+    (with its counters: the plain version runs once a ray set, ~7 s at
+    262144 lanes), and the kernel's device time is measured."""
+    import torch
+    from truetrace_tpu_torch.kernels import cwbvh_tlas as K
+    a = (scene.cw_table(), scene.cw_nodes.shape[0],
+         scene.cw_leaf_rows.shape[0])
+    R = ro.shape[0]
+    kernel, plain = dict(
+        closest=(K.closest_hit_tlas, K.closest_hit_tlas_plain),
+        any=(K.any_hit_tlas, K.any_hit_tlas_plain),
+        transmit=(K.transmit_tlas, K.transmit_tlas_plain))[query]
+    a = a + ((tint,) if query == "transmit" else ())
+    run = lambda: kernel(*a, ro, rd, tm)
+    counts = {} if time_it else None
+    got = run()
+    want, plain_ms = timed_once(lambda: plain(*a, ro, rd, tm,
+                                              counts=counts))
+    if query == "closest":
+        (hk, ik), (hp, ip) = got, want
+        for f in ("t", "tri", "u", "v"):
+            check(torch_equal_bits(getattr(hk, f), getattr(hp, f)),
+                  f"closest_hit_tlas {label}: {f} differs from plain")
+        check(torch.equal(ik, ip), f"closest_hit_tlas {label}: inst differs")
+        err, share = max_abs_diff(hk.t, hp.t), float((hk.tri >= 0).float()
+                                                     .mean())
+    elif query == "any":
+        check(torch.equal(got, want), f"any_hit_tlas {label}: occlusion "
+              f"differs on {int((got != want).sum())} of {R} rays")
+        err, share = max_abs_diff(got.float(), want.float()), float(
+            got.float().mean())
+    else:
+        check(torch_equal_bits(got, want), f"transmit_tlas {label}: "
+              f"differs from plain on {int((got != want).any(-1).sum())} "
+              f"of {R} rays")
+        err = max_abs_diff(got, want)
+        share = float(((want > 0) & (want < 1)).any(-1).float().mean())
+    out = dict(rays=R, max_abs_err=err, share=share)
+    line = (f"{query} tlas {label}: bit for bit equal to plain on {R} rays "
+            f"({share:.3f} {'hit' if query != 'transmit' else 'in part'})")
+    if time_it:
+        work = tlas_work(counts, R, a[0].shape[1])
+        out.update(work=work, ms=device_ms(run, 20), plain_ms=plain_ms,
+                   bound_ms=work["bound_ms"], bound_by=work["bound_by"])
+        out["share_of_bound"] = work["bound_ms"] / out["ms"]
+        line += (f"; per ray {work['node_decodes_per_ray']:.2f} decodes, "
+                 f"{work['leaf_rows_per_ray']:.2f} leaf rows, "
+                 f"{work['tri_tests_per_ray']:.2f} triangle tests, "
+                 f"{work['inst_entries_per_ray']:.2f} instance entries; "
+                 f"kernel {out['ms']:.4f} ms, plain {plain_ms:.1f} ms, bound "
+                 f"{out['bound_ms']:.5f} ms ({out['bound_by']}) = "
+                 f"{out['share_of_bound']:.3f} of the kernel's time")
+    log(line)
+    return out
+
+
+def hold_heightmap(ter, ro, rd, tm, label: str, closest: bool,
+                   time_it=False):
+    """heightmap_closest / heightmap_any against the plain march, bit for
+    bit (t, valid, normal, uv / valid); the plain run counts the samples
+    and, with `time_it`, is timed once beside the kernel's device time."""
+    import torch
+    from truetrace_tpu_torch.kernels import heightmap as K
+    R = ro.shape[0]
+    counts = {}
+    kernel, plain = ((K.heightmap_closest, K.heightmap_closest_plain)
+                     if closest else (K.heightmap_any, K.heightmap_any_plain))
+    run = lambda: kernel(ter, ro, rd, tm)
+    got = run()
+    want, plain_ms = timed_once(lambda: plain(ter, ro, rd, tm,
+                                              counts=counts))
+    if closest:
+        check(torch.equal(got.valid, want.valid), f"heightmap_closest "
+              f"{label}: valid differs on "
+              f"{int((got.valid != want.valid).sum())} rays")
+        for f in ("t", "normal", "uv"):
+            check(torch_equal_bits(getattr(got, f), getattr(want, f)),
+                  f"heightmap_closest {label}: {f} differs from plain")
+        err, share = max_abs_diff(got.t, want.t), float(got.valid.float()
+                                                         .mean())
+    else:
+        check(torch.equal(got, want), f"heightmap_any {label}: differs on "
+              f"{int((got != want).sum())} rays")
+        err, share = 0.0, float(got.float().mean())
+    work = hm_work(counts, R, ter.hm_shape[0] * ter.hm_shape[1], closest)
+    out = dict(rays=R, max_abs_err=err, share=share, work=work)
+    if time_it:
+        out.update(ms=device_ms(run, 20), plain_ms=plain_ms,
+                   bound_ms=work["bound_ms"], bound_by=work["bound_by"])
+        out["share_of_bound"] = work["bound_ms"] / out["ms"]
+    log(f"heightmap {'closest' if closest else 'any'} {label}: bit for bit "
+        f"equal to plain on {R} rays ({share:.3f} hit); "
+        f"{work['samples_per_ray']:.1f} samples a ray"
+        + (f"; kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.1f} ms, "
+           f"bound {out['bound_ms']:.5f} ms ({out['bound_by']}) = "
+           f"{out['share_of_bound']:.3f} of the kernel's time"
+           if time_it else ""))
+    return out
+
+
+def phase_forest_kernels(results, scene, cam):
+    """Every new kernel against its plain version on the forest frame's
+    own rays (one eager frame at 262144 lanes, its rays grabbed): each
+    bounce's closest-hit rays (the TLAS closest hit, and the march with
+    the TLAS hit's t as its t_max, as the frame runs it) and NEE shadow
+    rays (the TLAS any hit and the march's any hit), all bit for bit, and
+    bounce 0's NEE rays through the transmittance with a tint table of
+    zeros and one that passes every third triangle at 0.8 (bit for bit;
+    the transmittance is timed on its own frame's rays,
+    phase_tinted_tlas); bounce 0's timed (device_ms, the plain version
+    once) and bounded from the plain version's counted work."""
+    import torch
+    from truetrace_tpu_torch.integrate.pathtrace import T_MAX
+    from truetrace_tpu_torch.kernels.cwbvh_tlas import closest_hit_tlas
+    r = make_renderer(scene, cam, FOREST)
+    seen = grab_rays(r, r.init_state())
+    ter = scene.terrain
+    T = scene.n_tris()
+    tints = {"opaque": torch.zeros((T, 3), device=scene.device),
+             "pass_third": torch.where((torch.arange(
+                 T, device=scene.device) % 3 == 0)[:, None], 0.8, 0.0)
+             .expand(T, 3).contiguous()}
+    table, C, L = scene.cw_table(), scene.cw_nodes.shape[0], \
+        scene.cw_leaf_rows.shape[0]
+    res = {}
+    for b, (ro, rd, alive) in enumerate(seen["_trace"]):
+        tm = torch.where(alive, T_MAX, 0.0)
+        first = b == 0
+        c = hold_tlas(scene, ro, rd, tm, f"bounce {b}", "closest",
+                      time_it=first)
+        hit, _ = closest_hit_tlas(table, C, L, ro, rd, tm)
+        h = hold_heightmap(ter, ro, rd, hit.t, f"bounce {b}", True,
+                           time_it=first)
+        if first:
+            res["closest_hit_tlas"], res["heightmap_closest"] = c, h
+    for b, (ro, rd, tm) in enumerate(seen["_occluded_mesh"]):
+        first = b == 0
+        a = hold_tlas(scene, ro, rd, tm, f"NEE bounce {b}", "any",
+                      time_it=first)
+        h = hold_heightmap(ter, ro, rd, tm, f"NEE bounce {b}", False,
+                           time_it=first)
+        if first:
+            res["any_hit_tlas"], res["heightmap_any"] = a, h
+            res["transmit_tlas_forest"] = {
+                name: hold_tlas(scene, ro, rd, tm, f"NEE bounce {b} {name}",
+                                "transmit", tint=tint)
+                for name, tint in tints.items()}
+    check(len(seen["_trace"]) == FOREST["bounces"]
+          and len(seen["_occluded_mesh"]) == FOREST["bounces"],
+          "forest frame: not one closest-hit and one NEE call a bounce")
+    check(res["transmit_tlas_forest"]["pass_third"]["share"] > 0.001,
+          "transmit_tlas: the pass-through table passes no ray in part")
+    results.update(res)
+
+
+def forest_updates(scene, isc, mats, inst, n: int):
+    """n scenes with the lanterns bobbed by forest_bob(frame 1..n), each
+    made by update_instance_transforms on the host (timed: update_s) with
+    its traversal table packed; the TLAS keeps its node count."""
+    import torch
+    from truetrace_tpu_torch.scene.instances import update_instance_transforms
+    scenes, times = [], []
+    for k in range(1, n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sk, _ = update_instance_transforms(scene, isc, mats,
+                                           forest_bob(inst, k))
+        sk.cw_table()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        scenes.append(sk)
+    return scenes, times
+
+
+def phase_forest(results, scene, isc, mats, inst, cam):
+    """The forest frame (FOREST, 512x512x4): the lanterns bob and the
+    camera moves along x between frames, each frame handed its scene
+    (Renderer.step(scene=, cam=, cam_moved=True)): 1 warm-up and FRAMES -
+    1 timed eager frames with every kernel's launch count set to 0 just
+    before and read just after; two frames under the sync debug mode; one
+    profiled; then the frame as CUDA graphs (graph_step(cam_moved=True)):
+    four frames over three lantern updates bit for bit the eager ones
+    with one capture (every later update copied into the captured scene
+    on the device), eager and replayed frames timed in turns, replays
+    under the sync debug mode and the profiler. update_s: the host's
+    update_instance_transforms, outside every frame time."""
+    import torch
+    from truetrace_tpu_torch.renderer import _tensors
+    n = 3 * FRAMES + 8        # the frames below, each with its own scene
+    scenes, upd = forest_updates(scene, isc, mats, inst, n)
+    cams = [moved_camera(cam, 0.05 * k) for k in range(n)]
+    it = iter(range(n))
+    r = make_renderer(scene, cam, FOREST)
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    state = r.init_state()
+    times = []
+    for f in range(FRAMES):
+        k = next(it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        display, accum, state = r.step(state, cam=cams[k], cam_moved=True,
+                                       scene=scenes[k])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    H, W = FOREST["height"], FOREST["width"]
+    check(tuple(display.shape) == (H, W, 3)
+          and bool(torch.isfinite(display).all())
+          and float(display.min()) >= 0.0 and float(display.max()) <= 1.0,
+          "forest display not finite in [0, 1]")
+    mean = float(accum.mean())
+    check(bool(torch.isfinite(accum).all()) and mean > 1e-3,
+          f"forest radiance mean {mean}")
+    for name in PATHS["forest"]:
+        check(launches[name] > 0, f"{name} never launched on the forest path")
+    ms = 1e3 * sum(times[1:]) / (FRAMES - 1)
+    log(f"frame forest {H}x{W}x{FOREST['bounces']} svgf ({len(inst)} "
+        f"instances, terrain, lanterns bobbing): warm-up "
+        f"{times[0] * 1e3:.1f} ms, frames "
+        f"{[round(t * 1e3, 1) for t in times[1:]]} ms -> mean "
+        f"{ms:.1f} ms; radiance mean {mean:.4f}; update_s "
+        f"{[round(u, 4) for u in upd[:FRAMES]]}")
+    log(f"launches over the forest path's {FRAMES} frames: {launches}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            k = next(it)
+            _, _, state = r.step(state, cam=cams[k], cam_moved=True,
+                                 scene=scenes[k])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("forest: two frames (each moving the camera and the lanterns) "
+        "under set_sync_debug_mode('error'): no host copy or sync")
+    k = next(it)
+    prof = phase_profile(r, state, lambda: r.step(
+        state, cam=cams[k], cam_moved=True, scene=scenes[k]), "forest frame")
+    del r, state
+
+    re, rg = make_renderer(scene, cam, FOREST), make_renderer(scene, cam,
+                                                              FOREST)
+    gm = rg.graph_step(cam_moved=True)
+    se, sg = re.init_state(), rg.init_state()
+    for i in range(4):
+        k = next(it)
+        de, ae, se = re.step(se, cam=cams[k], cam_moved=True,
+                             scene=scenes[k])
+        dg, ag, sg = gm(sg, cam=cams[k], scene=scenes[k])
+        te, tg = dict(_tensors(se)), dict(_tensors(sg))
+        check(te.keys() == tg.keys(), "forest: state fields differ")
+        for what, a, b in [("display", de, dg), ("radiance", ae, ag)] + [
+                (key, te[key], tg[key]) for key in te]:
+            check(torch_equal_bits(a, b), f"forest frame {i + 1}: the "
+                  f"replayed {what} differs from the eager one")
+    check(gm.captures == 1, f"forest: {gm.captures} captures over three "
+          f"lantern updates")
+    log("forest graph: four frames over three lantern updates (the first "
+        "eager, one capture, two replays of copied-in scenes) bit for bit "
+        "equal to Renderer.step's display, radiance and state")
+    eager, replay, replay_dev = [], [], []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for _ in range(FRAMES - 1):
+        k = next(it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, se = re.step(se, cam=cams[k], cam_moved=True, scene=scenes[k])
+        torch.cuda.synchronize()
+        eager.append(time.perf_counter() - t0)
+        k = next(it)
+        t0 = time.perf_counter()
+        ev[0].record()
+        _, _, sg = gm(sg, cam=cams[k], scene=scenes[k])
+        ev[1].record()
+        torch.cuda.synchronize()
+        replay.append(time.perf_counter() - t0)
+        replay_dev.append(ev[0].elapsed_time(ev[1]))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            k = next(it)
+            _, _, sg = gm(sg, cam=cams[k], scene=scenes[k])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    k = next(it)
+    gprof = phase_profile(None, None, lambda: gm(sg, cam=cams[k],
+                                                 scene=scenes[k]),
+                          "forest replay")
+    check(gm.captures == 1, f"forest: {gm.captures} captures")
+    mean_ms = lambda xs: 1e3 * sum(xs) / len(xs)
+    res = dict(ms=ms, warmup_ms=times[0] * 1e3, mean=mean,
+               eager_ms=mean_ms(eager), replay_ms=mean_ms(replay),
+               replay_device_ms=sum(replay_dev) / len(replay_dev),
+               captures=gm.captures, update_s=upd, profile=gprof,
+               eager_profile=prof, instances=len(inst))
+    log(f"forest {H}x{W}x{FOREST['bounces']}, in turns: eager "
+        f"{res['eager_ms']:.1f} ms/frame, replayed {res['replay_ms']:.1f} "
+        f"ms/frame (device {res['replay_device_ms']:.1f} ms), "
+        f"{res['eager_ms'] / res['replay_ms']:.2f} times, across lantern "
+        f"updates with {gm.captures} capture; update_s mean "
+        f"{sum(upd) / len(upd):.4f} s")
+    results["forest"] = res
+    results["forest_profile"] = prof
+    results["forest_graph"] = dict(
+        eager_ms=res["eager_ms"], replay_ms=res["replay_ms"],
+        replay_device_ms=res["replay_device_ms"], profile=gprof)
+    return launches
+
+
+def phase_tinted_tlas(results):
+    """transmit_tlas's frame: tests/test_tlas_transmit.py's instanced
+    glass scene at FRAME's size with the two-level traversal (NEE shadow
+    rays through the tinted panes) under the forest's sky. First the
+    kernel against its plain version on the frame's own shadow rays (one
+    eager frame, every bounce's rays grabbed, with the scene's shadow
+    tints), bit for bit, bounce 0's timed and bounded from the plain
+    version's counted work; then 1 warm-up and FRAMES - 1 timed frames
+    with the launch counts set to 0 just before and read just after."""
+    from truetrace_tpu_torch.scene.atmosphere import bake_sky_env
+    scene, cam = tinted_tlas_scene(DEVICE, env=bake_sky_env(
+        **FOREST_SKY, device=DEVICE))
+    cfg = dict(FRAME, traversal="tlas", light_sampling="cdf")
+    r = make_renderer(scene, cam, cfg)
+    seen = grab_rays(r, r.init_state(), names=("_transmission",))
+    check(len(seen["_transmission"]) == cfg["bounces"],
+          "tinted frame: not one shadow-ray call a bounce")
+    for b, (ro, rd, tm) in enumerate(seen["_transmission"]):
+        res = hold_tlas(scene, ro, rd, tm, f"tinted bounce {b}", "transmit",
+                        tint=scene.tri_shadow, time_it=b == 0)
+        if b == 0:
+            results["transmit_tlas"] = res
+    check(results["transmit_tlas"]["share"] > 0.001,
+          "transmit_tlas: no shadow ray of the tinted frame passes in part")
+    del r
+    launches, r, state = phase_frame(results, scene, cam, "tinted", cfg)
+    return launches
+
+
+def phase_forest_gates(results):
+    """The JAX package's instancing, object-motion, tinted-TLAS and
+    terrain checks, run with the port on the card:
+    test_instances.py::test_tlas_matches_loop_traversal (against the
+    port's flattened scene, the per-instance loop being unported),
+    test_instanced_render.py (both), test_object_motion.py::
+    test_object_motion_reprojection_beats_camera_only,
+    test_tlas_transmit.py::test_tlas_render_with_tinted_shadows,
+    test_terrain.py::test_hills_match_dense_marching and
+    test_any_hit_consistent."""
+    import dataclasses
+    import torch
+    from truetrace_tpu_torch.integrate.pathtrace import (
+        RenderConfig, render_sample_with_stats)
+    from truetrace_tpu_torch.kernels.cwbvh_tlas import (
+        any_hit_tlas, closest_hit_tlas)
+    from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
+        any_hit_wavefront, closest_hit_wavefront)
+    from truetrace_tpu_torch.kernels.heightmap import (
+        _sample_height, heightmap_any, heightmap_closest)
+    from truetrace_tpu_torch.post.motion import (
+        motion_vectors, motion_vectors_objects)
+    from truetrace_tpu_torch.scene.instances import (
+        compile_scene_instanced, make_transform, update_instance_transforms)
+    from truetrace_tpu_torch.scene.ir import Camera
+    from truetrace_tpu_torch.scene.mesh import (
+        HostMaterial, HostMesh, compile_scene)
+    from truetrace_tpu_torch.scene.primitives import grid, uv_sphere
+    from truetrace_tpu_torch.scene.terrain import demo_hills, make_terrain
+    dev = DEVICE
+    out = {}
+    tf = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    # test_tlas_matches_loop_traversal
+    sv, si, _ = uv_sphere(8, 12, radius=0.5)
+    gv, gi, _ = grid(4, 4, 6.0, 6.0)
+    srcs = [HostMesh(sv, si, np.zeros(len(si), np.int32)),
+            HostMesh(gv, gi, np.ones(len(gi), np.int32))]
+    inst = [(0, make_transform(translate=(-1.5, 0.5, 0.0))),
+            (0, make_transform(translate=(1.2, 0.8, 0.5), rot_y=0.7,
+                               scale=1.6)),
+            (1, make_transform(translate=(0, 0, 0)))]
+    mats2 = [HostMaterial(), HostMaterial()]
+    sc, _ = compile_scene_instanced(srcs, mats2, inst, device=dev)
+    fl = compile_scene(flatten_instances(HostMesh, srcs, inst), mats2,
+                       with_cwbvh=True, device=dev)
+    rng = np.random.default_rng(2)
+    R = 384
+    ro = tf(rng.uniform(-5, 5, (R, 3)))
+    d = rng.normal(size=(R, 3))
+    rd = tf(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    tab = (sc.cw_table(), sc.cw_nodes.shape[0], sc.cw_leaf_rows.shape[0])
+    h_t, i_t = closest_hit_tlas(*tab, ro, rd, 1e30)
+    h_f = closest_hit_wavefront(fl.cw_table(), fl.cw_nodes.shape[0], ro, rd,
+                                1e30, fl.cw_stack)
+    hm_ = h_f.tri >= 0
+    check(torch.equal(hm_, h_t.tri >= 0), "tlas vs flattened: hit masks")
+    check(bool(torch.allclose(h_t.t[hm_], h_f.t[hm_], rtol=2e-4,
+                              atol=2e-4)), "tlas vs flattened: t")
+    check(bool((i_t[hm_] >= 0).all()) and bool((i_t[~hm_] == -1).all()),
+          "tlas: instance ids")
+    tmax = tf(rng.uniform(0.5, 10.0, R))
+    occ_t = any_hit_tlas(*tab, ro, rd, tmax)
+    occ_f = any_hit_wavefront(fl.cw_table(), fl.cw_nodes.shape[0], ro, rd,
+                              tmax, fl.cw_stack)
+    out["tlas_vs_flat_any_agree"] = float((occ_t == occ_f).float().mean())
+    check(out["tlas_vs_flat_any_agree"] > 0.99, "tlas any vs flattened")
+
+    # test_instanced_render.py
+    def box(center=(0, 0, 0), size=(1, 1, 1), mat=0):
+        c = np.asarray(center, np.float32)
+        s = np.asarray(size, np.float32) * 0.5
+        corners = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1)
+                            for z in (-1, 1)], np.float32) * s + c
+        faces = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5],
+                          [0, 4, 5], [0, 5, 1], [2, 3, 7], [2, 7, 6],
+                          [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]],
+                         np.int32)
+        return HostMesh(corners, faces, np.full(12, mat, np.int32))
+
+    def quad(y, half, mat, up=True):
+        pos = np.array([[-half, y, -half], [half, y, -half],
+                        [half, y, half], [-half, y, half]], np.float32)
+        idx = np.array([[0, 2, 1], [0, 3, 2]], np.int32)
+        return HostMesh(pos, idx if up else idx[:, ::-1].copy(),
+                        np.full(2, mat, np.int32))
+    mats = [HostMaterial(base_color=(0.75, 0.75, 0.75)),
+            HostMaterial(base_color=(0.8, 0.2, 0.2)),
+            HostMaterial(emission=(12.0, 11.0, 10.0))]
+    srcs = [box(size=(0.8, 0.8, 0.8), mat=1), quad(0.0, 4.0, 0),
+            quad(0.0, 0.6, 2, up=False)]
+    inst = [(1, make_transform((0, 0, 0))),
+            (0, make_transform((-1.2, 0.4, 0.0), rot_y=0.4)),
+            (0, make_transform((1.1, 0.4, -0.6), rot_y=-0.7, scale=0.8)),
+            (2, make_transform((0.0, 2.5, 0.0), rot_y=0.3))]
+    cam = Camera.look_at((0, 3.0, 6.0), (0, 0.5, 0), fov_y_deg=45,
+                         device=dev)
+    sc_i, isc = compile_scene_instanced(srcs, mats, inst, device=dev)
+    sc_f = compile_scene(flatten_instances(HostMesh, srcs, inst), mats,
+                         with_cwbvh=True, device=dev)
+    kw = dict(bounces=2, bsdf="lambert", light_sampling="cdf")
+    img_i = render_image(sc_i, cam, 32, 32, 48, traversal="tlas", **kw)
+    img_f = render_image(sc_f, cam, 32, 32, 48, **kw)
+    rel = float(abs(img_i.mean() - img_f.mean()) / max(img_f.mean(), 1e-6))
+    close = float(np.mean(np.abs(img_i - img_f).mean(-1)
+                          / np.maximum(img_f.mean(-1), 0.05) < 0.5))
+    check(img_i.mean() > 0 and rel < 0.05 and close > 0.9,
+          f"instanced render vs flattened: mean rel {rel}, close {close}")
+    out["instanced_vs_flat"] = dict(mean_rel=rel, close=close)
+    moved = [(s, m.copy()) for s, m in inst]
+    moved[1] = (0, make_transform((-0.6, 0.7, 0.4), rot_y=1.1))
+    moved[2] = (0, make_transform((1.4, 0.3, 0.2), rot_y=0.2, scale=0.8))
+    sc_u, _ = update_instance_transforms(sc_i, isc, mats, moved)
+    sc_r, _ = compile_scene_instanced(srcs, mats, moved, device=dev)
+    a = render_image(sc_u, cam, 24, 24, 8, traversal="tlas", **kw)
+    b = render_image(sc_r, cam, 24, 24, 8, traversal="tlas", **kw)
+    check(bool(np.allclose(a, b, rtol=1e-4, atol=1e-5)),
+          "update_instance_transforms render differs from the rebuild")
+
+    # test_object_motion_reprojection_beats_camera_only
+    W = H = 48
+    mats_m = [HostMaterial(base_color=(0.7, 0.7, 0.7)),
+              HostMaterial(base_color=(0.9, 0.1, 0.1))]
+    floor = quad(0.0, 4.0, 0)
+    mbox = box(size=(0.8, 0.8, 0.8), mat=1)
+    cam = Camera.look_at((0, 2.5, 5.0), (0, 0.4, 0), fov_y_deg=45,
+                         device=dev)
+    cfg = RenderConfig(width=W, height=H, bounces=1, bsdf="lambert",
+                       traversal="tlas", use_nee=False)
+    pixel = torch.arange(W * H, device=dev)
+    s0, isc0 = compile_scene_instanced(
+        [floor, mbox], mats_m, [(0, make_transform((0, 0, 0))),
+                                (1, make_transform((0.0, 0.4, 0.0)))],
+        device=dev)
+    _, st0 = render_sample_with_stats(s0, cam, cfg, pixel, 0)
+    s1, _ = update_instance_transforms(
+        s0, isc0, mats_m, [(0, make_transform((0, 0, 0))),
+                           (1, make_transform((0.6, 0.4, 0.0)))])
+    _, st1 = render_sample_with_stats(s1, cam, cfg, pixel, 0)
+    alb0 = st0["albedo"].reshape(H, W, 3).cpu().numpy()
+    alb1 = st1["albedo"].reshape(H, W, 3).cpu().numpy()
+    depth1 = st1["depth"].reshape(H, W)
+    inst_g = st1["inst"].reshape(H, W)
+    mv = motion_vectors_objects(cam, cam, depth1, inst_g, s0.inst_l2w,
+                                s1.inst_l2w).cpu().numpy()
+    mv_cam = motion_vectors(cam, cam, depth1).cpu().numpy()
+    ys, xs = np.mgrid[0:H, 0:W]
+
+    def reproject(m):
+        sy = np.clip((ys - m[..., 1]).round().astype(int), 0, H - 1)
+        sx = np.clip((xs - m[..., 0]).round().astype(int), 0, W - 1)
+        return alb0[sy, sx]
+
+    ig = inst_g.cpu().numpy()
+    box_ids = set(ig[alb1[..., 0] > 0.8].tolist()) - {-1}
+    box_px = np.isin(ig, list(box_ids))
+    err_obj = np.abs(reproject(mv) - alb1)[box_px].mean()
+    err_cam = np.abs(reproject(mv_cam) - alb1)[box_px].mean()
+    interior = box_px & (np.abs(reproject(mv) - alb1).max(-1) < 1e-3)
+    check((ig >= 0).sum() > 50 and box_px.sum() > 30 and err_cam > 0.05
+          and err_obj < 0.25 * err_cam
+          and interior.sum() > 0.5 * box_px.sum(),
+          f"object motion: err_obj {err_obj}, err_cam {err_cam}")
+    out["object_motion"] = dict(err_obj=float(err_obj),
+                                err_cam=float(err_cam))
+
+    # test_tlas_render_with_tinted_shadows
+    st_i, cam_t = tinted_tlas_scene(dev)
+    st_f, _ = tinted_tlas_scene(dev, flat=True)
+    kw = dict(bounces=2, bsdf="disney", light_sampling="cdf")
+    img_i = render_image(st_i, cam_t, 32, 32, 24, traversal="tlas", **kw)
+    img_f = render_image(st_f, cam_t, 32, 32, 24, **kw)
+    check(bool(np.allclose(img_i.mean((0, 1)), img_f.mean((0, 1)),
+                           rtol=0.08)), "tinted TLAS render vs flattened")
+
+    # test_hills_match_dense_marching and test_any_hit_consistent
+    ter = make_terrain(demo_hills(65), origin=(0, 0, 0),
+                       size_xz=(10.0, 10.0), mat_ids=[0], height_scale=2.0,
+                       device=dev)
+    rng = np.random.default_rng(1)
+    R = 128
+    ro = tf(np.stack([rng.uniform(1, 9, R), np.full(R, 5.0),
+                      rng.uniform(1, 9, R)], -1))
+    d = np.stack([rng.normal(size=R) * 0.3, -np.ones(R),
+                  rng.normal(size=R) * 0.3], -1)
+    rd = tf(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    hit = heightmap_closest(ter, ro, rd, 100.0)
+    ts = torch.linspace(1e-4, 12.0, 20000, device=dev)[:, None]
+    f = (ro[:, 1] + rd[:, 1] * ts) - _sample_height(
+        ter, (ro[:, 0] + rd[:, 0] * ts).reshape(-1),
+        (ro[:, 2] + rd[:, 2] * ts).reshape(-1)).reshape(ts.shape[0], R)
+    f = f.cpu().numpy()
+    change = np.sign(f[1:]) != np.sign(f[:-1])
+    t_ref = ts[:, 0].cpu().numpy()[np.argmax(change, axis=0)]
+    has = change.any(0)
+    ok = hit.valid.cpu().numpy()
+    both = ok & has
+    terr = float(np.abs(hit.t.cpu().numpy()[both] - t_ref[both]).max())
+    check((ok == has).mean() > 0.97 and terr < 0.05,
+          f"terrain vs dense march: {(ok == has).mean()}, {terr}")
+    rng = np.random.default_rng(2)
+    R = 64
+    ro = tf(np.stack([rng.uniform(1, 9, R), np.full(R, 4.0),
+                      rng.uniform(1, 9, R)], -1))
+    d = np.stack([rng.normal(size=R), -np.abs(rng.normal(size=R)) - 0.2,
+                  rng.normal(size=R)], -1)
+    rd = tf(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    check(torch.equal(heightmap_any(ter, ro, rd, 100.0),
+                      heightmap_closest(ter, ro, rd, 100.0).valid),
+          "heightmap any vs closest")
+    out["terrain_dense_t_err"] = terr
+    rel = out["instanced_vs_flat"]["mean_rel"]
+    log(f"forest gates on the card: TLAS vs the flattened scene, instanced "
+        f"render vs flattened (mean rel {rel:.4f}), "
+        f"update == rebuild, object motion (err {err_obj:.4f} vs camera "
+        f"{err_cam:.4f}), tinted TLAS shadows, terrain vs dense march "
+        f"(t err {terr:.4f}), any == closest: all pass")
+    results["forest_gates"] = out
+
+
+def phase_forest_card_vs_cpu(results):
+    """Three scenes at 16x16, two frames each on the card and on the CPU:
+    the forest small (33^2 terrain, 24 trees, 4 lanterns; FOREST_TREE,
+    NEE by the light tree over the lanterns' world light rows, the second
+    frame moving the camera and the lanterns), scripts/demo.py
+    scene 4 (terrain, normal-mapped and matcap spheres; wavefront) and the
+    tinted TLAS scene (under the forest's sky); the displays within 1e-3
+    on >= 98% of pixels."""
+    import torch
+    from truetrace_tpu_torch.scene.atmosphere import bake_sky_env
+    from truetrace_tpu_torch.scene.instances import update_instance_transforms
+    sky = bake_sky_env(**FOREST_SKY, device="cpu")
+    small = dict(width=16, height=16, bounces=3, bsdf="disney",
+                 denoiser="svgf")
+    out = {}
+    for label in ("forest", "terrain_demo", "tinted"):
+        frames = {}
+        for dev in (DEVICE, "cpu"):
+            if label == "forest":
+                sc, isc, mats, inst, cam = forest_scene(
+                    dev, sky=sky.to(dev), with_light_bvh=True, n_hm=33,
+                    n_trees=24, n_lanterns=4)
+                cfg = dict(FOREST_TREE, **small)
+                nxt, _ = update_instance_transforms(sc, isc, mats,
+                                                    forest_bob(inst, 1))
+            elif label == "terrain_demo":
+                sc, cam = terrain_demo_scene(dev, sky=sky.to(dev))
+                cfg = dict(small, traversal="wavefront", light_sampling="cdf")
+                nxt = None
+            else:
+                sc, cam = tinted_tlas_scene(dev, env=sky.to(dev))
+                cfg = dict(small, traversal="tlas", light_sampling="cdf")
+                nxt = None
+            r = make_renderer(sc, cam, cfg)
+            st = r.init_state()
+            d0, _, st = r.step(st)
+            d1, _, st = r.step(st, cam=moved_camera(cam), cam_moved=True,
+                               scene=nxt)
+            frames[dev] = [d0.cpu(), d1.cpu()]
+        shares = []
+        for a, b in zip(frames[DEVICE], frames["cpu"]):
+            shares.append(float(((a - b).abs() <= 1e-3).all(-1).float()
+                                .mean()))
+            check(bool(torch.isfinite(a).all()) and shares[-1] >= 0.98,
+                  f"{label} card vs CPU: {shares[-1]:.4f} of pixels within "
+                  f"1e-3")
+        out[label] = dict(display_share=shares)
+    shares = {k: [round(x, 4) for x in v["display_share"]]
+              for k, v in out.items()}
+    log(f"forest, terrain demo and tinted TLAS 16x16 card vs CPU, two "
+        f"frames: display shares within 1e-3 {shares}")
+    results["forest_card_vs_cpu"] = out
 
 
 # ---------------------------------------------------------------------------
@@ -2436,6 +3415,16 @@ KERNELS = (
     ("atrous_pass", "truetrace_tpu_torch/kernels/csrc/atrous.cu",
      "truetrace_tpu/kernels/atrous_pallas.py:110",
      "atrous_staged|atrous_direct"),
+    ("closest_hit_tlas", "truetrace_tpu_torch/kernels/csrc/traverse_tlas.cu",
+     "truetrace_tpu/kernels/cwbvh_tlas.py:483", "tlas_kernel"),
+    ("any_hit_tlas", "truetrace_tpu_torch/kernels/csrc/traverse_tlas.cu",
+     "truetrace_tpu/kernels/cwbvh_tlas.py:492", "tlas_kernel<6,1>"),
+    ("transmit_tlas", "truetrace_tpu_torch/kernels/csrc/traverse_tlas.cu",
+     "truetrace_tpu/kernels/cwbvh_tlas.py:422", "tlas_kernel<6,2>"),
+    ("heightmap_closest", "truetrace_tpu_torch/kernels/csrc/heightmap.cu",
+     "truetrace_tpu/kernels/heightmap.py:87", "heightmap_kernel<1>"),
+    ("heightmap_any", "truetrace_tpu_torch/kernels/csrc/heightmap.cu",
+     "truetrace_tpu/kernels/heightmap.py:137", "heightmap_kernel<0>"),
 )
 
 
@@ -2459,7 +3448,9 @@ def ptxas_of(src: str, want: str) -> dict:
 
 
 PATH_KERNELS = ("closest_hit_wavefront", "any_hit_wavefront",
-                "transmit_wavefront", "atrous_pass")
+                "transmit_wavefront", "atrous_pass", "closest_hit_tlas",
+                "any_hit_tlas", "transmit_tlas", "heightmap_closest",
+                "heightmap_any")
 # the hand kernels each path launches (phase_frame fails where one of
 # them never does): the opaque frames' NEE shadow rays take the any hit,
 # the glass frame's the transmittance; ReCur filters without a-trous
@@ -2470,11 +3461,14 @@ PATHS = {"atrium": _OPAQUE, "composed": _OPAQUE, "sponza": _OPAQUE,
          "glass": ("closest_hit_wavefront", "transmit_wavefront",
                    "atrous_pass"),
          "post": _OPAQUE, "interactive": _OPAQUE,
-         "neural": ("closest_hit_wavefront", "any_hit_wavefront")}
+         "neural": ("closest_hit_wavefront", "any_hit_wavefront"),
+         "forest": ("closest_hit_tlas", "any_hit_tlas", "heightmap_closest",
+                    "heightmap_any", "atrous_pass"),
+         "tinted": ("closest_hit_tlas", "transmit_tlas", "atrous_pass")}
 # the frames after the first three, each with its own launch counts in
 # the kernels line
 NEW_PATHS = ("asvgf", "recur", "composed_asvgf", "glass", "post",
-             "interactive", "neural")
+             "interactive", "neural", "forest")
 # a profiled frame's host copies and syncs (phase_profile)
 COPY_KEYS = ("memcpy_htod", "memcpy_dtoh", "stream_syncs",
              "blocking_memcpy_calls", "memcpy_dtod")
@@ -2512,6 +3506,7 @@ def main() -> int:
             log(f"  ptxas {kern}: {info}")
 
     results = {}
+    phase_profile_sees_syncs()
     phase_atrous(results)
 
     from truetrace_tpu_torch.scene import atrium
@@ -2540,6 +3535,8 @@ def main() -> int:
     phase_atrous_frame(results, renderer, state, "atrium")
     phase_graph(results, scenes[6], cam, "atrium")
     smem = _cuda.lib("traverse.cu").tt_traverse_smem(scenes[6].cw_stack)
+    from truetrace_tpu_torch.kernels.cwbvh_tlas import MAX_STACK
+    smem_tlas = _cuda.lib("traverse_tlas.cu").tt_tlas_smem(MAX_STACK)
     del renderer, state
 
     c_launches, renderer, state = phase_frame(results, scenes[6], cam,
@@ -2600,6 +3597,24 @@ def main() -> int:
     phase_modes_gates(results)
     phase_modes_card_vs_cpu(results)
 
+    forest, isc, f_mats, f_inst, f_cam = forest_scene(DEVICE, **FOREST_SIZE)
+    n_trees = len(f_inst) - FOREST_SIZE["n_lanterns"]
+    log(f"forest: {len(f_inst)} instances ({n_trees} "
+        f"trees of {FOREST_SIZE['n_trees']} placed, "
+        f"{FOREST_SIZE['n_lanterns']} lanterns), {forest.n_tris()} "
+        f"triangles ({forest.light_tris.tri_index.shape[0]} world light "
+        f"rows), {forest.cw_nodes.shape[0]} nodes ({isc.n_tlas_nodes} TLAS), "
+        f"{forest.cw_leaf_rows.shape[0]} leaf rows, K = "
+        f"{forest.cw_leaf_rows.shape[1] // 10}, terrain "
+        f"{forest.terrain.hm_shape}")
+    phase_forest_kernels(results, forest, f_cam)
+    new_launches["forest"] = phase_forest(results, forest, isc, f_mats,
+                                          f_inst, f_cam)
+    del forest, isc
+    new_launches["tinted"] = phase_tinted_tlas(results)
+    phase_forest_gates(results)
+    phase_forest_card_vs_cpu(results)
+
     for k in (6, 3):
         log(f"traversal Mrays/s (bench mix, atrium K={k}): " + ", ".join(
             f"{results[f'traversal_k{k}_{n}']['mrays']:.2f} at {n} rays"
@@ -2658,6 +3673,12 @@ def main() -> int:
     for label in ("post", "interactive", "neural"):
         frames[label]["card_vs_cpu"] = results["modes_card_vs_cpu"][label]
     frames["interactive"]["gates"] = results["modes_gates"]
+    frames["forest"].update(
+        captures=results["forest"]["captures"],
+        update_s=results["forest"]["update_s"],
+        instances=results["forest"]["instances"],
+        gates=results["forest_gates"],
+        card_vs_cpu=results["forest_card_vs_cpu"])
     frames["composed"].update(
         scatter_ms=results["composed_profile"]["scatter_ms"],
         cache_update_ms=results["composed_cache"]["update_ms"],
@@ -2673,9 +3694,15 @@ def main() -> int:
     # library_ms: no single PyTorch call computes any of these functions
     # each kernel's main path: the atrium frame's, the glass frame's for
     # the transmittance (the opaque frames shoot no such ray)
+    # the two-level kernels' and the march's main path is the forest's,
+    # transmit_tlas's the tinted TLAS frame's (the forest is opaque)
     main_launches = dict(launches,
                          transmit_wavefront=new_launches["glass"][
                              "transmit_wavefront"])
+    main_launches.update({k: new_launches["forest"][k] for k in (
+        "closest_hit_tlas", "any_hit_tlas", "heightmap_closest",
+        "heightmap_any")}, transmit_tlas=new_launches["tinted"][
+            "transmit_tlas"])
     rows = {}
     for name, src, rep, _ in KERNELS:
         res = results[name]
@@ -2694,14 +3721,18 @@ def main() -> int:
                 if k in res})
         rows[name]["sponza"] = sponza_row(name, results, s_launches)
         for label, ln in [("atrium", launches), ("composed", c_launches)] + [
-                (p, new_launches[p]) for p in NEW_PATHS]:
+                (p, new_launches[p]) for p in NEW_PATHS + ("tinted",)]:
             rows[name].setdefault(label, {}).update(
                 launches=ln[name], launches_per_frame=ln[name] / FRAMES)
     rows["transmit_wavefront"]["atrium"].update(results["transmit_atrium"])
+    rows["transmit_tlas"]["forest"].update(results["transmit_tlas_forest"])
+    rows["transmit_tlas"]["main_path"] = "tinted"
     for name in ("closest_hit_wavefront", "any_hit_wavefront",
                  "transmit_wavefront"):
         # the ring stack's dynamic shared memory, as the launch sizes it
         rows[name]["smem_dynamic"] = smem
+    for name in ("closest_hit_tlas", "any_hit_tlas", "transmit_tlas"):
+        rows[name]["smem_dynamic"] = smem_tlas
     # "kernels": the main path's kernels. step_core's code runs inside
     # the traversal kernel; its own launch is held against its plain
     # version above but is not on the main path ("off_path").

@@ -68,7 +68,8 @@ def test_nvcc_flags_per_source():
     to a tolerance) contracts mul-adds; each library's name covers its
     own flags."""
     assert set(_cuda.NVCC_FLAGS) == set(_cuda.SOURCES)
-    for src in ("traverse.cu", "step_core.cu"):
+    for src in ("traverse.cu", "step_core.cu", "traverse_tlas.cu",
+                "heightmap.cu"):
         assert "--fmad=false" in _cuda.NVCC_FLAGS[src]
     assert "--fmad=false" not in _cuda.NVCC_FLAGS["atrous.cu"]
     common = set(_cuda.NVCC_FLAGS["atrous.cu"])

@@ -17,7 +17,11 @@ gives the same bits run after run; the transmittance query bit for bit
 at every leaf width, and the same two frame checks for the ASVGF,
 ReSTIR-ASVGF, ReCur and nested-glass frames, and for the post chain
 with temporal auto exposure, TAAU with partial rendering and analytic
-lights, and the neural_taa denoiser.
+lights, and the neural_taa denoiser; the two-level traversal's three
+queries bit for bit at every leaf width (a 2-entry stack among them),
+the heightmap march bit for bit, and the two frame checks for the
+forest (instances on a terrain, the lanterns moved between frames by
+update_instance_transforms and replayed with no recapture).
 
 Needs an NVIDIA card and nvcc; skips elsewhere. It imports no JAX, so it
 runs on a machine without it (the JAX-side conftest is skipped):
@@ -672,7 +676,10 @@ FRAMES = {"asvgf": ("atrium", dict(SLICE, denoiser="asvgf")),
           "restir_asvgf": ("atrium", dict(SLICE, denoiser="asvgf",
                                           use_restir=True)),
           "glass": ("glass", dict(SLICE, bounces=10, rr_start=6,
-                                  denoiser="svgf"))}
+                                  denoiser="svgf")),
+          "forest": ("forest", dict(SLICE, traversal="tlas",
+                                    light_sampling="tree", denoiser="svgf"))}
+FOREST_SMALL = dict(n_hm=65, n_trees=128, n_lanterns=8)
 
 
 def _slice_frame(dev, name):
@@ -680,17 +687,45 @@ def _slice_frame(dev, name):
     scene, cfg = FRAMES[name]
     if scene == "glass":
         sc, cam = chip_smoke.nested_glass_scene(dev)
+    elif scene == "forest":
+        sc, cam = _forest_small(dev)[0], _forest_small(dev)[4]
     else:
         sc, cam = _atrium_small(dev)
     return sc, cam, cfg
 
 
-@pytest.mark.parametrize("name", ["asvgf", "restir_asvgf", "glass"])
+_forest_cache = {}
+
+
+def _forest_small(dev):
+    """chip_smoke's forest at FOREST_SMALL with its light BVH (the frame
+    samples the lanterns by the light tree) and two lantern updates of it
+    (their traversal tables packed): (scene, InstancedScene, materials,
+    instances, camera, [updated scenes])."""
+    if "f" not in _forest_cache:
+        import chip_smoke
+        from truetrace_tpu_torch.scene.instances import (
+            update_instance_transforms)
+        sc, isc, mats, inst, cam = chip_smoke.forest_scene(
+            dev, with_light_bvh=True, **FOREST_SMALL)
+        ups = [update_instance_transforms(sc, isc, mats,
+                                          chip_smoke.forest_bob(inst, k))[0]
+               for k in (1, 2)]
+        for u in ups:
+            u.cw_table()
+        _forest_cache["f"] = (sc, isc, mats, inst, cam, ups)
+    return _forest_cache["f"]
+
+
+@pytest.mark.parametrize("name", ["asvgf", "restir_asvgf", "glass",
+                                  "forest"])
 def test_slice_frame_makes_no_host_sync(dev, name):
     """The ASVGF frame (its stratum replay reads the previous sample id
-    on the card), ReSTIR-ASVGF and the nested-glass frame (the
-    transmittance kernel, the medium stack): after a warm-up frame, one
-    more and one moving the camera with cam_moved=True, under
+    on the card), ReSTIR-ASVGF, the nested-glass frame (the
+    transmittance kernel, the medium stack) and the forest (the
+    two-level traversal, the march, per-object motion; its second frame
+    also swaps in a scene with the lanterns moved): after a warm-up
+    frame, one more and one moving the camera with cam_moved=True, under
     torch.cuda.set_sync_debug_mode("error")."""
     import chip_smoke
     from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
@@ -701,11 +736,12 @@ def test_slice_frame_makes_no_host_sync(dev, name):
     _, _, st = r.step(st)
     moved = chip_smoke.moved_camera(cam)
     launches = transmit_wavefront.launches
+    nxt = _forest_small(dev)[5][0] if name == "forest" else None
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         _, _, st = r.step(st)
-        disp, _, st = r.step(st, cam=moved, cam_moved=True)
+        disp, _, st = r.step(st, cam=moved, cam_moved=True, scene=nxt)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert float(st.accum.count) == 1.0 and st.sample == 3
@@ -713,13 +749,17 @@ def test_slice_frame_makes_no_host_sync(dev, name):
     assert (transmit_wavefront.launches > launches) == (name == "glass")
 
 
-@pytest.mark.parametrize("name", ["asvgf", "recur", "glass"])
+@pytest.mark.parametrize("name", ["asvgf", "recur", "glass", "forest"])
 def test_slice_graph_frames_match_eager(dev, name):
-    """Renderer.graph_step against Renderer.step on the ASVGF, ReCur and
-    nested-glass frames, four frames as test_graph_frames_match_eager
-    runs them (a camera move among them): display, radiance and every
-    state tensor (ASVGF's nested SVGF state, its stratum luminance and
-    previous sample id, ReCur's histories) bit for bit."""
+    """Renderer.graph_step against Renderer.step on the ASVGF, ReCur,
+    nested-glass and forest frames, four frames as
+    test_graph_frames_match_eager runs them (a camera move among them):
+    display, radiance and every state tensor (ASVGF's nested SVGF state,
+    its stratum luminance and previous sample id, ReCur's histories, the
+    forest's previous instance transforms) bit for bit; the forest then
+    two more frames with the lanterns moved by update_instance_transforms,
+    the moved scene handed to the cam_moved graph and copied into its
+    captured scene on the device: bit for bit, with no recapture."""
     import chip_smoke
     from truetrace_tpu_torch.renderer import _tensors
     sc, cam, cfg = _slice_frame(dev, name)
@@ -739,6 +779,16 @@ def test_slice_graph_frames_match_eager(dev, name):
     assert (gs.captures, gm.captures) == (1, 1)
     if name == "asvgf":
         assert "asvgf.svgf.color" in te and int(sg.asvgf.prev_sid) == 3
+    if name == "forest":
+        assert "prev_inst_l2w" in te
+        for nxt in _forest_small(dev)[5]:
+            de, ae, se = re.step(se, cam=moved, cam_moved=True, scene=nxt)
+            dg, ag, sg = gm(sg, cam=moved, scene=nxt)
+            te, tg = dict(_tensors(se)), dict(_tensors(sg))
+            assert all(chip_smoke.torch_equal_bits(a, b) for a, b in
+                       [(de, dg), (ae, ag)] + [(te[k], tg[k]) for k in te])
+        assert (gs.captures, gm.captures) == (1, 1)
+        assert torch.equal(sg.prev_inst_l2w, nxt.inst_l2w)
 
 
 # (config) of each frame of the TAAU / partial rendering / neural slice,
@@ -824,3 +874,120 @@ def test_modes_graph_frames_match_eager(dev, name):
     want = {"post": "exposure", "interactive": "partial.rad",
             "neural": "neural_hist"}[name]
     assert want in te
+
+
+# ---------------------------------------------------------------------------
+# the two-level traversal and the heightmap march
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tlas_scenes(dev):
+    """The instanced scene of tests/test_torch_tlas.py's kind (a deep
+    sphere, a grid and a box under 40 instances with rotations and
+    non-uniform scales) at every compiled leaf width, and rays from
+    inside and outside it with dead lanes: ({K: scene}, ro, rd, t_max)."""
+    from truetrace_tpu_torch.scene.instances import compile_scene_instanced
+    from truetrace_tpu_torch.scene.mesh import HostMaterial, HostMesh
+    from truetrace_tpu_torch.scene.primitives import grid, uv_sphere
+    r = np.random.default_rng(0)
+    sv, si, _ = uv_sphere(16, 24, radius=0.5)
+    gv, gi, _ = grid(3, 3, 2.0, 2.0)
+    bv = np.array([[x, y, z] for x in (-.3, .3) for y in (0, .9)
+                   for z in (-.3, .3)], np.float32)
+    bf = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5],
+                   [0, 5, 1], [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4],
+                   [1, 5, 7], [1, 7, 3]], np.int32)
+    srcs = [HostMesh(v.astype(np.float32), i.astype(np.int32),
+                     np.full(len(i), m, np.int32))
+            for m, (v, i) in enumerate(((sv, si), (gv, gi), (bv, bf)))]
+    inst = []
+    for k in range(40):
+        th, ph = r.uniform(0, 2 * np.pi), r.uniform(-0.5, 0.5)
+        ry = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                       [-np.sin(th), 0, np.cos(th)]])
+        rx = np.array([[1, 0, 0], [0, np.cos(ph), -np.sin(ph)],
+                       [0, np.sin(ph), np.cos(ph)]])
+        m = np.eye(4, dtype=np.float32)
+        m[:3, :3] = np.diag(r.uniform(0.5, 1.8, 3)) @ rx @ ry
+        m[3, :3] = r.uniform(-4, 4, 3)
+        inst.append((k % 3, m))
+    mats = [HostMaterial(), HostMaterial(), HostMaterial()]
+    out = {k: compile_scene_instanced(srcs, mats, inst, leaf_k=k,
+                                      device=dev)[0]
+           for k in (3, 4, 5, 6, 8, 12)}
+    R = 20000
+    ro = torch.from_numpy(r.uniform(-6, 6, (R, 3)).astype(np.float32)).to(dev)
+    rd = torch.from_numpy(_unit(r, R)).to(dev)
+    tm = torch.from_numpy(r.uniform(0.5, 12, R).astype(np.float32)).to(dev)
+    tm[:100] = 0.0
+    tm[100:10000] = 1e30
+    return out, ro, rd, tm
+
+
+@pytest.mark.parametrize("k", [3, 4, 5, 6, 8, 12])
+@pytest.mark.parametrize("query", ["closest", "any", "transmit"])
+@pytest.mark.parametrize("stack", [16, 2])
+def test_tlas_kernel_bitwise(tlas_scenes, k, query, stack):
+    """closest_hit_tlas (t, tri, u, v, inst), any_hit_tlas and
+    transmit_tlas (random tints) bit for bit their plain versions for
+    every compiled leaf width, with the 16-entry ring and a 2-entry one
+    whose pushes drop entries, TLAS ones among them (some rays then lose
+    instances, the same ones); dead lanes miss."""
+    import chip_smoke
+    from truetrace_tpu_torch.kernels import cwbvh_tlas as tl
+    out, ro, rd, tm = tlas_scenes
+    sc = out[k]
+    a = (sc.cw_table(), sc.cw_nodes.shape[0], sc.cw_leaf_rows.shape[0])
+    if query == "closest":
+        hk, ik = tl.closest_hit_tlas(*a, ro, rd, tm, stack)
+        hp, ip = tl.closest_hit_tlas_plain(*a, ro, rd, tm, stack)
+        for f in ("t", "tri", "u", "v"):
+            assert chip_smoke.torch_equal_bits(getattr(hk, f),
+                                               getattr(hp, f)), f
+        assert torch.equal(ik, ip.to(ik.dtype))
+        assert bool((hk.tri[:100] == -1).all() and (ik[:100] == -1).all())
+        if stack == 2:
+            full, _ = tl.closest_hit_tlas_plain(*a, ro, rd, tm, 16)
+            assert bool((hk.tri != full.tri).any())
+    elif query == "any":
+        ok = tl.any_hit_tlas(*a, ro, rd, tm, stack)
+        assert torch.equal(ok, tl.any_hit_tlas_plain(*a, ro, rd, tm, stack))
+        assert 0.05 < float(ok.float().mean()) < 0.95
+    else:
+        g = torch.Generator(device="cpu").manual_seed(k)
+        tint = torch.rand((sc.n_tris(), 3), generator=g).to(ro.device)
+        tk = tl.transmit_tlas(*a, tint, ro, rd, tm, stack)
+        tp = tl.transmit_tlas_plain(*a, tint, ro, rd, tm, stack)
+        assert chip_smoke.torch_equal_bits(tk, tp)
+        assert bool((tk[:100] == 1).all())
+
+
+@pytest.mark.parametrize("R", [1, 33, 262145])
+def test_heightmap_kernel_bitwise(dev, R):
+    """heightmap_closest (t, valid, normal, uv) and heightmap_any bit for
+    bit the plain march: rays from above and below the surface, outside
+    its box, dead lanes; ray counts that leave blocks part empty."""
+    import chip_smoke
+    from truetrace_tpu_torch.kernels import heightmap as hm
+    from truetrace_tpu_torch.scene.terrain import demo_hills, make_terrain
+    ter = make_terrain(demo_hills(129, seed=4), origin=(-8, 0, -8),
+                       size_xz=(16, 16), mat_ids=[0, 1], height_scale=2.2,
+                       device=dev)
+    r = np.random.default_rng(R)
+    ro = np.stack([r.uniform(-10, 10, R), r.uniform(-0.5, 5, R),
+                   r.uniform(-10, 10, R)], -1).astype(np.float32)
+    d = r.normal(size=(R, 3))
+    d[:, 1] -= 0.4
+    rd = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    tm = r.uniform(0, 30, R).astype(np.float32)
+    tm[: R // 10] = 0.0
+    ro, rd, tm = (torch.from_numpy(x).to(dev) for x in (ro, rd, tm))
+    hk = hm.heightmap_closest(ter, ro, rd, tm)
+    hp = hm.heightmap_closest_plain(ter, ro, rd, tm)
+    assert torch.equal(hk.valid, hp.valid)
+    for f in ("t", "normal", "uv"):
+        assert chip_smoke.torch_equal_bits(getattr(hk, f), getattr(hp, f)), f
+    assert torch.equal(hm.heightmap_any(ter, ro, rd, tm),
+                       hm.heightmap_any_plain(ter, ro, rd, tm))
+    if R > 1000:
+        assert 0.1 < float(hk.valid.float().mean()) < 0.9

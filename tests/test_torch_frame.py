@@ -181,7 +181,8 @@ def test_graph_step_state_flow_matches_step(cornell_pair, monkeypatch):
     c2w[3, 0] += 0.1                                    # the eye moves
     moved = Camera(c2w=c2w, fov_y=tcam.fov_y, aperture=tcam.aperture,
                    focus_dist=tcam.focus_dist)
-    for cfg, n_state in ((composed, 41), (neural, 4)):
+    # 42: partial rendering's buffers include the instance G-buffer
+    for cfg, n_state in ((composed, 42), (neural, 4)):
         re, rg = Renderer(ts, tcam, cfg), Renderer(ts, tcam, cfg)
         gs = rg.graph_step(cam_moved=False)
         gm = rg.graph_step(cam_moved=True)
@@ -236,19 +237,21 @@ def test_cornell_physics():
 
 
 @pytest.mark.parametrize("opt,value", [
-    ("traversal", "cwbvh"), ("traversal", "tlas"), ("traversal", "brute"),
-    ("traversal", "woop"), ("terrain", "scene"), ("traversal", "bvh2")])
+    ("traversal", "cwbvh"), ("sampler", "bluenoise"), ("traversal", "brute"),
+    ("traversal", "woop"), ("nee_sort", True), ("traversal", "bvh2")])
 def test_unported_renderer_options_raise(cornell_pair, opt, value):
-    """Options and scene parts outside the port raise naming their item:
-    the other traversals (the CWBVH oracle, the TLAS, the MXU brute
-    force, BVH2, which the JAX package also takes for any other name)
-    and a scene with terrain. (The TAAU, partial rendering and neural
-    denoiser cases of this list run now: tests/test_torch_modes.py and
-    tests/test_torch_neural.py hold them against the JAX package.)"""
+    """Options outside the port raise naming their item: the other
+    traversals (the CWBVH oracle, the MXU brute force, BVH2, which the
+    JAX package also takes for any other name), and the blue-noise
+    sampler and NEE sorting, which the RendererConfig has no field for
+    and the render config checks. (The TLAS traversal and terrain scenes
+    of this list run now: tests/test_torch_tlas.py, test_torch_terrain.py
+    and test_torch_forest.py hold them against the JAX package.)"""
     _, _, ts, tcam = cornell_pair
-    if opt == "terrain":
-        ts = dataclasses.replace(ts, terrain=object())
-    kw = {} if opt == "terrain" else {opt: value}
+    renderer_opt = opt == "traversal"
+    kw = {opt: value} if renderer_opt else {}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         r = Renderer(ts, tcam, RendererConfig(width=8, height=8, **kw))
+        if not renderer_opt:
+            r.rcfg = dataclasses.replace(r.rcfg, **{opt: value})
         r.step(r.init_state())

@@ -122,9 +122,8 @@ def _check_frame(i, td, ta, tst, want):
     np.testing.assert_allclose(ta.numpy(), ja, err_msg=f"frame {i}", **TOL)
     j = _flat_leaves(jl)
     names = dict(_tensors(tst))
-    # the JAX partial dict's instance G-buffer is -1 on a single-BLAS
-    # scene; the port has none (ROADMAP.md A.14)
-    assert (np.asarray(j.pop("partial.inst")) == -1).all()
+    # the partial instance G-buffer is -1 on a single-BLAS scene
+    assert (np.asarray(j["partial.inst"]) == -1).all()
     for k, t in names.items():
         w = np.asarray(j[k])
         if w.dtype.kind in "biu":
@@ -163,7 +162,7 @@ def test_resumes_from_the_jax_state(run):
     2, as does the third frame after it."""
     r = _renderer(run)
     st = FrameState.from_numpy(run["frames"][0][2], "cpu")
-    assert st.partial is not None and "inst" not in st.partial
+    assert st.partial is not None and "inst" in st.partial
     for i in (1, 2):
         td, ta, st = r.step(st, cam=run["cams"][i], cam_moved=True)
         _check_frame(i, td, ta, st, run["frames"][i])

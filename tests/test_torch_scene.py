@@ -19,10 +19,13 @@ from truetrace_tpu_torch.kernels import cwbvh_wavefront as twf
 from truetrace_tpu_torch.post import neural as tneural
 from truetrace_tpu_torch.post import pipeline as tpipe
 from truetrace_tpu_torch.post import svgf as tsvgf
+from truetrace_tpu_torch.scene import atmosphere as tatmosphere
 from truetrace_tpu_torch.scene import atrium as tatrium
 from truetrace_tpu_torch.scene import cornell as tcornell
 from truetrace_tpu_torch.scene import ir as tir
+from truetrace_tpu_torch.scene import instances as tinstances
 from truetrace_tpu_torch.scene import sponza_like as tsponza
+from truetrace_tpu_torch.scene import terrain as tterrain
 from truetrace_tpu_torch.scene.ir import Scene
 from truetrace_tpu_torch.scene.mesh import compile_scene as tcompile
 
@@ -169,38 +172,60 @@ def _raises(fn):
 
 
 @pytest.mark.parametrize("opt", ["presplit", "hot_order", "bvh2_only",
-                                 "cache_dir", "terrain"])
+                                 "cache_dir"])
 def test_unported_build_options_raise(opt):
     m, mats, _ = tcornell.make(device="cpu")
     kw = dict(with_cwbvh=True, device="cpu")
     kw.update(dict(presplit=dict(presplit=0.5),
                    hot_order=dict(hot_order=True),
                    bvh2_only=dict(with_cwbvh=False),
-                   cache_dir=dict(cache_dir="x"),
-                   terrain=dict(terrain=object()))[opt])
+                   cache_dir=dict(cache_dir="x"))[opt])
     _raises(lambda: tcompile(m, mats, **kw))
 
 
-@pytest.mark.parametrize("opt", ["lights"])
+@pytest.mark.parametrize("opt", ["lights", "terrain"])
 def test_build_options_match_jax(opt):
     """compile_scene options the port once refused, against the JAX
     package's build of the Cornell box: `lights` (16 analytic lights of
-    the five kinds) gives equal light tables, exactly, and the same
-    CWBVH."""
-    from chip_smoke import analytic_lights_host
-    from truetrace_tpu.scene.ir import AnalyticLights as JAnalyticLights
-    d = analytic_lights_host((0.05, 0.25, 0.05), (0.5, 0.5, 0.5))
+    the five kinds) gives equal light tables, `terrain` (a 33^2 hills
+    heightfield with a random 8x8 alphamap and two layers) equal terrain
+    tables and placement, exactly, and the same CWBVH."""
     jm, jmat, _ = jcornell.make()
     tm, tmat, _ = tcornell.make(device="cpu")
-    js = jcompile(jm, jmat, with_cwbvh=True, with_light_bvh=True,
-                  lights=JAnalyticLights(**d))
+    if opt == "lights":
+        from chip_smoke import analytic_lights_host
+        from truetrace_tpu.scene.ir import AnalyticLights as JAnalyticLights
+        d = analytic_lights_host((0.05, 0.25, 0.05), (0.5, 0.5, 0.5))
+        jkw = dict(lights=JAnalyticLights(**d))
+        tkw = dict(lights=tir.AnalyticLights.from_numpy(d, "cpu"))
+        part = "lights"
+    else:
+        from truetrace_tpu.scene.terrain import demo_hills
+        from truetrace_tpu.scene.terrain import make_terrain as jterrain
+        from truetrace_tpu_torch.scene.terrain import make_terrain as tterrain
+        hm = demo_hills(33, seed=1)
+        kw = dict(origin=(-1.0, -0.5, -2.0), size_xz=(3.0, 4.0),
+                  mat_ids=[0, 2], height_scale=0.7,
+                  alphamap=np.random.default_rng(0).uniform(
+                      0, 1, (8, 8, 4)).astype(np.float32))
+        jkw = dict(terrain=jterrain(hm, **kw))
+        tkw = dict(terrain=tterrain(hm, device="cpu", **kw))
+        part = "terrain"
+    js = jcompile(jm, jmat, with_cwbvh=True, with_light_bvh=True, **jkw)
     ts = tcompile(tm, tmat, with_cwbvh=True, with_light_bvh=True,
-                  lights=tir.AnalyticLights.from_numpy(d, "cpu"),
-                  device="cpu")
-    for f in dataclasses.fields(ts.lights):
-        want = np.asarray(getattr(js.lights, f.name))
-        got = getattr(ts.lights, f.name).numpy()
+                  device="cpu", **tkw)
+    for f in dataclasses.fields(getattr(ts, part)):
+        if f.name == "consts":
+            continue
+        want = np.asarray(getattr(getattr(js, part), f.name))
+        got = getattr(getattr(ts, part), f.name)
+        got = np.asarray(got) if f.name == "hm_shape" else got.numpy()
         assert got.shape == want.shape and (got == want).all(), f.name
+    if opt == "terrain":
+        ter = js.terrain
+        assert ts.terrain.consts == tuple(float(v) for v in np.concatenate(
+            [np.asarray(ter.origin), np.asarray(ter.size),
+             np.asarray(ter.h_max).reshape(1)]))
     assert (ts.cw_nodes.numpy().view(np.uint32)
             == np.asarray(js.cw_nodes).view(np.uint32)).all()
 
@@ -211,13 +236,18 @@ def test_build_options_match_jax(opt):
                                 tir.EnvMap.constant, tir.AnalyticLights.none,
                                 tenv_cdf.build_env_cdf, tsponza.make,
                                 tpipe.bake_tonemap_lut,
-                                tneural.load_denoiser],
+                                tneural.load_denoiser,
+                                tinstances.compile_scene_instanced,
+                                tterrain.make_terrain,
+                                tatmosphere.bake_sky_env],
                          ids=["compile_scene", "Camera.look_at",
                               "atrium.make", "cornell.make",
                               "SVGFState.create", "Accumulator.create",
                               "EnvMap.constant", "AnalyticLights.none",
                               "build_env_cdf", "sponza_like.make",
-                              "bake_tonemap_lut", "load_denoiser"])
+                              "bake_tonemap_lut", "load_denoiser",
+                              "compile_scene_instanced", "make_terrain",
+                              "bake_sky_env"])
 def test_entry_points_default_to_the_card(fn):
     """The port's scene entry points build on the card unless the caller
     asks for the CPU (every CPU test passes device="cpu")."""

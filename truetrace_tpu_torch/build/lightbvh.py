@@ -37,12 +37,25 @@ class LightBVH:
     depth: int
 
 
+def _clip1(x):
+    """np.clip(x, -1, 1) of a scalar, without the ufunc's overhead."""
+    return min(max(x, -1.0), 1.0)
+
+
+def _cross(a, b):
+    """np.cross of two 3-vectors: each component two rounded products and
+    their rounded difference, as numpy computes it, without its
+    overhead (the build calls it hundreds of thousands of times)."""
+    return np.array([a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2],
+                     a[0] * b[1] - a[1] * b[0]])
+
+
 def _cone_union(a_axis, a_cos, b_axis, b_cos):
     """Union of two direction cones (axis, cos half-angle) -> (axis, cos).
     Algorithm of PBRT-4 DirectionCone::Union."""
-    t_a = np.arccos(np.clip(a_cos, -1.0, 1.0))
-    t_b = np.arccos(np.clip(b_cos, -1.0, 1.0))
-    d = np.arccos(np.clip(np.dot(a_axis, b_axis), -1.0, 1.0))
+    t_a = np.arccos(_clip1(a_cos))
+    t_b = np.arccos(_clip1(b_cos))
+    d = np.arccos(_clip1(np.dot(a_axis, b_axis)))
     if min(d + t_b, np.pi) <= t_a:
         return a_axis, a_cos          # a contains b
     if min(d + t_a, np.pi) <= t_b:
@@ -56,12 +69,12 @@ def _cone_union(a_axis, a_cos, b_axis, b_cos):
 
 def _rotate_toward(a, b, angle):
     """Rotate unit vector a toward b by `angle` radians (in their plane)."""
-    c = np.cross(a, b)
+    c = _cross(a, b)
     s = np.linalg.norm(c)
     if s < 1e-8:
         return a
     c = c / s
-    return (a * np.cos(angle) + np.cross(c, a) * np.sin(angle)
+    return (a * np.cos(angle) + _cross(c, a) * np.sin(angle)
             + c * np.dot(c, a) * (1 - np.cos(angle)))
 
 

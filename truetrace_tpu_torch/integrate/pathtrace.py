@@ -6,11 +6,15 @@ masked dead lanes; NEE with MIS (power heuristic) against the emissive
 triangles, by light-tree cut selection or the power CDF; Disney or
 Lambert BSDF; Russian roulette; primary-hit G-buffer.
 
-What the port covers is the single-BLAS scene under a constant or
-textured environment (env NEE + MIS) and analytic lights (a third NEE
-group, uniform or RIS selection; integrate/lights.py), with atlas
-textures fetched at ray-cone mip levels, traversed by the CWBVH
-wavefront kernels; a per-frame TAAU subpixel jitter; glass and
+What the port covers is the single-BLAS scene (traversal="wavefront")
+and the instanced one (traversal="tlas": the two-level kernels, normals
+and tangents rotated by the hit instance's L2W, NEE over the instances'
+world light rows, the primary hit's instance in the stats), each with or
+without a heightfield terrain (marched after the meshes, the nearer hit
+kept, its layers' Disney parameters blended), under a constant or textured
+environment (env NEE + MIS) and analytic lights (a third NEE group,
+uniform or RIS selection; integrate/lights.py), with atlas textures
+fetched at ray-cone mip levels; a per-frame TAAU subpixel jitter; glass and
 cutout materials (shadow transmittance through the tinted surfaces, the
 stochastic cutout pass-through, and the nested-dielectric medium stack
 with Beer-Lambert absorption), and the
@@ -22,6 +26,7 @@ naming its ROADMAP.md item, never silently ignored.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
@@ -32,6 +37,8 @@ from truetrace_tpu_torch.core import rng
 from truetrace_tpu_torch.core.math import (
     cross, dot, finite_or_zero, luminance, normalize, power_heuristic,
     sample_cosine_hemisphere, to_world)
+from truetrace_tpu_torch.kernels.cwbvh_tlas import (
+    any_hit_tlas, closest_hit_tlas, transmit_tlas)
 from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
     any_hit_wavefront, closest_hit_wavefront, transmit_wavefront)
 from truetrace_tpu_torch.kernels.traverse_ref import Hit
@@ -47,8 +54,8 @@ MED_STACK = 4
 @dataclass(frozen=True)
 class RenderConfig:
     """The JAX package's RenderConfig fields. The port renders pcg
-    sampling and wavefront traversal without fuse_nee; the other values
-    raise in `check_supported`."""
+    sampling and the wavefront and tlas traversals without fuse_nee; the
+    other values raise in `check_supported`."""
     width: int = 256
     height: int = 256
     bounces: int = 4
@@ -77,9 +84,11 @@ def _todo(what: str, item: str):
 
 def check_supported(scene: Scene, cfg: RenderConfig) -> None:
     """Raise for every scene feature and option outside the ported path."""
-    if cfg.traversal != "wavefront":
-        _todo(f"traversal={cfg.traversal!r}",
-              "A.14" if cfg.traversal == "tlas" else "A.19")
+    if cfg.traversal not in ("wavefront", "tlas"):
+        _todo(f"traversal={cfg.traversal!r}", "A.19")
+    if cfg.traversal == "tlas" and scene.inst_rows is None:
+        raise ValueError("traversal='tlas' needs an instanced scene "
+                         "(scene/instances.py compile_scene_instanced)")
     if cfg.sampler != "pcg":
         _todo(f"sampler={cfg.sampler!r}", "A.19")
     if cfg.fuse_nee:
@@ -94,8 +103,6 @@ def check_supported(scene: Scene, cfg: RenderConfig) -> None:
         raise ValueError(f"unknown nee_mis {cfg.nee_mis!r}")
     if cfg.light_sampling not in ("tree", "cdf"):
         raise ValueError(f"unknown light_sampling {cfg.light_sampling!r}")
-    if scene.terrain is not None:
-        _todo("heightmap terrain", "A.14")
 
 
 # ---------------------------------------------------------------------------
@@ -185,10 +192,17 @@ def sample_light_tris(scene: Scene, p, u_sel, u2, sn=None,
 
 
 def light_pdf_sa(scene: Scene, tid, p, hit_p, cos_l, sn_prev=None,
-                 use_tree: bool = False):
+                 use_tree: bool = False, inst=None):
     """Solid-angle pdf with which NEE would have sampled this emissive
-    hit (the MIS weight of BSDF-sampled emissive hits)."""
+    hit (the MIS weight of BSDF-sampled emissive hits). `inst`: the hit
+    instances of an instanced scene, whose local emissive rows map to a
+    light row per instance (inst_light_offset[inst] + inst_em_rank[tid])."""
     li = scene.light_tris.tri_to_light[tid]
+    if inst is not None:
+        rank = scene.inst_em_rank[tid]
+        off = scene.inst_light_offset[torch.clamp(inst, min=0)]
+        li = torch.where(inst >= 0, torch.where(
+            (rank >= 0) & (off >= 0), off + rank, -1), li)
     if use_tree:
         from truetrace_tpu_torch.kernels.lighttree import light_tree_pdf_cut
         pmf = light_tree_pdf_cut(
@@ -240,29 +254,62 @@ def _analytic_sample(scene: Scene, cfg: RenderConfig, p, u_resc, u_l2, u2,
 # traversal dispatch
 # ---------------------------------------------------------------------------
 
-def _trace(scene: Scene, ro, rd, alive) -> Hit:
-    """Closest hit; dead lanes get t_max = 0 (they never hit)."""
+def _tables(scene: Scene):
+    """(table, node rows, leaf rows) of the scene's traversal table."""
+    return (scene.cw_table(), scene.cw_nodes.shape[0],
+            scene.cw_leaf_rows.shape[0])
+
+
+def _trace(scene: Scene, ro, rd, alive, cfg: RenderConfig):
+    """Closest hit: (Hit, inst [R] int64, the hit instance on the tlas
+    path, else -1). Dead lanes get t_max = 0 (they never hit)."""
     t_max = torch.where(alive, T_MAX, 0.0)
-    return closest_hit_wavefront(scene.cw_table(), scene.cw_nodes.shape[0],
-                                 ro, rd, t_max, max_stack=scene.cw_stack)
+    if cfg.traversal == "tlas":
+        hit, inst = closest_hit_tlas(*_tables(scene), ro, rd, t_max)
+        return hit, inst.to(torch.int64)
+    hit = closest_hit_wavefront(scene.cw_table(), scene.cw_nodes.shape[0],
+                                ro, rd, t_max, max_stack=scene.cw_stack)
+    return hit, torch.full((ro.shape[0],), -1, dtype=torch.int64,
+                           device=ro.device)
 
 
-def _occluded(scene: Scene, ro, rd, t_max):
+def _occluded_mesh(scene: Scene, ro, rd, t_max, cfg: RenderConfig):
+    if cfg.traversal == "tlas":
+        return any_hit_tlas(*_tables(scene), ro, rd, t_max)
     return any_hit_wavefront(scene.cw_table(), scene.cw_nodes.shape[0],
                              ro, rd, t_max, max_stack=scene.cw_stack)
 
 
-def _transmission(scene: Scene, ro, rd, t_max):
+def _occluded(scene: Scene, ro, rd, t_max, cfg: RenderConfig):
+    """Occlusion [R] by the meshes or, where there is one, the terrain
+    (the reference's kernel_shadow_heightmap)."""
+    blocked = _occluded_mesh(scene, ro, rd, t_max, cfg)
+    if scene.terrain is not None:
+        from truetrace_tpu_torch.kernels.heightmap import heightmap_any
+        blocked = blocked | heightmap_any(scene.terrain, ro, rd, t_max)
+    return blocked
+
+
+def _transmission(scene: Scene, ro, rd, t_max, cfg: RenderConfig):
     """Shadow-ray transmittance [R,3]: binary visibility on all-opaque
     scenes, else the product of the shadow tints of every surface crossed
     (cutout alpha and stained glass; reference
-    CommonData.cginc:593-634)."""
+    CommonData.cginc:593-634), on the single-BLAS and the two-level path;
+    a terrain blocks."""
     if scene.tri_shadow is None:
-        blocked = _occluded(scene, ro, rd, t_max)
+        blocked = _occluded(scene, ro, rd, t_max, cfg)
         return torch.where(blocked[..., None], 0.0, 1.0)
-    return transmit_wavefront(scene.cw_table(), scene.cw_nodes.shape[0],
-                              scene.tri_shadow, ro, rd, t_max,
-                              max_stack=scene.cw_stack)
+    if cfg.traversal == "tlas":
+        tp = transmit_tlas(*_tables(scene), scene.tri_shadow, ro, rd, t_max)
+    else:
+        tp = transmit_wavefront(scene.cw_table(), scene.cw_nodes.shape[0],
+                                scene.tri_shadow, ro, rd, t_max,
+                                max_stack=scene.cw_stack)
+    if scene.terrain is not None:
+        from truetrace_tpu_torch.kernels.heightmap import heightmap_any
+        tp = torch.where(heightmap_any(scene.terrain, ro, rd, t_max)[
+            ..., None], 0.0, tp)
+    return tp
 
 
 # ---------------------------------------------------------------------------
@@ -379,8 +426,13 @@ def _pick(sel, new, old):
                        new, old)
 
 
+def _rotate(rot, v):
+    """Per-lane 3x3 rotations rot [R,3,3] applied to v [R,3]."""
+    return torch.einsum("rij,rj->ri", rot, v)
+
+
 def _textures(scene: Scene, mat, used, tid, hit, w, rd, gn, sn, hit_ok,
-              cone_w, cone_s, cam, b):
+              cone_w, cone_s, cam, b, inst=None, ter=None):
     """The texture fetches of one bounce (reference kernel_shade atlas
     reads, RayTracingShader.compute:129-159, 623-662): UV transforms,
     tangent-space normal map, albedo with ray-cone mips and the colour
@@ -388,13 +440,17 @@ def _textures(scene: Scene, mat, used, tid, hit, w, rd, gn, sn, hit_ok,
     and the matcap at the primary hit. Updates `mat` in place and returns
     the (possibly normal-mapped) shading normal. `used` names the texture
     slots some material sets; the others would only select their
-    untextured value and are skipped."""
+    untextured value and are skipped. `inst`: the hit instances (their
+    L2W rotates the local tangents); `ter`: (terrain lanes, terrain uv),
+    whose uv replaces the triangle's."""
     from truetrace_tpu_torch.core.math import adjust_color
     from truetrace_tpu_torch.scene.atlas import sample_atlas, transform_uv
     at, rects = scene.atlas, scene.atlas_rects
     uv0 = scene.tri_uv[tid]
     uv = (uv0[:, 0] * w[..., None] + uv0[:, 1] * hit.u[..., None]
           + uv0[:, 2] * hit.v[..., None])
+    if ter is not None:
+        uv = torch.where(ter[0][..., None], ter[1], uv)
     # albedo/emission/matcap use uv_scale; normal/metallic/roughness use
     # uv2_scale with the shared offset (reference AlignUV call sites,
     # RayTracingShader.compute:623-627)
@@ -406,6 +462,9 @@ def _textures(scene: Scene, mat, used, tid, hit, w, rd, gn, sn, hit_ok,
     if "tex_normal" in used:
         nm = sample_atlas(at, rects, mat.tex_normal, uv_s)
         tan = scene.tri_tan[tid]
+        if inst is not None:
+            rot = scene.inst_l2w[torch.clamp(inst, min=0)][:, :, :3]
+            tan = torch.where((inst >= 0)[..., None], _rotate(rot, tan), tan)
         tan_ok = dot(tan, tan) > 1e-8
         t_ = tan - sn * dot(tan, sn)[..., None]
         t_ = t_ / torch.clamp(torch.linalg.norm(t_, dim=-1, keepdim=True),
@@ -566,6 +625,15 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
     # a material has alpha < 1 (then the scene has a shadow tint table)
     cutout = (bool(used & {"tex_albedo", "tex_alpha"})
               or scene.tri_shadow is not None)
+    g_inst = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    terrain = scene.terrain
+    instanced = scene.inst_l2w is not None
+    if terrain is not None:
+        from truetrace_tpu_torch.kernels.heightmap import (
+            heightmap_closest, sample_layers)
+        # the layers' material rows, blended on terrain lanes
+        ter_rows = scene.materials.gather(torch.clamp(terrain.mat_ids,
+                                                      min=0))
     if scene.has_media:
         # the dielectrics each lane is inside, innermost at slot m_sp - 1
         m_ids = torch.full((R, MED_STACK), -1, dtype=torch.int64,
@@ -574,8 +642,21 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
 
     for b in range(cfg.bounces):
         n_trace = n_trace + alive.float().sum()
-        hit = _trace(scene, ro, rd, alive)
+        hit, inst = _trace(scene, ro, rd, alive, cfg)
+        # the terrain is marched after the meshes against their hit t, and
+        # the nearer hit is kept (reference kernel_heightmap after
+        # kernel_trace); a terrain lane keeps the mesh hit's tri and inst
+        ter_take = None
+        if terrain is not None:
+            th = heightmap_closest(terrain, ro, rd, hit.t)
+            ter_take = alive & th.valid & (th.t < hit.t)
+            hit = Hit(t=torch.where(ter_take, th.t, hit.t), tri=hit.tri,
+                      u=hit.u, v=hit.v)
         hit_ok = (hit.tri >= 0) & alive
+        missed = alive & ~(hit.tri >= 0)
+        if ter_take is not None:
+            hit_ok = hit_ok | ter_take
+            missed = missed & ~ter_take
 
         # ---- miss: environment (MIS against env NEE when it is active)
         if has_env_tex:
@@ -586,8 +667,8 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
                 w_env = torch.where(prev_pdf <= 0.0, 1.0,
                                     power_heuristic(prev_pdf, e_pdf))
                 env_rgb = env_rgb * w_env[..., None]
-        radiance = radiance + torch.where(
-            (alive & ~(hit.tri >= 0))[..., None], throughput * env_rgb, 0.0)
+        radiance = radiance + torch.where(missed[..., None],
+                                          throughput * env_rgb, 0.0)
 
         tid = torch.clamp(hit.tri.to(torch.int64), min=0)
         p = ro + rd * hit.t[..., None]
@@ -596,6 +677,13 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
         w = 1.0 - hit.u - hit.v
         sn = normalize(n0[:, 0] * w[..., None] + n0[:, 1] * hit.u[..., None]
                        + n0[:, 2] * hit.v[..., None])
+        if instanced:
+            # instance-local triangles: normals into world space by the
+            # hit instance's L2W
+            rot = scene.inst_l2w[torch.clamp(inst, min=0)][:, :, :3]
+            on_inst = (inst >= 0)[..., None]
+            gn = torch.where(on_inst, normalize(_rotate(rot, gn)), gn)
+            sn = torch.where(on_inst, normalize(_rotate(rot, sn)), sn)
         # face-forward both normals against the incoming ray
         flip = dot(gn, rd) > 0.0
         front = ~flip
@@ -603,10 +691,34 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
         sn = torch.where((dot(sn, rd) > 0.0)[..., None], -sn, sn)
 
         mid = scene.tri_mat[tid]
+        if terrain is not None:
+            # terrain lanes: the heightfield normal, the dominant layer's
+            # material, the blend of the layers' Disney parameters
+            # (reference RayTracingShader.compute:587-616)
+            tn = th.normal
+            tn = torch.where((dot(tn, rd) > 0.0)[..., None], -tn, tn)
+            gn = torch.where(ter_take[..., None], tn, gn)
+            sn = torch.where(ter_take[..., None], tn, sn)
+            front = front | ter_take
+            layer_w = sample_layers(terrain, th.uv)
+            dom = torch.argmax(layer_w, dim=-1)
+            mid = torch.where(ter_take, torch.clamp(terrain.mat_ids[dom],
+                                                    min=0), mid)
         mat = scene.materials.gather(mid)
+        if terrain is not None:
+            for f in dataclasses.fields(mat):
+                cur = getattr(mat, f.name)
+                if cur.dtype.is_floating_point:
+                    mix = torch.einsum("rk,k...->r...", layer_w,
+                                       getattr(ter_rows, f.name))
+                    keep = ter_take.reshape((R,) + (1,) * (cur.dim() - 1))
+                    setattr(mat, f.name, torch.where(keep, mix, cur))
         if used:
             sn = _textures(scene, mat, used, tid, hit, w, rd, gn, sn, hit_ok,
-                           cone_w, cone_s, cam, b)
+                           cone_w, cone_s, cam, b,
+                           inst=inst if instanced else None,
+                           ter=None if terrain is None else (ter_take,
+                                                             th.uv))
         # roughness/metallic remap ranges ((0,1) = identity)
         mat.roughness = torch.clamp(
             mat.rough_remap[:, 0] + mat.roughness
@@ -635,6 +747,9 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
                                    g_albedo)
             g_normal = torch.where(hit_ok[..., None], sn, g_normal)
             g_depth = torch.where(hit_ok, hit.t, g_depth)
+            # the primary hit's instance (per-object motion vectors); a
+            # terrain lane keeps the instance behind it, as in JAX
+            g_inst = torch.where(hit_ok, inst, g_inst)
         if cfg.restir_capture:
             # the first vertex and its material; the second vertex (the
             # GI sample point)
@@ -673,7 +788,8 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
             l_pdf = light_pdf_sa(
                 scene, tid, ro, p, torch.clamp(cos_l, min=1e-6),
                 sn_prev=prev_n,
-                use_tree=use_tree and cfg.nee_mis == "exact") * p_group
+                use_tree=use_tree and cfg.nee_mis == "exact",
+                inst=inst if instanced else None) * p_group
             mis_w = torch.where(prev_pdf <= 0.0, 1.0,
                                 power_heuristic(prev_pdf, l_pdf))
         else:
@@ -774,7 +890,7 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
             # non-candidate lanes shoot zero-length shadow rays
             s_tm = torch.where(cand, dist_l - 2.0 * SHADOW_EPS, 0.0)
             trans = _transmission(scene, sro.contiguous(),
-                                  wi_l.contiguous(), s_tm)
+                                  wi_l.contiguous(), s_tm, cfg)
             radiance = radiance + torch.where(cand[..., None],
                                               contrib * trans, 0.0)
 
@@ -829,7 +945,8 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
         prev_n = sn
 
     stats = {"n_trace": n_trace, "n_shadow": n_shadow, "albedo": g_albedo,
-             "normal": g_normal, "depth": g_depth, "emitted0": r_emit0}
+             "normal": g_normal, "depth": g_depth, "emitted0": r_emit0,
+             "inst": g_inst}
     if query:
         stats["cache_hit_rate"] = n_ch / torch.clamp(n_cq, min=1.0)
     if cfg.restir_capture:

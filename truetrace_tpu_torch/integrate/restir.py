@@ -188,7 +188,7 @@ def restir_gi_from_stats(scene: Scene, cam: Camera, cfg: RenderConfig,
     f, _ = bsdf_eval(mat, flat(n1, 3), flat(wo, 3), wi)
     cos1 = torch.clamp(dot(wi, flat(n1, 3)), min=0.0)
     blocked = _occluded(scene, flat(x1 + n1 * 1e-4, 3).contiguous(),
-                        wi.contiguous(), flat(dist) - 2e-4)
+                        wi.contiguous(), flat(dist) - 2e-4, cfg)
     contrib = f * flat(res_rad, 3) * (cos1 * flat(res_W) * ~blocked)[
         ..., None]
     indirect = torch.where((flat(res_M) > 0)[..., None], contrib, 0.0)

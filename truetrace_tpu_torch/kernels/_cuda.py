@@ -5,10 +5,10 @@ Each `csrc/*.cu` is compiled by its own nvcc process, all started
 together, into `truetrace_tpu_torch/_build/` (git-ignored) at first use,
 for sm_90a with `-O3` and the flags of its own (`NVCC_FLAGS[source]`):
 
-- `traverse.cu`, `step_core.cu`: `--fmad=false`. Their contract is
-  bitwise: every mul and add rounds on its own, as in the plain PyTorch
-  versions, and the few mul-adds that XLA contracts are written as
-  explicit `__fmaf_rn` in the sources.
+- `traverse.cu`, `step_core.cu`, `traverse_tlas.cu`, `heightmap.cu`:
+  `--fmad=false`. Their contract is bitwise: every mul and add rounds on
+  its own, as in the plain PyTorch versions, and the few mul-adds that
+  XLA contracts are written as explicit `__fmaf_rn` in the sources.
 - `atrous.cu`: no `--fmad=false`. Its contract is a tolerance (rtol 1e-4,
   atol 1e-5 against the plain pass), so nvcc contracts mul-adds; the few
   roundings the tolerance cannot absorb are written `__fmul_rn` /
@@ -34,13 +34,14 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-HEADERS = ("cwbvh_core.cuh",)
+HEADERS = ("cwbvh_core.cuh", "traverse_common.cuh")
 _BASE_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 BITWISE_FLAGS = _BASE_FLAGS + ["--fmad=false"]
 # source -> its nvcc flags (see the module docstring for why)
 NVCC_FLAGS = {"traverse.cu": BITWISE_FLAGS, "step_core.cu": BITWISE_FLAGS,
-              "atrous.cu": _BASE_FLAGS}
+              "atrous.cu": _BASE_FLAGS, "traverse_tlas.cu": BITWISE_FLAGS,
+              "heightmap.cu": BITWISE_FLAGS}
 SOURCES = tuple(NVCC_FLAGS)
 
 _lock = threading.Lock()
@@ -49,7 +50,7 @@ build_seconds = None        # wall time of the last build (set by build_all)
 build_log: dict = {}        # source -> nvcc output (ptxas registers, spills),
                             # kept beside each library as <library>.log
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry point; each returns cudaError_t as int
 _SIGNATURES = {
     "traverse.cu": {
@@ -63,6 +64,16 @@ _SIGNATURES = {
     "atrous.cu": {
         "tt_atrous_pass": [P, P, P, I, I, I, I, P],
         "tt_atrous_staged_ok": [I, I, I],
+    },
+    "traverse_tlas.cu": {
+        "tt_tlas_traverse": [P, I, I, I, I, I, P, P, P, I, I, P, P, P, P, P,
+                             P, P],
+        "tt_tlas_transmit": [P, I, I, I, I, I, P, I, P, P, P, I, P, P, P],
+        "tt_tlas_smem": [I],
+    },
+    "heightmap.cu": {
+        "tt_heightmap": [P, I, I] + [F] * 10 + [P, P, P, I, I, I, I, P, P,
+                                                 P, P, P],
     },
 }
 

@@ -76,32 +76,21 @@
 // register cap (it spills), blocks of 64 or 256 threads, a warp-local
 // queue of 32 claimed rays, other refill thresholds, and other trip
 // schedules (both bodies per trip; while-while phases; nodes first).
-#include <algorithm>
-
-#include "cwbvh_core.cuh"
+#include "traverse_common.cuh"
 
 namespace {
 
-constexpr int kMaxStack = 32;
-constexpr int kIterCap = 65536;   // cwbvh_wavefront._ITER_CAP
-constexpr int kBlock = 128;
-constexpr int kRefillMin = 8;     // a warp refills once this many lanes idle
-constexpr unsigned kAll = 0xFFFFFFFFu;
-
-__device__ __forceinline__ uint32_t xor_permute8(uint32_t m, uint32_t v) {
-  if (v & 1u) m = ((m & 0xAAu) >> 1) | ((m & 0x55u) << 1);
-  if (v & 2u) m = ((m & 0xCCu) >> 2) | ((m & 0x33u) << 2);
-  if (v & 4u) m = ((m & 0xF0u) >> 4) | ((m & 0x0Fu) << 4);
-  return m;
-}
-
-// query types (cwbvh_wavefront.CLOSEST, ANY, TRANSMIT)
-constexpr int kClosest = 0, kAny = 1, kTransmit = 2;
-constexpr float kOpaque = 1e-3f;   // cwbvh_wavefront.OPAQUE
-
-__device__ __forceinline__ float max3(float a, float b, float c) {
-  return fmaxf(fmaxf(a, b), c);
-}
+using tt::kAll;
+using tt::kAny;
+using tt::kBlock;
+using tt::kClosest;
+using tt::kIterCap;
+using tt::kMaxStack;
+using tt::kOpaque;
+using tt::kRefillMin;
+using tt::kTransmit;
+using tt::max3;
+using tt::xor_permute8;
 
 template <int K, int Q>
 __global__ void __launch_bounds__(kBlock)
@@ -266,61 +255,18 @@ traverse_kernel(const uint32_t* __restrict__ table, int C, int L, int S,
 
 size_t stack_bytes(int S) { return (size_t)S * kBlock * sizeof(uint2); }
 
-// Resident blocks per SM of one instantiation at S stack entries,
-// memoised per (instantiation, S); 0 when the query fails.
-template <int K, int Q>
-int blocks_per_sm(int S) {
-  static int memo[kMaxStack + 1] = {0};
-  if (memo[S] == 0) {
-    const size_t smem = stack_bytes(S);
-    if (smem > 48 * 1024 &&
-        cudaFuncSetAttribute(traverse_kernel<K, Q>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem) != cudaSuccess)
-      return 0;
-    int n = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n, traverse_kernel<K, Q>, kBlock, smem) != cudaSuccess)
-      return 0;
-    memo[S] = n;
-  }
-  return memo[S];
-}
-
-// The outputs of a query: t, tri, u, v (closest and any hit) or the
-// transmittance [R,3] against the tint table [T,3].
-struct Out {
-  float* t;
-  int* tri;
-  float* u;
-  float* v;
-  const float* tint;
-  int T;
-  float* tp;
-};
-
 template <int K, int Q>
 int launch(const uint32_t* table, int C, int L, int S, const float* ro,
            const float* rd, const float* tm, int R, int* next_ray,
-           const Out& o, cudaStream_t s) {
-  const int per_sm = blocks_per_sm<K, Q>(S);
-  if (per_sm < 1) {
-    const cudaError_t e = cudaGetLastError();
-    return (int)(e != cudaSuccess ? e : cudaErrorInvalidConfiguration);
-  }
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int grid = std::min((R + kBlock - 1) / kBlock, per_sm * sms);
+           const tt::Out& o, cudaStream_t s) {
+  const int grid =
+      tt::persistent_grid<traverse_kernel<K, Q>>(S, stack_bytes(S), R);
+  if (grid < 1) return tt::no_grid();
   traverse_kernel<K, Q><<<grid, kBlock, stack_bytes(S), s>>>(
       table, C, L, S, ro, rd, tm, R, next_ray, o.t, o.tri, o.u, o.v, o.tint,
       o.T, o.tp);
   return (int)cudaGetLastError();
 }
-
-// The leaf widths with a compiled kernel; keep cwbvh_wavefront.CUDA_LEAF_K
-// in step.
-#define TT_FOR_EACH_K(X) X(3) X(4) X(5) X(6) X(8) X(12)
 
 }  // namespace
 
@@ -336,9 +282,9 @@ extern "C" int tt_traverse(const void* table, int W, int C, int L, int S,
   const float* d = static_cast<const float*>(rd);
   const float* tm = static_cast<const float*>(t_max);
   int* nr = static_cast<int*>(next_ray);
-  const Out out{static_cast<float*>(out_t), static_cast<int*>(out_tri),
-                static_cast<float*>(out_u), static_cast<float*>(out_v),
-                nullptr, 0, nullptr};
+  const tt::Out out{static_cast<float*>(out_t), static_cast<int*>(out_tri),
+                    static_cast<float*>(out_u), static_cast<float*>(out_v),
+                    nullptr, nullptr, 0, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TT_CASE(k)                                                         \
   case 10 * k:                                                             \
@@ -366,9 +312,9 @@ extern "C" int tt_transmit(const void* table, int W, int C, int L, int S,
   const float* d = static_cast<const float*>(rd);
   const float* tm = static_cast<const float*>(t_max);
   int* nr = static_cast<int*>(next_ray);
-  const Out out{nullptr, nullptr, nullptr, nullptr,
-                static_cast<const float*>(tint), T,
-                static_cast<float*>(out_tp)};
+  const tt::Out out{nullptr, nullptr, nullptr, nullptr, nullptr,
+                    static_cast<const float*>(tint), T,
+                    static_cast<float*>(out_tp)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TT_CASE(k) \
   case 10 * k:     \

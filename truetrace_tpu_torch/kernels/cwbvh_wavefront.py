@@ -174,15 +174,21 @@ def expand_nodes(nodes: torch.Tensor) -> torch.Tensor:
     return _as_i32(torch.stack(out + [chim, bleaf], 1))
 
 
-def pack_table(nodes: torch.Tensor, leaf_rows: torch.Tensor) -> torch.Tensor:
+def pack_table(nodes: torch.Tensor, leaf_rows: torch.Tensor,
+               inst_rows: torch.Tensor | None = None) -> torch.Tensor:
     """One [C+L, 10K] int32 table: expanded node rows zero-padded to the
-    leaf-row width, then the leaf rows' bits."""
+    leaf-row width, then the leaf rows' bits; an instanced scene's
+    instance rows [I, 10K] (kernels/cwbvh_tlas.py) follow as a third
+    section."""
     exp = expand_nodes(nodes)
     W = leaf_rows.shape[1]
     if W % 10 or W < 30:
         raise ValueError(f"bad leaf-row width {W} (10K words, K >= 3)")
     exp = torch.nn.functional.pad(exp, (0, W - exp.shape[1]))
-    return torch.cat([exp, leaf_rows.contiguous().view(torch.int32)], 0)
+    parts = [exp, leaf_rows.contiguous().view(torch.int32)]
+    if inst_rows is not None:
+        parts.append(inst_rows.contiguous().view(torch.int32))
+    return torch.cat(parts, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -456,11 +462,11 @@ def transmit_plain(table, n_nodes, tint, ro, rd, t_max, max_stack: int,
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _launch(table, n_nodes, ro, rd, t_max, query: int, max_stack: int,
-            tint=None):
-    """Check the arguments, allocate the outputs and the ray counter the
-    warps pull from, launch traverse.cu: a Hit (CLOSEST, ANY) or the
-    transmittance [R,3] (TRANSMIT, against tint [T,3])."""
+def _launch_args(table, ro, rd, t_max, max_stack: int, tint=None,
+                 src: str = "traverse.cu"):
+    """Check the arguments a traversal kernel of `src` takes (the table's
+    dtype, width and alignment, the rays, the stack depth, the tint table
+    where given) and return t_max as a contiguous [R] float32 tensor."""
     dev = ro.device
     R = ro.shape[0]
     for name, x, dt in (("table", table, torch.int32),
@@ -472,12 +478,11 @@ def _launch(table, n_nodes, ro, rd, t_max, query: int, max_stack: int,
         raise ValueError(f"ro/rd must be [R,3], got {tuple(ro.shape)}, "
                          f"{tuple(rd.shape)}")
     N, W = table.shape
-    if W % 10 or W < 30 or not 0 < n_nodes < N or N >= (1 << 31) // W:
-        raise ValueError(f"bad table {tuple(table.shape)} for "
-                         f"{n_nodes} nodes")
+    if W % 10 or W < 30 or N >= (1 << 31) // W:
+        raise ValueError(f"bad table {tuple(table.shape)}")
     K = W // 10
     if K not in CUDA_LEAF_K:
-        raise ValueError(f"traverse.cu is built for leaf rows of K in "
+        raise ValueError(f"{src} is built for leaf rows of K in "
                          f"{CUDA_LEAF_K}, not K = {K}")
     # rows are read 16 bytes at a time when 10K words is a multiple of 4
     # (K even), else 8 bytes at a time
@@ -488,12 +493,7 @@ def _launch(table, n_nodes, ro, rd, t_max, query: int, max_stack: int,
                          f"aligned")
     if not 1 <= max_stack <= MAX_STACK_CUDA:
         raise ValueError(f"max_stack {max_stack} outside 1..{MAX_STACK_CUDA}")
-    if isinstance(t_max, torch.Tensor):
-        tm = t_max.to(device=dev, dtype=torch.float32).expand(R).contiguous()
-    else:
-        tm = torch.full((R,), float(t_max), dtype=torch.float32, device=dev)
-    next_ray = torch.zeros((1,), dtype=torch.int32, device=dev)
-    if query == TRANSMIT:
+    if tint is not None:
         T = tint.shape[0]
         if (tint.device != dev or tint.dtype != torch.float32
                 or tint.shape != (T, 3) or T < 1
@@ -501,6 +501,28 @@ def _launch(table, n_nodes, ro, rd, t_max, query: int, max_stack: int,
             raise ValueError(f"tint: need a contiguous float32 [T,3] tensor "
                              f"on {dev}, got {tuple(tint.shape)} "
                              f"{tint.dtype} on {tint.device}")
+    if isinstance(t_max, torch.Tensor):
+        return t_max.to(device=dev, dtype=torch.float32).expand(
+            R).contiguous()
+    return torch.full((R,), float(t_max), dtype=torch.float32, device=dev)
+
+
+def _launch(table, n_nodes, ro, rd, t_max, query: int, max_stack: int,
+            tint=None):
+    """Check the arguments, allocate the outputs and the ray counter the
+    warps pull from, launch traverse.cu: a Hit (CLOSEST, ANY) or the
+    transmittance [R,3] (TRANSMIT, against tint [T,3])."""
+    dev = ro.device
+    R = ro.shape[0]
+    tm = _launch_args(table, ro, rd, t_max, max_stack,
+                      tint if query == TRANSMIT else None)
+    N, W = table.shape
+    if not 0 < n_nodes < N:
+        raise ValueError(f"bad table {tuple(table.shape)} for "
+                         f"{n_nodes} nodes")
+    next_ray = torch.zeros((1,), dtype=torch.int32, device=dev)
+    if query == TRANSMIT:
+        T = tint.shape[0]
         tp = torch.empty((R, 3), dtype=torch.float32, device=dev)
         err = _cuda.lib("traverse.cu").tt_transmit(
             table.data_ptr(), W, n_nodes, N - n_nodes, max_stack,

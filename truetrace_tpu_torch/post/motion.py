@@ -1,9 +1,11 @@
-"""Camera motion vectors for temporal reprojection.
+"""Motion vectors for temporal reprojection.
 
-Port of `truetrace_tpu/post/motion.py` (camera-only vectors; per-object
-motion of instanced scenes is ROADMAP.md A.14). Each pixel's world
-position is rebuilt from the current camera ray and its depth, projected
-into the previous camera, and reported as the pixel offset (cur - prev).
+Port of `truetrace_tpu/post/motion.py`. Each pixel's world position is
+rebuilt from the current camera ray and its depth, projected into the
+previous camera, and reported as the pixel offset (cur - prev). On an
+instanced scene, a pixel whose primary hit lies on an instance is first
+carried back through that instance's previous transform (per-object
+motion).
 """
 from __future__ import annotations
 
@@ -52,6 +54,52 @@ def motion_vectors(prev_cam: Camera, cam: Camera, depth: torch.Tensor):
     H, W = depth.shape
     dev = depth.device
     p = world_from_depth(cam, depth)
+    px, py, ok = project(prev_cam, p, W, H)
+    cur_x = torch.arange(W, dtype=torch.float32, device=dev)[None, :] + 0.5
+    cur_y = torch.arange(H, dtype=torch.float32, device=dev)[:, None] + 0.5
+    keep = ok & (depth > 0)
+    dx = torch.where(keep, cur_x - 0.5 - px, 1e4)
+    dy = torch.where(keep, cur_y - 0.5 - py, 1e4)
+    return torch.stack([dx, dy], -1)
+
+
+def _inv3(m: torch.Tensor) -> torch.Tensor:
+    """Inverses of [I,3,3] matrices by the adjugate: elementwise work
+    only, so no solver launch and no error check that reads the card back
+    (torch.linalg.inv's)."""
+    c = lambda i, j: m[:, i % 3, j % 3]
+    cof = torch.stack([torch.stack([
+        c(i + 1, j + 1) * c(i + 2, j + 2) - c(i + 1, j + 2) * c(i + 2, j + 1)
+        for j in range(3)], -1) for i in range(3)], -2)      # cofactors
+    det = (m[:, 0] * cof[:, 0]).sum(-1)
+    return cof.transpose(1, 2) / det[:, None, None]
+
+
+def object_motion_transforms(l2w_prev: torch.Tensor, l2w_cur: torch.Tensor):
+    """Per-instance [I,3,4] transforms taking a current-frame world point
+    on instance i to its previous-frame position: l2w_prev_i o
+    inv(l2w_cur_i), in the 3x4 row layout (scene/instances.py _mat34)."""
+    A_cur = l2w_cur[:, :, :3]
+    A_prev = l2w_prev[:, :, :3]
+    A = torch.einsum("iab,ibc->iac", A_prev, _inv3(A_cur))
+    t = l2w_prev[:, :, 3] - torch.einsum("iab,ib->ia", A, l2w_cur[:, :, 3])
+    return torch.cat([A, t[..., None]], -1)
+
+
+def motion_vectors_objects(prev_cam: Camera, cam: Camera,
+                           depth: torch.Tensor, inst: torch.Tensor,
+                           l2w_prev: torch.Tensor, l2w_cur: torch.Tensor):
+    """Per-pixel motion [H,W,2] with per-object motion: pixels whose
+    primary hit lies on instance i (inst >= 0, the integrator's "inst"
+    stat) are carried back through instance i's previous transform before
+    the projection into the previous camera."""
+    H, W = depth.shape
+    dev = depth.device
+    p = world_from_depth(cam, depth)
+    M = object_motion_transforms(l2w_prev, l2w_cur)
+    mi = M[torch.clamp(inst, 0, M.shape[0] - 1)]            # [H,W,3,4]
+    p_obj = torch.einsum("hwab,hwb->hwa", mi[..., :3], p) + mi[..., 3]
+    p = torch.where((inst >= 0)[..., None], p_obj, p)
     px, py, ok = project(prev_cam, p, W, H)
     cur_x = torch.arange(W, dtype=torch.float32, device=dev)[None, :] + 0.5
     cur_y = torch.arange(H, dtype=torch.float32, device=dev)[:, None] + 0.5

@@ -10,7 +10,9 @@ per-frame resolve, ReSTIR GI from the trace's captures, the denoiser
 (SVGF, ASVGF with its stratum replay or ReSTIR GI's gradients, ReCur,
 the neural U-Net with or without its temporal blend, or none), the
 firefly clamp, TAAU upscaling, accumulation and post-processing (with
-temporal auto exposure). Per-frame state is an explicit `FrameState`
+temporal auto exposure). On an instanced scene the motion vectors carry
+each pixel's primary-hit instance back through its previous transform
+(per-object motion). Per-frame state is an explicit `FrameState`
 threaded through `Renderer.step`, which runs eagerly on the scene's
 device. `Renderer.graph_step` is the counterpart of the JAX `jit_step`:
 on a CUDA card it captures the frame once as a CUDA graph and replays it,
@@ -39,7 +41,8 @@ from truetrace_tpu_torch.integrate.restir_di import (
 from truetrace_tpu_torch.post.asvgf import (
     ASVGFState, asvgf_filter, asvgf_gradient, gradient_alpha,
     sample_id_tensor)
-from truetrace_tpu_torch.post.motion import motion_vectors
+from truetrace_tpu_torch.post.motion import (
+    motion_vectors, motion_vectors_objects)
 from truetrace_tpu_torch.post.neural import denoise as neural_denoise
 from truetrace_tpu_torch.post.neural import load_denoiser
 from truetrace_tpu_torch.post.pipeline import (
@@ -133,18 +136,20 @@ class FrameState:
     cache: Optional[RadianceCache] = None       # the radiance cache
     taau_history: Optional[torch.Tensor] = None  # output-size TAAU history
     # partial rendering's compose buffers at the traced size, flat [h*w,
-    # ...]: rad, albedo, normal, depth, emitted0; direct, x1, mat1 with
+    # ...]: rad, albedo, normal, depth, emitted0, inst (the primary hit's
+    # instance, -1 off instances); direct, x1, mat1 with
     # ReSTIR GI; di_x1, di_n, di_d (the prepass G-buffer) with ReSTIR DI
     partial: Optional[dict] = None
     exposure: Optional[torch.Tensor] = None     # [] adapted; < 0: cold
     neural_hist: Optional[torch.Tensor] = None  # neural_taa's last output
+    # the last frame's instance transforms [I,3,4] (per-object motion)
+    prev_inst_l2w: Optional[torch.Tensor] = None
 
     @staticmethod
     def from_numpy(d: dict, device) -> "FrameState":
         """FrameState from the JAX FrameState's leaves (numpy arrays in
-        nested dicts keyed by field name). The JAX partial dict's `inst`
-        (the instance G-buffer, -1 on a single-BLAS scene; ROADMAP.md
-        A.14) is left out, and integer buffers become int64."""
+        nested dicts keyed by field name); integer buffers become
+        int64."""
         def t(a):
             if a is None:
                 return None
@@ -161,9 +166,10 @@ class FrameState:
             if d.get("prev_cam") is not None else None,
             taau_history=t(d.get("taau_history")),
             partial=None if part is None else {
-                k: t(v) for k, v in part.items() if k != "inst"},
+                k: t(v) for k, v in part.items()},
             exposure=t(d.get("exposure")),
             neural_hist=t(d.get("neural_hist")),
+            prev_inst_l2w=t(d.get("prev_inst_l2w")),
             **{k: cls.from_numpy(d[k], device) if d.get(k) is not None
                else None for k, cls in _PARTS.items()})
 
@@ -186,7 +192,9 @@ class Renderer:
         z = lambda *s, dtype=torch.float32: torch.zeros(
             (h * w,) + s, dtype=dtype, device=dev)
         p = dict(rad=z(3), albedo=torch.ones((h * w, 3), device=dev),
-                 normal=z(3), depth=z(), emitted0=z(3))
+                 normal=z(3), depth=z(), emitted0=z(3),
+                 inst=torch.full((h * w,), -1, dtype=torch.int64,
+                                 device=dev))
         if self.cfg.use_restir:
             p.update(direct=z(3), x1=z(3), mat1=z(dtype=torch.int64))
         if self.cfg.use_restir_di:
@@ -238,7 +246,9 @@ class Renderer:
         keep the frame free of host syncs). Temporal passes and the
         reservoirs reproject with motion vectors; under a camera move the
         cache merges re-levelled cells. Passing `scene` swaps the
-        geometry and restarts accumulation."""
+        geometry (an update_instance_transforms result, say: its
+        instances' motion is in the next frame's vectors) and restarts
+        accumulation."""
         if scene is not None:
             self.scene = scene
             state = self.reset_accumulation(state)
@@ -256,21 +266,36 @@ class Renderer:
                                **new)
         return display, new_state.accum.image, new_state
 
-    def _frame(self, state: FrameState, cam: Camera, sid, cam_moved: bool):
+    def _frame(self, state: FrameState, cam: Camera, sid, cam_moved: bool,
+               scene: Optional[Scene] = None):
         """The device work of one frame from `state`, seen by `cam`, with
         sample id `sid` (a Python int, or a 0-d int64 tensor on the card,
         as graph_step captures it: the partial subset, the TAAU jitter
         and the warm-up gate then come from it on the device); with
         `cam_moved`, partial rendering reprojects its buffers and the
-        cache runs its reprojection merge. Returns (display, the new
-        state's fields other than the sample id and camera)."""
-        cfg, rcfg, scene = self.cfg, self.rcfg, self.scene
+        cache runs its reprojection merge; `scene` in place of the
+        renderer's. Returns (display, the new state's fields other than
+        the sample id and camera)."""
+        cfg, rcfg = self.cfg, self.rcfg
+        scene = scene if scene is not None else self.scene
         dev = scene.device
         h, w = cfg.internal_size
         prev_cam = state.prev_cam
-        motion_of = lambda depth: (None if prev_cam is None else
-                                   motion_vectors(prev_cam, cam, depth))
+
+        def motion_of(depth, inst):
+            """Per-object motion where the scene is instanced and the last
+            frame's transforms are known, else the camera's."""
+            if prev_cam is None:
+                return None
+            if state.prev_inst_l2w is not None and \
+                    scene.inst_l2w is not None:
+                return motion_vectors_objects(
+                    prev_cam, cam, depth, inst.reshape(depth.shape),
+                    state.prev_inst_l2w, scene.inst_l2w)
+            return motion_vectors(prev_cam, cam, depth)
+
         new = {k: getattr(state, k) for k in (*_PARTS, *_EXTRA)}
+        new["prev_inst_l2w"] = scene.inst_l2w
         k = cfg.partial_rendering
         if k > 1:
             # the rolling 1/k interleave: only these pixels are traced;
@@ -280,7 +305,7 @@ class Renderer:
             if cam_moved and prev_cam is not None:
                 # stale pixels follow the new view (the traced subset
                 # overwrites them after)
-                mv = motion_vectors(prev_cam, cam, P["depth"].reshape(h, w))
+                mv = motion_of(P["depth"].reshape(h, w), P["inst"])
                 ys = torch.clamp(torch.round(torch.arange(h, device=dev)[
                     :, None] - mv[..., 1]).to(torch.int64), 0, h - 1)
                 xs = torch.clamp(torch.round(torch.arange(w, device=dev)[
@@ -313,7 +338,7 @@ class Renderer:
             di_sample, new["restir_di"] = restir_di_reservoirs(
                 scene, cam, rcfg, state.restir_di, sid, g_x1.reshape(h, w, 3),
                 g_n.reshape(h, w, 3), g_d, prev_cam=prev_cam,
-                motion=motion_of(g_d) if k == 1 else None)
+                motion=motion_of(g_d, gst["inst"]) if k == 1 else None)
             if k > 1:
                 # the main trace shades the fresh subset only
                 di_sample = {key: v[pixel] for key, v in di_sample.items()}
@@ -339,14 +364,13 @@ class Renderer:
         if k > 1:
             # compose the frame: stale pixels keep their (reprojected)
             # values, the traced subset scatters fresh ones
-            for key, src in (("rad", rad), ("albedo", st["albedo"]),
-                             ("normal", st["normal"]),
-                             ("depth", st["depth"]),
-                             ("emitted0", st["emitted0"])):
-                P[key] = scatter(key, src)
+            for key in ("albedo", "normal", "depth", "emitted0", "inst"):
+                P[key] = scatter(key, st[key])
+            P["rad"] = scatter("rad", rad)
             rad = P["rad"]
             comp = dict(st, albedo=P["albedo"], normal=P["normal"],
-                        depth=P["depth"], emitted0=P["emitted0"])
+                        depth=P["depth"], emitted0=P["emitted0"],
+                        inst=P["inst"])
             if cfg.use_restir:
                 # the persistent channels (the final shade reads every
                 # pixel); the candidate channels go into zeros, so stale
@@ -368,7 +392,7 @@ class Renderer:
         normal = st["normal"].reshape(h, w, 3)
         depth = st["depth"].reshape(h, w)
         emissive = st["emitted0"].reshape(h, w, 3)
-        motion = motion_of(depth)
+        motion = motion_of(depth, st["inst"])
 
         # ---- ReSTIR GI: the reservoir-shaded indirect replaces the
         # traced one; its temporal-validation gradients feed ASVGF
@@ -452,6 +476,9 @@ class Renderer:
 
 
 _CAM = ("c2w", "fov_y", "aperture", "focus_dist")
+# the FrameState fields that are one tensor each
+_SINGLE = ("taa_history", "taau_history", "exposure", "neural_hist",
+           "prev_inst_l2w")
 
 
 def _fields(prefix: str, obj) -> list:
@@ -478,12 +505,13 @@ def _build(cls, t: dict, prefix: str):
 def _tensors(state: FrameState) -> list:
     """(name, tensor) of a frame state's tensors besides its cameras:
     the accumulator, the TAA and TAAU histories, the exposure, the
-    neural_taa history, partial rendering's buffers ("partial.rad",
+    neural_taa history, the last frame's instance transforms, partial
+    rendering's buffers ("partial.rad",
     ...), and every tensor of the denoiser's histories, the ReSTIR GI
     and DI reservoirs and the radiance cache."""
     out = [("accum.image", state.accum.image),
            ("accum.count", state.accum.count)]
-    for key in ("taa_history", "taau_history", "exposure", "neural_hist"):
+    for key in _SINGLE:
         if getattr(state, key) is not None:
             out.append((key, getattr(state, key)))
     if state.partial is not None:
@@ -511,8 +539,7 @@ def _state(t: dict, sample: int, prev: str) -> FrameState:
         accum=Accumulator(image=t["accum.image"], count=t["accum.count"]),
         sample=sample, prev_cam=Camera(**{k: t[f"{prev}.{k}"] for k in _CAM}),
         partial=partial or None,
-        **{k: t.get(k) for k in ("taa_history", "taau_history", "exposure",
-                                 "neural_hist")}, **parts)
+        **{k: t.get(k) for k in _SINGLE}, **parts)
 
 
 def _capture(fn, device):
@@ -537,12 +564,50 @@ def _check_device(device):
                          f"on a CUDA card; Renderer.step runs on {device}")
 
 
+def _scene_parts(scene: Scene) -> tuple:
+    """(the scene's tensors as (name, tensor), nested parts and the packed
+    traversal table included; the values a captured frame takes as fixed:
+    shapes, dtypes and the Python fields)."""
+    tensors, fixed = [], []
+
+    def walk(prefix, obj):
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            name = f"{prefix}{f.name}"
+            if isinstance(v, torch.Tensor):
+                tensors.append((name, v))
+                fixed.append((name, tuple(v.shape), v.dtype))
+            elif dataclasses.is_dataclass(v):
+                walk(f"{name}.", v)
+            elif name != "lbvh_depth":
+                fixed.append((name, v))
+
+    scene.cw_table()
+    walk("", scene)
+    return tensors, tuple(fixed)
+
+
+def _clone_scene(obj):
+    """A copy of a scene (or a part of one) with every tensor cloned."""
+    return dataclasses.replace(obj, **{
+        f.name: (getattr(obj, f.name).clone()
+                 if isinstance(getattr(obj, f.name), torch.Tensor)
+                 else _clone_scene(getattr(obj, f.name))
+                 if dataclasses.is_dataclass(getattr(obj, f.name))
+                 else getattr(obj, f.name))
+        for f in dataclasses.fields(obj)})
+
+
 class _Captured:
     """The frame captured as a CUDA graph: the buffers it reads (state,
-    previous camera, camera, sample id), the graph, its display."""
+    previous camera, camera, sample id, a copy of the scene), the graph,
+    its display."""
 
     def __init__(self, r: Renderer, state: FrameState, cam_moved: bool):
-        self.scene = r.scene
+        self.src = r.scene
+        r.scene.cw_table()
+        self.scene = _clone_scene(r.scene)
+        self.tensors, self.fixed = _scene_parts(self.scene)
         self.sid = torch.zeros((), dtype=torch.int64, device=r.scene.device)
         self.buf = {k: v.clone() for k, v in self._inputs(state, r.cam)}
         st_in = _state(self.buf, 0, "prev_cam")
@@ -550,7 +615,8 @@ class _Captured:
 
         def body():
             st = r.reset_accumulation(st_in) if cam_moved else st_in
-            display, new = r._frame(st, cam_in, self.sid, cam_moved)
+            display, new = r._frame(st, cam_in, self.sid, cam_moved,
+                                    scene=self.scene)
             # the new state goes back into the buffers the next replay
             # reads
             for k, v in _tensors(FrameState(sample=0, prev_cam=cam_in,
@@ -568,6 +634,20 @@ class _Captured:
         return (_tensors(state) + _cams("prev_cam", state.prev_cam)
                 + _cams("cam", cam))
 
+    def load(self, scene: Scene) -> bool:
+        """Copy `scene` into the captured scene's tensors on the device,
+        when its shapes, dtypes and Python fields are the captured ones
+        (its light-BVH depth no deeper: the captured descent loops run
+        the extra levels as no-ops). Returns False, copying nothing,
+        when the scene needs a new capture."""
+        tensors, fixed = _scene_parts(scene)
+        if fixed != self.fixed or scene.lbvh_depth > self.scene.lbvh_depth:
+            return False
+        for (_, dst), (_, src) in zip(self.tensors, tensors):
+            dst.copy_(src)
+        self.src = scene
+        return True
+
     def run(self, state: FrameState, cam: Camera):
         """Set the sample id, copy in what the buffers do not hold
         already (device to device), replay."""
@@ -583,14 +663,19 @@ class _Captured:
 class GraphFrame:
     """`Renderer.step` as a CUDA graph (made by `Renderer.graph_step`).
 
-    `frame(state, cam=None)` returns (display, radiance, new_state) as
-    `step` does, with the camera moved to `cam` when one is passed, and
-    accumulation restarted every frame when `cam_moved` is true and never
-    otherwise. A frame without a previous camera or TAA history (the
-    first after `init_state`) runs eagerly. The next one is captured
-    (`torch.cuda.CUDAGraph`; again after the renderer's scene changes)
-    and every later one replays it: the device runs the frame's kernels
-    back to back with no host work between them.
+    `frame(state, cam=None, scene=None)` returns (display, radiance,
+    new_state) as `step` does, with the camera moved to `cam` and the
+    scene swapped for `scene` when they are passed, and accumulation
+    restarted every frame when `cam_moved` is true and never otherwise
+    (a new scene does not restart it, as the JAX `jit_step`, which takes
+    the scene as a traced argument). A frame without a previous camera or
+    TAA history (the first after `init_state`) runs eagerly. The next one
+    is captured (`torch.cuda.CUDAGraph`) with a copy of the scene, and
+    every later one replays it: the device runs the frame's kernels back
+    to back with no host work between them. A new scene whose tensors
+    have the captured copy's shapes (an update_instance_transforms
+    result) is copied into that copy on the device, the traversal table
+    included, and replayed; a scene of other shapes is captured anew.
 
     The graph reads buffers of its own and, as its last work, writes the
     new state back into them. Before a replay the sample id is set by a
@@ -609,8 +694,11 @@ class GraphFrame:
         self.captures = 0
         self._captured: Optional[_Captured] = None
 
-    def __call__(self, state: FrameState, cam: Optional[Camera] = None):
+    def __call__(self, state: FrameState, cam: Optional[Camera] = None,
+                 scene: Optional[Scene] = None):
         r = self.r
+        if scene is not None:
+            r.scene = scene
         _check_device(r.scene.device)
         if cam is not None:
             r.cam = cam.to(r.scene.device)
@@ -618,7 +706,8 @@ class GraphFrame:
             if self.cam_moved:
                 state = r.reset_accumulation(state)
             return r.step(state, cam_moved=self.cam_moved)
-        if self._captured is None or self._captured.scene is not r.scene:
+        cap = self._captured
+        if cap is None or (cap.src is not r.scene and not cap.load(r.scene)):
             self._captured = _Captured(r, state, self.cam_moved)
             self.captures += 1
         return self._captured.run(state, r.cam)

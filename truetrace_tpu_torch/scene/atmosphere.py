@@ -1,0 +1,364 @@
+"""Physically based sky: the atmosphere LUTs and the baked sky env map.
+
+Port of `truetrace_tpu/scene/atmosphere.py` (Hillaire 2020: the
+transmittance LUT, the multiple-scattering LUT Psi_ms(altitude, sun
+angle) and the ground irradiance LUT, then a single-scattering march with
+Psi_ms per step for the sky radiance). A host-side bake in plain torch
+float32 on the CPU: it runs once per sun position and no frame runs it;
+`bake_sky_env` hands its equirect image to build_env_cdf, whose EnvMap
+goes to `device`. The JAX package's terrain scenes light themselves with
+it (scripts/demo.py scene 4).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+R_GROUND = 6360.0
+R_TOP = 6460.0
+H_RAYLEIGH = 8.0
+H_MIE = 1.2
+BETA_R = (5.802e-3, 13.558e-3, 33.1e-3)    # /km
+BETA_M_SCAT = 3.996e-3
+BETA_M_ABS = 4.4e-3
+BETA_OZONE = (0.650e-3, 1.881e-3, 0.085e-3)
+MIE_G = 0.8
+GROUND_ALBEDO = 0.3
+
+T_W, T_H = 256, 64          # transmittance LUT
+N_STEPS = 40
+MS_N = 32                   # multiple-scattering LUT (mu_s x altitude)
+MS_DIRS = 64
+MS_STEPS = 20
+IR_W = 64                   # ground irradiance LUT over mu_s
+
+F32 = torch.float32
+
+
+class AtmosphereLUTs(NamedTuple):
+    transmittance: torch.Tensor            # [T_H, T_W, 3]
+    multiscatter: Optional[torch.Tensor] = None   # [MS_N, MS_N, 3]
+    irradiance: Optional[torch.Tensor] = None     # [IR_W, 3]
+
+
+def _c3(v) -> torch.Tensor:
+    return torch.tensor(v, dtype=F32)
+
+
+def _densities(h):
+    """(rayleigh, mie, ozone) density profiles at altitude h (km)."""
+    rho_r = torch.exp(-torch.clamp(h, min=0.0) / H_RAYLEIGH)
+    rho_m = torch.exp(-torch.clamp(h, min=0.0) / H_MIE)
+    rho_o = torch.clamp(1.0 - (h - 25.0).abs() / 15.0, min=0.0)
+    return rho_r, rho_m, rho_o
+
+
+def _extinction(h):
+    rho_r, rho_m, rho_o = _densities(h)
+    return (_c3(BETA_R) * rho_r[..., None]
+            + (BETA_M_SCAT + BETA_M_ABS) * rho_m[..., None]
+            + _c3(BETA_OZONE) * rho_o[..., None])
+
+
+def _scattering(h):
+    rho_r, rho_m, _ = _densities(h)
+    return _c3(BETA_R) * rho_r[..., None] + BETA_M_SCAT * rho_m[..., None]
+
+
+def _dist_to_top(r, mu):
+    disc = r * r * (mu * mu - 1.0) + R_TOP * R_TOP
+    return torch.clamp(-r * mu + torch.sqrt(torch.clamp(disc, min=0.0)),
+                       min=0.0)
+
+
+def _dist_to_ground(r, mu):
+    """Distance to the ground, +inf where the ray misses it."""
+    disc = r * r * (mu * mu - 1.0) + R_GROUND * R_GROUND
+    hit = (disc >= 0.0) & (mu < 0.0)
+    d = -r * mu - torch.sqrt(torch.clamp(disc, min=0.0))
+    return torch.where(hit & (d > 0.0), d, math.inf)
+
+
+_H_ATM = float(np.float32(math.sqrt(R_TOP ** 2 - R_GROUND ** 2)))
+
+
+def _uv_to_rmu(u, v):
+    rho = v * _H_ATM
+    r = torch.sqrt(rho * rho + R_GROUND * R_GROUND)
+    d_min = R_TOP - r
+    d_max = rho + _H_ATM
+    d = d_min + u * (d_max - d_min)
+    mu = torch.where(d > 1e-6, (_H_ATM * _H_ATM - rho * rho - d * d)
+                     / torch.clamp(2.0 * r * d, min=1e-9), 1.0)
+    return r, torch.clamp(mu, -1.0, 1.0)
+
+
+def _rmu_to_uv(r, mu):
+    rho = torch.sqrt(torch.clamp(r * r - R_GROUND * R_GROUND, min=0.0))
+    d = _dist_to_top(r, mu)
+    d_min = R_TOP - r
+    d_max = rho + _H_ATM
+    u = torch.clamp((d - d_min) / torch.clamp(d_max - d_min, min=1e-9),
+                    0.0, 1.0)
+    v = torch.clamp(rho / _H_ATM, 0.0, 1.0)
+    return u, v
+
+
+def build_transmittance() -> torch.Tensor:
+    """[T_H, T_W, 3] transmittance to the top of the atmosphere."""
+    vs, us = torch.meshgrid((torch.arange(T_H, dtype=F32) + 0.5) / T_H,
+                            (torch.arange(T_W, dtype=F32) + 0.5) / T_W,
+                            indexing="ij")
+    r, mu = _uv_to_rmu(us, vs)
+    d = _dist_to_top(r, mu)
+    ts = (torch.arange(N_STEPS, dtype=F32) + 0.5) / N_STEPS
+    od = torch.zeros((*r.shape, 3))
+    for i in range(N_STEPS):
+        t = ts[i] * d
+        rad = torch.sqrt(r * r + t * t + 2.0 * r * mu * t)
+        od = od + _extinction(rad - R_GROUND) * (d / N_STEPS)[..., None]
+    return torch.exp(-od)
+
+
+def sample_transmittance(lut, r, mu):
+    u, v = _rmu_to_uv(r, mu)
+    x = torch.clamp((u * T_W).to(torch.int64), 0, T_W - 1)
+    y = torch.clamp((v * T_H).to(torch.int64), 0, T_H - 1)
+    return lut[y, x]
+
+
+def _earth_lit(rad, mu_s):
+    """1 where the planet does not shadow the sun at radius rad."""
+    return (mu_s > -torch.sqrt(torch.clamp(
+        1.0 - (R_GROUND / rad) ** 2, min=0.0))).to(F32)
+
+
+def _fibonacci_sphere(n: int) -> torch.Tensor:
+    i = np.arange(n) + 0.5
+    phi = np.pi * (1.0 + 5.0 ** 0.5) * i
+    y = 1.0 - 2.0 * i / n
+    s = np.sqrt(np.maximum(1.0 - y * y, 0.0))
+    return torch.from_numpy(np.stack([s * np.cos(phi), y, s * np.sin(phi)],
+                                     axis=-1).astype(np.float32))
+
+
+def build_multiscatter(tlut) -> torch.Tensor:
+    """[MS_N, MS_N, 3] Psi_ms(r, mu_s): the radiance all scattering
+    orders >= 2 add per unit scattering coefficient (isotropic
+    approximation: the second order over the sphere and the geometric
+    transfer 1 / (1 - f_ms)). Rows: altitude; columns: mu_s."""
+    g = (torch.arange(MS_N, dtype=F32) + 0.5) / MS_N
+    mu_s = 2.0 * g - 1.0
+    r0 = R_GROUND + g * (R_TOP - R_GROUND) * 0.99 + 0.05
+    r, mu_s = torch.meshgrid(r0, mu_s, indexing="ij")
+    r = r.reshape(-1)
+    mu_s = mu_s.reshape(-1)
+    G = r.shape[0]
+    dirs = _fibonacci_sphere(MS_DIRS)
+    mu_v = dirs[:, 1]
+    sin_s = torch.sqrt(torch.clamp(1.0 - mu_s * mu_s, min=0.0))
+    cos_vs = mu_s[:, None] * mu_v[None, :] + sin_s[:, None] * dirs[None, :, 2]
+    rg = r[:, None]
+    d_g = _dist_to_ground(rg, mu_v[None, :])
+    d_t = _dist_to_top(rg, mu_v[None, :])
+    hits_ground = torch.isfinite(d_g)
+    t_end = torch.where(hits_ground, d_g, d_t)
+    dt = t_end / MS_STEPS
+    od = torch.zeros((G, MS_DIRS, 3))
+    L2 = torch.zeros((G, MS_DIRS, 3))
+    fms = torch.zeros((G, MS_DIRS, 3))
+    p_u = 1.0 / (4.0 * math.pi)
+    for i in range(MS_STEPS):
+        t = (i + 0.5) / MS_STEPS * t_end
+        rad = torch.sqrt(rg * rg + t * t + 2.0 * rg * mu_v[None, :] * t)
+        h = rad - R_GROUND
+        od = od + _extinction(h) * dt[..., None]
+        t_view = torch.exp(-od)
+        sig_s = _scattering(h)
+        mu_sx = torch.clamp((rg * mu_s[:, None] + t * cos_vs) / rad,
+                            -1.0, 1.0)
+        t_sun = sample_transmittance(tlut, rad, mu_sx)
+        lit = _earth_lit(rad, mu_sx)
+        L2 = L2 + t_view * sig_s * p_u * t_sun * lit[..., None] \
+            * dt[..., None]
+        fms = fms + t_view * sig_s * dt[..., None]
+    rad_g = torch.full_like(t_end, R_GROUND)
+    mu_sg = torch.clamp((rg * mu_s[:, None] + t_end * cos_vs) / rad_g,
+                        -1.0, 1.0)
+    t_sun_g = sample_transmittance(tlut, rad_g, mu_sg)
+    L2 = L2 + torch.where(
+        hits_ground[..., None],
+        torch.exp(-od) * (GROUND_ALBEDO / math.pi)
+        * torch.clamp(mu_sg, min=0.0)[..., None] * t_sun_g, 0.0)
+    L2 = L2.mean(1)
+    fms = fms.mean(1)
+    psi = L2 / torch.clamp(1.0 - fms, min=1e-3)
+    return psi.reshape(MS_N, MS_N, 3)
+
+
+def sample_multiscatter(ms_lut, r, mu_s):
+    """Bilinear Psi_ms at radius r and local sun cosine mu_s."""
+    u = torch.clamp((mu_s * 0.5 + 0.5) * MS_N - 0.5, 0.0, MS_N - 1.0)
+    v = torch.clamp((r - R_GROUND) / (R_TOP - R_GROUND) * MS_N - 0.5,
+                    0.0, MS_N - 1.0)
+    u0 = torch.floor(u).to(torch.int64)
+    v0 = torch.floor(v).to(torch.int64)
+    u1 = torch.clamp(u0 + 1, max=MS_N - 1)
+    v1 = torch.clamp(v0 + 1, max=MS_N - 1)
+    fu = (u - u0)[..., None]
+    fv = (v - v0)[..., None]
+    a = ms_lut[v0, u0] * (1 - fu) + ms_lut[v0, u1] * fu
+    b = ms_lut[v1, u0] * (1 - fu) + ms_lut[v1, u1] * fu
+    return a * (1 - fv) + b * fv
+
+
+def build_irradiance(tlut, ms_lut) -> torch.Tensor:
+    """[IR_W, 3] ground irradiance per unit sun irradiance over mu_s: the
+    transmitted sun and the cosine-weighted sky (single and multiple
+    scattering) over a 16 x 8 stratified hemisphere."""
+    mu_s = 2.0 * (torch.arange(IR_W, dtype=F32) + 0.5) / IR_W - 1.0
+    r = torch.full((IR_W,), R_GROUND + 0.01)
+    direct = sample_transmittance(tlut, r, torch.clamp(mu_s, min=0.0)) \
+        * torch.clamp(mu_s, min=0.0)[..., None]
+    nth, nph = 8, 16
+    u1 = (torch.arange(nth, dtype=F32) + 0.5) / nth
+    u2 = (torch.arange(nph, dtype=F32) + 0.5) / nph
+    ct = torch.sqrt(u1)
+    st = torch.sqrt(1.0 - u1)
+    phi = 2.0 * math.pi * u2
+    dirs = torch.stack(torch.broadcast_tensors(
+        st[:, None] * torch.cos(phi)[None, :],
+        ct[:, None] * torch.ones((1, nph)),
+        st[:, None] * torch.sin(phi)[None, :]), -1).reshape(-1, 3)
+    luts = AtmosphereLUTs(transmittance=tlut, multiscatter=ms_lut)
+    indirect = []
+    for mu in mu_s:
+        sun = torch.stack([0.0 * mu, mu,
+                           torch.sqrt(torch.clamp(1.0 - mu * mu, min=0.0))])
+        L = _sky_march(luts, dirs, sun, R_GROUND + 0.01, n_steps=12,
+                       ground_albedo=0.0)
+        indirect.append(math.pi * L.mean(0))
+    return direct + torch.stack(indirect)
+
+
+def sample_irradiance(ir_lut, mu_s):
+    x = torch.clamp(((mu_s * 0.5 + 0.5) * IR_W).to(torch.int64), 0, IR_W - 1)
+    return ir_lut[x]
+
+
+def build_luts() -> AtmosphereLUTs:
+    """The full bake: transmittance -> multiple scattering -> ground
+    irradiance."""
+    t = build_transmittance()
+    ms = build_multiscatter(t)
+    return AtmosphereLUTs(transmittance=t, multiscatter=ms,
+                          irradiance=build_irradiance(t, ms))
+
+
+def _phase_rayleigh(c):
+    return 3.0 / (16.0 * math.pi) * (1.0 + c * c)
+
+
+def _phase_mie(c, g=MIE_G):
+    g2 = g * g
+    return (3.0 / (8.0 * math.pi) * (1.0 - g2) * (1.0 + c * c)
+            / ((2.0 + g2) * torch.pow(1.0 + g2 - 2.0 * g * c, 1.5)))
+
+
+def _sky_march(luts: AtmosphereLUTs, view_dir, sun_dir, r0,
+               n_steps: int = 24, ground_albedo: float = GROUND_ALBEDO):
+    """Sky radiance per unit sun irradiance for view dirs [R,3] from
+    radius r0 (y up): single scattering with the real phases, Psi_ms
+    multiple scattering per step, the transmitted ground bounce for rays
+    that hit the planet."""
+    mu = view_dir[..., 1]
+    cos_vs = (view_dir * sun_dir).sum(-1)
+    mu_s0 = sun_dir[1]
+    d_g = _dist_to_ground(r0, mu)
+    hits_ground = torch.isfinite(d_g)
+    d = torch.where(hits_ground, d_g, _dist_to_top(r0, mu))
+    ph_r = _phase_rayleigh(cos_vs)
+    ph_m = _phase_mie(cos_vs)
+    L = torch.zeros((*mu.shape, 3))
+    od = torch.zeros((*mu.shape, 3))
+    dt = d / n_steps
+    for i in range(n_steps):
+        t = (i + 0.5) / n_steps * d
+        rad = torch.sqrt(r0 * r0 + t * t + 2.0 * r0 * mu * t)
+        h = rad - R_GROUND
+        rho_r, rho_m, _ = _densities(h)
+        od = od + _extinction(h) * dt[..., None]
+        t_view = torch.exp(-od)
+        mu_s = torch.clamp((r0 * mu_s0 + t * cos_vs) / rad, -1.0, 1.0)
+        t_sun = sample_transmittance(luts.transmittance, rad, mu_s)
+        lit = _earth_lit(rad, mu_s)
+        scat = (_c3(BETA_R) * (ph_r * rho_r)[..., None]
+                + BETA_M_SCAT * (ph_m * rho_m)[..., None])
+        step_L = scat * lit[..., None] * t_sun
+        if luts.multiscatter is not None:
+            step_L = step_L + _scattering(h) * sample_multiscatter(
+                luts.multiscatter, rad, mu_s)
+        L = L + t_view * step_L * dt[..., None]
+    if ground_albedo > 0.0:
+        mu_sg = torch.clamp((r0 * mu_s0 + d * cos_vs) / R_GROUND, -1.0, 1.0)
+        if luts.irradiance is not None:
+            e_g = sample_irradiance(luts.irradiance, mu_sg)
+        else:
+            e_g = sample_transmittance(
+                luts.transmittance, torch.full_like(mu_sg, R_GROUND + 0.01),
+                mu_sg) * torch.clamp(mu_sg, min=0.0)[..., None]
+        L = L + torch.where(hits_ground[..., None],
+                            torch.exp(-od) * (ground_albedo / math.pi) * e_g,
+                            0.0)
+    return L
+
+
+def sky_radiance(luts: AtmosphereLUTs, view_dir, sun_dir,
+                 altitude_km: float = 0.2, sun_irradiance: float = 20.0,
+                 n_steps: int = 24, ground_albedo: float = GROUND_ALBEDO):
+    """Sky radiance for view directions [R,3] (every scattering order with
+    `luts.multiscatter`, else single scattering)."""
+    return _sky_march(luts, view_dir, sun_dir, R_GROUND + altitude_km,
+                      n_steps=n_steps,
+                      ground_albedo=ground_albedo) * sun_irradiance
+
+
+def bake_sky_env(sun_dir=(0.3, 0.4, 0.2), h: int = 64, w: int = 128,
+                 sun_irradiance: float = 20.0,
+                 sun_disk_intensity: float = 5e3, sun_cos: float = 0.9999,
+                 luts: Optional[AtmosphereLUTs] = None, stars: float = 0.0,
+                 device="cuda"):
+    """An equirect EnvMap with its importance CDFs, baked from the
+    atmosphere for `sun_dir`, on `device` (the card unless the caller
+    asks for the CPU). Pass `luts` to reuse one bake across sun positions;
+    stars > 0 adds the star field, faded in as the sun sets."""
+    from truetrace_tpu_torch.build.env_cdf import build_env_cdf, star_field
+    sd = np.asarray(sun_dir, np.float64)
+    sd /= np.linalg.norm(sd)
+    sd_t = torch.from_numpy(sd.astype(np.float32))
+    ys, xs = torch.meshgrid((torch.arange(h, dtype=F32) + 0.5) / h,
+                            (torch.arange(w, dtype=F32) + 0.5) / w,
+                            indexing="ij")
+    theta = math.pi * ys
+    phi = 2.0 * math.pi * xs
+    d = torch.stack([torch.sin(theta) * torch.cos(phi), torch.cos(theta),
+                     torch.sin(theta) * torch.sin(phi)], -1).reshape(-1, 3)
+    if luts is None:
+        luts = build_luts()
+    L = sky_radiance(luts, d, sd_t, sun_irradiance=sun_irradiance)
+    cos_sun = (d * sd_t).sum(-1)
+    t_sun = sample_transmittance(
+        luts.transmittance, torch.full(d.shape[:1], R_GROUND + 0.2),
+        cos_sun * 0 + float(sd[1]))
+    above = d[:, 1] > 0.0
+    L = L + ((cos_sun > sun_cos) & above).to(F32)[..., None] * t_sun \
+        * sun_disk_intensity
+    img = L.reshape(h, w, 3).numpy()
+    if stars > 0.0:
+        fade = float(np.clip(0.5 - sd[1] / 0.17, 0.0, 1.0))
+        up = (d[:, 1].numpy().reshape(h, w) > 0.0)[..., None]
+        img = img + star_field(h, w, brightness=stars) * fade * up
+    return build_env_cdf(np.maximum(img, 0.0), device=device)

@@ -126,7 +126,7 @@ class LightTris:
     def from_numpy(d: dict, device) -> "LightTris":
         if d.get("rows") is None:
             raise NotImplementedError(
-                "LightTris without packed rows (ROADMAP.md A.14)")
+                "LightTris without packed rows (ROADMAP.md A.15)")
         return _from_dict(LightTris, d, device)
 
 
@@ -198,6 +198,24 @@ class EnvMap:
                          for f in dataclasses.fields(self)})
 
 
+@dataclass
+class MeshTable:
+    """The instance table of an instanced scene, one row per instance:
+    world <-> local transforms [I,4,4] (row-vector convention), the BLAS
+    root node and first triangle, the first world light row (-1 none),
+    the world bounds [I,2,3]."""
+    w2l: torch.Tensor
+    l2w: torch.Tensor
+    node_offset: torch.Tensor
+    tri_offset: torch.Tensor
+    light_node_offset: torch.Tensor
+    aabb: torch.Tensor
+
+    @staticmethod
+    def from_numpy(d: dict, device) -> "MeshTable":
+        return _from_dict(MeshTable, d, device)
+
+
 # the texture slots the integrator's texture block reads (tex_matcap_mask
 # is read with tex_matcap)
 TEX_SLOTS = ("tex_albedo", "tex_normal", "tex_emission", "tex_rough_metal",
@@ -206,10 +224,18 @@ TEX_SLOTS = ("tex_albedo", "tex_normal", "tex_emission", "tex_rough_metal",
 
 @dataclass
 class Scene:
-    """The render-ready single-BLAS scene (the fields the port's frame
-    reads). Triangles are in CWBVH leaf order; `cw_nodes` are the
+    """The render-ready scene (the fields the port's frame reads).
+    Triangles are in CWBVH leaf order; `cw_nodes` are the
     pack_leaf_rows-patched 20-word nodes (int32 bits), `cw_leaf_rows` the
-    [L,10K] leaf rows (f32, id columns hold int32 bits)."""
+    [L,10K] leaf rows (f32, id columns hold int32 bits). An instanced
+    scene (scene/instances.py) holds local-space triangles of its sources
+    followed by world copies of its emissive instance triangles, the TLAS
+    nodes before the BLAS nodes, and `inst_rows` [I,10K] (W2L, the BLAS
+    root, the instance id), `inst_l2w` [I,3,4], `inst_em_rank` [T] (a
+    local row's rank among its source's emitters, -1 none) and
+    `inst_light_offset` [I] (an instance's first world light row, -1
+    none). `terrain` is a heightfield (scene/terrain.py) traced after the
+    meshes."""
     tri_p0: torch.Tensor
     tri_e1: torch.Tensor
     tri_e2: torch.Tensor
@@ -248,8 +274,11 @@ class Scene:
     lcut_skip: Optional[torch.Tensor] = None
     tri_shadow: Optional[torch.Tensor] = None
     terrain: Optional[object] = None
-    mesh_table: Optional[object] = None
+    mesh_table: Optional[MeshTable] = None
     inst_rows: Optional[torch.Tensor] = None
+    inst_l2w: Optional[torch.Tensor] = None
+    inst_em_rank: Optional[torch.Tensor] = None
+    inst_light_offset: Optional[torch.Tensor] = None
     cw_stack: int = 16
     has_media: bool = True
     # the TEX_SLOTS some material sets, fixed when the scene is built
@@ -258,8 +287,9 @@ class Scene:
     # levels of internal nodes in the light BVH, fixed when the scene is
     # built: the bound on every light-tree descent loop
     lbvh_depth: int = 0
-    # the traversal's unified [C+L, 10K] node + leaf-row table, built at
-    # first use (kernels/cwbvh_wavefront.py pack_table)
+    # the traversal's unified [C+L(+I), 10K] node, leaf-row (and instance
+    # row) table, built at first use (kernels/cwbvh_wavefront.py
+    # pack_table)
     _cw_table: Optional[torch.Tensor] = field(default=None, repr=False)
 
     def n_tris(self) -> int:
@@ -273,22 +303,26 @@ class Scene:
         if self._cw_table is None:
             from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
                 pack_table)
-            self._cw_table = pack_table(self.cw_nodes, self.cw_leaf_rows)
+            self._cw_table = pack_table(self.cw_nodes, self.cw_leaf_rows,
+                                        self.inst_rows)
         return self._cw_table
 
     @staticmethod
     def from_numpy(d: dict, device) -> "Scene":
         """Scene from the JAX Scene's leaves (numpy arrays keyed by field
-        name, nested dicts for materials/light_tris/lights/env)."""
-        if d.get("terrain") is not None:
-            raise NotImplementedError("terrain (ROADMAP.md A.14)")
-        if d.get("mesh_table") is not None or d.get("inst_rows") is not None:
-            raise NotImplementedError("instanced scenes (ROADMAP.md A.14)")
-        return Scene.from_parts(
+        name, nested dicts for materials/light_tris/lights/env and an
+        instanced scene's mesh_table and a terrain)."""
+        scene = Scene.from_parts(
             d, MaterialTable.from_numpy(d["materials"], device),
             LightTris.from_numpy(d["light_tris"], device),
             AnalyticLights.from_numpy(d["lights"], device),
             EnvMap.from_numpy(d["env"], device), device)
+        if d.get("mesh_table") is not None:
+            scene.mesh_table = MeshTable.from_numpy(d["mesh_table"], device)
+        if d.get("terrain") is not None:
+            from truetrace_tpu_torch.scene.terrain import Terrain
+            scene.terrain = Terrain.from_numpy(d["terrain"], device)
+        return scene
 
     @staticmethod
     def from_parts(d: dict, materials, light_tris, lights, env,
@@ -298,6 +332,8 @@ class Scene:
         if np.asarray(d["atlas_rects"]).shape[0] > 0:
             slots = tuple(k for k in TEX_SLOTS
                           if bool((getattr(materials, k) >= 0).any()))
+        d = {k: v for k, v in d.items()
+             if k not in ("mesh_table", "terrain")}
         return _from_dict(Scene, d, device, bits=("cw_nodes", "lbvh_trail"),
                           materials=materials, light_tris=light_tris,
                           lights=lights, env=env, tex_slots=slots,

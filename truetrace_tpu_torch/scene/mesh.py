@@ -4,8 +4,9 @@ Port of `truetrace_tpu/scene/mesh.py` for the single-BLAS CWBVH scene:
 numpy in, a `Scene` of tensors on `device` out. The tables are bitwise
 equal to the JAX package's (tests/test_torch_scene.py), the texture
 atlas and per-triangle texture LOD included (tests/test_torch_sponza.py).
-Presplit, the on-disk build cache, the MXU brute-force tables, terrain
-and heat-ordered leaf rows are not ported and raise.
+A terrain (scene/terrain.py) rides along on the scene. Presplit, the
+on-disk build cache, the MXU brute-force tables and heat-ordered leaf
+rows are not ported and raise.
 """
 from __future__ import annotations
 
@@ -247,11 +248,9 @@ def compile_scene(meshes: List[HostMesh], mats: List[HostMaterial],
     None picks the JAX package's rule (6 up to 400k triangles, else 12),
     so both packages build the same scene; the port's own default on the
     H100 is open (ROADMAP.md)."""
-    for name, val, item in (("terrain", terrain, "A.14"),
-                            ("cache_dir", cache_dir, "A.18")):
-        if val is not None:
-            raise NotImplementedError(f"compile_scene({name}=...) is not "
-                                      f"ported yet (ROADMAP.md {item})")
+    if cache_dir is not None:
+        raise NotImplementedError("compile_scene(cache_dir=...) is not "
+                                  "ported yet (ROADMAP.md A.18)")
     if presplit > 0.0 or hot_order:
         raise NotImplementedError("presplit / hot_order builds are not "
                                   "ported yet (ROADMAP.md A.18)")
@@ -321,9 +320,12 @@ def compile_scene(meshes: List[HostMesh], mats: List[HostMaterial],
         tri_shadow=tint, cw_stack=int(cw.depth) + 1,
         has_media=any(m.spec_trans > 0.0 and m.thin < 0.5 for m in mats),
         **lb_np)
-    return Scene.from_parts(
+    scene = Scene.from_parts(
         d, material_table(mats, device), light_tris,
         lights.to(device) if lights is not None
         else AnalyticLights.none(device),
         env.to(device) if env is not None
         else EnvMap.constant((0.0, 0.0, 0.0), device), device)
+    if terrain is not None:
+        scene.terrain = terrain.to(device)
+    return scene
