@@ -100,7 +100,20 @@ Phases, each of which raises on a failed check:
    scene of tests/test_tlas_transmit.py as the transmittance's frame
    ("tinted"); the JAX package's instancing, object-motion, tinted-TLAS
    and terrain checks on the card; the forest, scripts/demo.py scene 4
-   and the tinted scene at 16x16, card against CPU.
+   and the tinted scene at 16x16, card against CPU;
+9. animated scenes: the atrium's meshes with a 128 x 256 two-bone
+   cylinder (358,968 triangles in one K = 3 BLAS, compile_dynamic_scene),
+   posed every frame by pose_scene (skinning, the level-by-level refit,
+   the leaf rows, the normals and light rows rebuilt on the card):
+   pose_scene's device time and kernels, with no host copy or sync; the
+   K = 3 closest and any hits bit for bit their plain versions on a bent
+   pose's own rays (bounce 0 timed and bounded); phase 3's frames at a
+   new pose each (timed eager frames with their launch counts, sync-free
+   frames, the profile) and the CUDA graphs over 10 poses with one
+   capture, bit for bit; a from-scratch compile_scene at one pose for
+   scale; the JAX package's refit, light-refit, skinning, dynamic-scene,
+   AssetManager and video checks on the card; and the small animated
+   frame at 16x16, card against CPU.
 
 It prints the card line, one JSON line of kernel results (time, plain
 time, bound and what sets it, launches per frame, ptxas registers,
@@ -109,7 +122,9 @@ a-trous the time at each step and of packing; under "sponza" each
 kernel's launches, time and bound on the sponza_like path, under
 "composed" its launches on the composed frame, and so under "asvgf",
 "recur", "composed_asvgf", "glass", "post", "interactive", "neural",
-"forest" and "tinted"; under "frames" each
+"forest", "tinted" and "animated" (where the traversal rows also hold
+the K = 3 kernels' times and bounds on the animated frame's rays); under
+"frames" each
 path's eager and replayed frame times, device busy, kernel counts and
 host copies, and the composed frame's cache numbers and gates), and as
 its last line
@@ -120,6 +135,7 @@ missing.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -3087,6 +3103,820 @@ def phase_forest_card_vs_cpu(results):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the animated atrium (a skinned mesh refit every frame)
+# ---------------------------------------------------------------------------
+
+# the atrium's meshes with tests/test_dynamic_scene.py's two-bone cylinder
+# at 128 x 256: 293,176 + 65,792 = 358,968 triangles in one K = 3 BLAS
+ANIMATED_CYL = dict(n_radial=128, n_height=256, radius=0.45, height=3.6)
+ANIMATED_TRIS = 358968
+ANIMATED_AT = (-7.0, 0.0, 0.6)      # the cylinder's foot, in the camera view
+ANIMATED_MAT = dict(base_color=(0.65, 0.32, 0.18), roughness=0.35,
+                    metallic=0.3)
+ANIMATED_POSES = 10     # the graph run's poses (one eager, one captured)
+ANIMATED = FRAME        # 512x512x4, Disney, light-tree NEE, SVGF
+
+
+def animated_scene(device: str, detail: float = ATRIUM_DETAIL,
+                   n_radial: int = ANIMATED_CYL["n_radial"],
+                   n_height: int = ANIMATED_CYL["n_height"]):
+    """The atrium's meshes (static) and the two-bone cylinder standing at
+    ANIMATED_AT, in one DynamicScene (compile_dynamic_scene: K = 3, the
+    light BVH and its cut over the ceiling panels). The cylinder's rest
+    vertices sit at their place and its inverse binds undo that, so
+    `animated_bones(k)` at angle 0 is the rest pose. Returns (dyn,
+    camera)."""
+    import torch
+    from truetrace_tpu_torch.scene import atrium
+    from truetrace_tpu_torch.scene.dynamic import compile_dynamic_scene
+    from truetrace_tpu_torch.scene.mesh import HostMaterial
+    from truetrace_tpu_torch.scene.skinning import make_two_bone_cylinder
+    meshes, mats, cam, env = atrium.make(detail=detail, device=device)
+    mesh = make_two_bone_cylinder(n_radial, n_height, ANIMATED_CYL["radius"],
+                                  ANIMATED_CYL["height"], device=device)
+    at = torch.tensor(ANIMATED_AT, device=device)
+    inv = mesh.inv_bind.clone()
+    inv[:, :, 3] -= at
+    mesh = mesh._replace(rest_verts=mesh.rest_verts + at, inv_bind=inv)
+    mats = list(mats) + [HostMaterial(**ANIMATED_MAT)]
+    dyn = compile_dynamic_scene(mesh, len(mats) - 1, mats,
+                                static_meshes=meshes, env=env,
+                                with_light_bvh=True, device=device)
+    return dyn, cam
+
+
+def animated_bones(k: int, device: str):
+    """The bones of pose k (made on `device`): the root sways about z by
+    0.05 sin k, the tip bends about x by 0.12 k (a new angle every
+    frame); both joints at their place in the atrium."""
+    import torch
+    from truetrace_tpu_torch.scene.skinning import bone_matrix
+    x, y, z = ANIMATED_AT
+    mid = y + 0.5 * ANIMATED_CYL["height"]
+    return torch.stack([
+        bone_matrix((0, 0, 1), 0.05 * math.sin(k), (x, y, z), device=device),
+        bone_matrix((1, 0, 0), 0.12 * k, (x, mid, z), device=device)])
+
+
+def animated_poses(dyn, ks):
+    """pose_scene at the poses `ks` (bones made first), each posed scene's
+    traversal table packed."""
+    from truetrace_tpu_torch.scene.dynamic import pose_scene
+    bones = [animated_bones(k, dyn.scene.device) for k in ks]
+    out = []
+    for b in bones:
+        sc = pose_scene(dyn, b)
+        sc.cw_table()
+        out.append(sc)
+    return out
+
+
+def phase_animated_kernels(results, dyn, cam):
+    """The K = 3 closest and any hit on a bent pose's own rays (one eager
+    ANIMATED frame at 262144 lanes, its rays grabbed): every bounce's
+    closest-hit rays and NEE shadow rays against the plain traversal, bit
+    for bit; bounce 0's timed (device_ms; the plain version once) and
+    bounded from the plain version's counted work (traversal_work)."""
+    import torch
+    from truetrace_tpu_torch.integrate.pathtrace import T_MAX
+    from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
+        any_hit_plain, any_hit_wavefront, closest_hit_plain,
+        closest_hit_wavefront)
+    scene = animated_poses(dyn, [6])[0]
+    r = make_renderer(scene, cam, ANIMATED)
+    seen = grab_rays(r, r.init_state())
+    table, C, S = scene.cw_table(), scene.cw_nodes.shape[0], scene.cw_stack
+    check(table.shape[1] == 30, f"animated table width {table.shape[1]}")
+    res = {}
+    for b, (ro, rd, alive) in enumerate(seen["_trace"]):
+        tm = torch.where(alive, T_MAX, 0.0)
+        hk = closest_hit_wavefront(table, C, ro, rd, tm, S)
+        counts = {}
+        hp, plain_ms = timed_once(lambda: closest_hit_plain(
+            table, C, ro, rd, tm, S, counts))
+        for f in ("t", "tri", "u", "v"):
+            check(torch_equal_bits(getattr(hk, f), getattr(hp, f)),
+                  f"animated bounce {b}: closest hit {f} differs")
+        if b == 0:
+            work = traversal_work(counts, ro.shape[0], table.shape[1])
+            ms = device_ms(lambda: closest_hit_wavefront(
+                table, C, ro, rd, tm, S), 20)
+            res["closest"] = dict(rays=ro.shape[0], ms=ms, plain_ms=plain_ms,
+                                  max_abs_err=max_abs_diff(hk.t, hp.t),
+                                  share_of_bound=work["bound_ms"] / ms,
+                                  **{k: work[k] for k in (
+                                      "bound_ms", "bound_by")}, work=work)
+    for b, (ro, rd, tm) in enumerate(seen["_occluded_mesh"]):
+        ok = any_hit_wavefront(table, C, ro, rd, tm, S)
+        counts = {}
+        op, plain_ms = timed_once(lambda: any_hit_plain(
+            table, C, ro, rd, tm, S, counts))
+        check(torch.equal(ok, op), f"animated NEE bounce {b}: any hit "
+              f"differs on {int((ok != op).sum())} rays")
+        if b == 0:
+            work = traversal_work(counts, ro.shape[0], table.shape[1])
+            ms = device_ms(lambda: any_hit_wavefront(table, C, ro, rd, tm,
+                                                     S), 20)
+            res["any"] = dict(rays=ro.shape[0], ms=ms, plain_ms=plain_ms,
+                              max_abs_err=max_abs_diff(ok.float(),
+                                                       op.float()),
+                              share_of_bound=work["bound_ms"] / ms,
+                              **{k: work[k] for k in ("bound_ms",
+                                                      "bound_by")},
+                              work=work)
+    check(len(seen["_trace"]) == ANIMATED["bounces"]
+          and len(seen["_occluded_mesh"]) == ANIMATED["bounces"],
+          "animated frame: not one closest-hit and one NEE call a bounce")
+    for q in ("closest", "any"):
+        x = res[q]
+        log(f"animated K=3 {q} hit (bounce 0, {x['rays']} rays): bit for "
+            f"bit the plain version on every bounce; kernel {x['ms']:.4f} "
+            f"ms, bound {x['bound_ms']:.4f} ms ({x['bound_by']}) = "
+            f"{x['share_of_bound']:.3f}, plain {x['plain_ms']:.1f} ms; "
+            f"{work_line(x['work'])}")
+    results["animated_kernels"] = res
+
+
+def phase_animated_pose(results, dyn):
+    """pose_scene alone: its device time (CUDA events, mean of 10 poses
+    after one), its kernels and host copies and syncs under the profiler
+    (all four must be 0), and a pose under set_sync_debug_mode("error");
+    its output against a plain re-derivation: the refit nodes must bound
+    every skinned triangle they hold."""
+    import torch
+    from truetrace_tpu_torch.scene.dynamic import pose_scene
+    bones = [animated_bones(k, dyn.scene.device) for k in range(12)]
+    pose_scene(dyn, bones[0])
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for b in bones[1:11]:
+        pose_scene(dyn, b)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1]) / 10
+    events, wall = profiled(lambda: pose_scene(dyn, bones[11]))
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and dev_us(e) > 0]
+    n = sum(e.count for e in kernels)
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    copies = copies_of(events)
+    for k in COPY_KEYS[:4]:
+        check(copies[k] == 0, f"pose_scene: {copies[k]} {k}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        posed = pose_scene(dyn, bones[5])
+        posed.cw_table()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # the refit's root box holds every posed triangle
+    from truetrace_tpu_torch.build.refit import refit_cwbvh
+    _, root = refit_cwbvh(posed.cw_nodes, posed.tri_p0, posed.tri_e1,
+                          posed.tri_e2, dyn.slot_child, dyn.slot_tri_base,
+                          dyn.slot_tri_count, dyn.levels)
+    v = torch.cat([posed.tri_p0, posed.tri_p0 + posed.tri_e1,
+                   posed.tri_p0 + posed.tri_e2])
+    check(bool((root[0] <= v.amin(0)).all() and (root[1] >= v.amax(0)).all()),
+          "pose_scene: the refit root box misses a triangle")
+    log(f"pose_scene ({dyn.skin_tri_ids.shape[0]} skinned of "
+        f"{posed.n_tris()} triangles, {len(dyn.levels)} refit levels): "
+        f"{ms:.3f} ms a pose on the device (CUDA events, 10 poses), "
+        f"{n} kernels ({busy:.3f} ms busy) under the profiler; host copies "
+        f"and syncs {copies}; one pose under set_sync_debug_mode('error')")
+    results["animated_pose"] = dict(ms=ms, kernels=n, busy_ms=busy,
+                                    levels=len(dyn.levels),
+                                    copies={k: copies[k] for k in COPY_KEYS})
+
+
+def phase_animated(results, dyn, cam):
+    """The animated frame (ANIMATED, 512x512x4), each frame handed a new
+    pose (pose_scene -> Renderer.step(scene=, cam=, cam_moved=True)): 1
+    warm-up and FRAMES - 1 timed eager frames with every kernel's launch
+    count set to 0 just before and read just after; two frames under the
+    sync debug mode (pose_scene among them); one profiled; then the frame
+    as CUDA graphs (graph_step(cam_moved=True)) over ANIMATED_POSES poses,
+    every frame bit for bit the eager one, with one capture (each later
+    pose copied into the captured scene on the device), pose + replay and
+    eager frames timed in turns, replays under the sync debug mode and
+    the profiler. For scale: the host seconds of a from-scratch
+    compile_scene at one pose."""
+    import torch
+    from truetrace_tpu_torch.renderer import _tensors
+    from truetrace_tpu_torch.scene import atrium
+    from truetrace_tpu_torch.scene.dynamic import pose_scene
+    from truetrace_tpu_torch.scene.mesh import (HostMaterial, HostMesh,
+                                                compile_scene)
+    from truetrace_tpu_torch.scene.skinning import skin_vertices
+    dev = dyn.scene.device
+    bones = [animated_bones(k, dev) for k in range(3 * FRAMES + 8
+                                                    + ANIMATED_POSES)]
+    it = iter(range(len(bones)))
+    r = make_renderer(dyn.scene, cam, ANIMATED)
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    state = r.init_state()
+    times = []
+    for _ in range(FRAMES):
+        k = next(it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        display, accum, state = r.step(state, cam=cam, cam_moved=True,
+                                       scene=pose_scene(dyn, bones[k]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    H, W = ANIMATED["height"], ANIMATED["width"]
+    check(tuple(display.shape) == (H, W, 3)
+          and bool(torch.isfinite(display).all())
+          and float(display.min()) >= 0.0 and float(display.max()) <= 1.0,
+          "animated display not finite in [0, 1]")
+    mean = float(accum.mean())
+    check(bool(torch.isfinite(accum).all()) and mean > 1e-3,
+          f"animated radiance mean {mean}")
+    for name in PATHS["animated"]:
+        check(launches[name] > 0, f"{name} never launched on the animated "
+              f"path")
+    ms = 1e3 * sum(times[1:]) / (FRAMES - 1)
+    log(f"frame animated {H}x{W}x{ANIMATED['bounces']} svgf (pose_scene + "
+        f"step): warm-up {times[0] * 1e3:.1f} ms, frames "
+        f"{[round(t * 1e3, 1) for t in times[1:]]} ms -> mean {ms:.1f} ms; "
+        f"radiance mean {mean:.4f}")
+    log(f"launches over the animated path's {FRAMES} frames: {launches}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            k = next(it)
+            _, _, state = r.step(state, cam=cam, cam_moved=True,
+                                 scene=pose_scene(dyn, bones[k]))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("animated: two frames (pose_scene and step) under "
+        "set_sync_debug_mode('error'): no host copy or sync")
+    k = next(it)
+    posed = pose_scene(dyn, bones[k])
+    prof = phase_profile(r, state, lambda: r.step(
+        state, cam=cam, cam_moved=True, scene=posed), "animated frame")
+    del r, state
+
+    re, rg = make_renderer(dyn.scene, cam, ANIMATED), make_renderer(
+        dyn.scene, cam, ANIMATED)
+    gm = rg.graph_step(cam_moved=True)
+    se, sg = re.init_state(), rg.init_state()
+    for i in range(ANIMATED_POSES):
+        sc = pose_scene(dyn, bones[next(it)])
+        de, ae, se = re.step(se, cam=cam, cam_moved=True, scene=sc)
+        dg, ag, sg = gm(sg, cam=cam, scene=sc)
+        te, tg = dict(_tensors(se)), dict(_tensors(sg))
+        check(te.keys() == tg.keys(), "animated: state fields differ")
+        for what, a, b in [("display", de, dg), ("radiance", ae, ag)] + [
+                (key, te[key], tg[key]) for key in te]:
+            check(torch_equal_bits(a, b), f"animated pose {i + 1}: the "
+                  f"replayed {what} differs from the eager one")
+    check(gm.captures == 1, f"animated: {gm.captures} captures over "
+          f"{ANIMATED_POSES} poses")
+    log(f"animated graph: {ANIMATED_POSES} poses (the first eager, one "
+        f"capture, {ANIMATED_POSES - 2} replays of posed scenes copied in) "
+        f"bit for bit equal to Renderer.step's display, radiance and state")
+    eager, replay, replay_dev, pose_replay = [], [], [], []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for _ in range(FRAMES - 1):
+        k = next(it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, se = re.step(se, cam=cam, cam_moved=True,
+                           scene=pose_scene(dyn, bones[k]))
+        torch.cuda.synchronize()
+        eager.append(time.perf_counter() - t0)
+        k = next(it)
+        t0 = time.perf_counter()
+        ev[0].record()
+        sc = pose_scene(dyn, bones[k])
+        ev[1].record()
+        _, _, sg = gm(sg, cam=cam, scene=sc)
+        ev[2].record()
+        torch.cuda.synchronize()
+        pose_replay.append(time.perf_counter() - t0)
+        replay_dev.append(ev[1].elapsed_time(ev[2]))
+    # the replay alone, a pose already loaded
+    for _ in range(FRAMES - 1):
+        t0 = time.perf_counter()
+        _, _, sg = gm(sg, cam=cam)
+        torch.cuda.synchronize()
+        replay.append(time.perf_counter() - t0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            _, _, sg = gm(sg, cam=cam, scene=pose_scene(
+                dyn, bones[next(it)]))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sc = pose_scene(dyn, bones[next(it)])
+    gprof = phase_profile(None, None, lambda: gm(sg, cam=cam, scene=sc),
+                          "animated replay (scene load included)")
+    check(gm.captures == 1, f"animated: {gm.captures} captures")
+    # for scale: a from-scratch host build at one pose
+    v = skin_vertices(dyn.mesh, bones[3])
+    meshes, mats, _, env = atrium.make(detail=ATRIUM_DETAIL, device=dev)
+    mats = list(mats) + [HostMaterial(**ANIMATED_MAT)]
+    skin = HostMesh(v.cpu().numpy(), dyn.mesh.tri_vidx.cpu().numpy(),
+                    np.full(dyn.mesh.tri_vidx.shape[0], len(mats) - 1,
+                            np.int32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rebuilt = compile_scene(meshes + [skin], mats, env=env, with_cwbvh=True,
+                            with_light_bvh=True, leaf_k=3, device=dev)
+    rebuilt.cw_table()
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    check(rebuilt.n_tris() == dyn.scene.n_tris(), "rebuild triangle count")
+    mean_ms = lambda xs: 1e3 * sum(xs) / len(xs)
+    res = dict(ms=ms, warmup_ms=times[0] * 1e3, mean=mean,
+               eager_ms=mean_ms(eager), replay_ms=mean_ms(replay),
+               pose_replay_ms=mean_ms(pose_replay),
+               replay_device_ms=sum(replay_dev) / len(replay_dev),
+               captures=gm.captures, poses=ANIMATED_POSES,
+               rebuild_s=rebuild_s, profile=gprof, eager_profile=prof)
+    log(f"animated {H}x{W}x{ANIMATED['bounces']}, in turns: eager (pose + "
+        f"step) {res['eager_ms']:.1f} ms/frame, pose + replay "
+        f"{res['pose_replay_ms']:.1f} ms/frame (replay device "
+        f"{res['replay_device_ms']:.1f} ms), replay alone "
+        f"{res['replay_ms']:.1f} ms; {gm.captures} capture over "
+        f"{ANIMATED_POSES + FRAMES + 2} poses; a from-scratch compile_scene "
+        f"at one pose: {rebuild_s:.2f} s on the host")
+    results["animated"] = res
+    results["animated_profile"] = prof
+    results["animated_graph"] = dict(
+        eager_ms=res["eager_ms"], replay_ms=res["replay_ms"],
+        replay_device_ms=res["replay_device_ms"], profile=gprof)
+    return launches
+
+
+def _render_np(scene, cam, W: int, spp: int, **cfg):
+    """[W,W,3] numpy mean of spp samples of render() on the card."""
+    from truetrace_tpu_torch.integrate.pathtrace import RenderConfig, render
+    c = RenderConfig(width=W, height=W, **cfg)
+    return render(scene, cam, c, spp=spp).cpu().numpy()
+
+
+def phase_animated_gates(results):
+    """The JAX package's checks of dynamic scenes, run with the port on
+    the card: tests/test_refit.py (the identity refit keeps the
+    traversal; a twisted refit equals brute force), test_skinning.py (the
+    rest pose, the bend, the skinned refit against brute force),
+    test_light_refit.py (the refit light tree is conservative, its power
+    exact, and its descent's pmf is its pdf), test_dynamic_scene.py (the
+    posed image against a rebuild; the pose sequence through the
+    Renderer), test_asset_manager.py (every commit renders as a direct
+    compile, and the BLAS cache) and test_video_matcap.py (each video
+    frame dominates its channel, time binding wraps, the matcap)."""
+    import torch
+    from truetrace_tpu_torch.build.bvh2 import build_bvh2
+    from truetrace_tpu_torch.build.cwbvh import build_cwbvh
+    from truetrace_tpu_torch.build.lightbvh import (build_light_bvh,
+                                                    build_pairs,
+                                                    build_pairs_torch)
+    from truetrace_tpu_torch.build.refit import (
+        deform_tris, level_worklists, light_level_worklists, refit_cwbvh,
+        refit_light_bvh)
+    from truetrace_tpu_torch.core import aabb
+    from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
+        closest_hit_wavefront, pack_leaf_rows, pack_table)
+    from truetrace_tpu_torch.kernels.lighttree import (light_tree_pdf,
+                                                       sample_light_tree)
+    from truetrace_tpu_torch.kernels.traverse_ref import brute_force_closest
+    from truetrace_tpu_torch.scene.ir import Camera, light_bvh_depth
+    from truetrace_tpu_torch.scene.skinning import (
+        bone_matrix, make_two_bone_cylinder, skin_vertices, skinned_tris)
+    dev = DEVICE
+    out = {}
+    tf = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        dev)
+
+    def refit_case(p0, e1, e2, deform=None, bones=None, mesh=None):
+        """Build at rest on the host, deform, refit on the card, trace
+        against brute force (test_refit / test_skinning)."""
+        box = aabb.from_tris(p0, p0 + e1, p0 + e2)
+        bvh = build_bvh2(box, max_leaf=3, sah_leaf_cap=3)
+        cw = build_cwbvh(bvh, box[bvh.order])
+        perm = bvh.order[cw.tri_index]
+        if mesh is not None:
+            n0, n1, n2 = skinned_tris(mesh, bones)
+            p = torch.as_tensor(perm, device=dev)
+            n0, n1, n2 = n0[p], n1[p], n2[p]
+        else:
+            n0, n1, n2 = deform(tf(p0[perm]), tf(e1[perm]), tf(e2[perm]))
+        nodes_l, rows = pack_leaf_rows(
+            cw.nodes, cw.slot_tri_base, cw.slot_tri_count,
+            n0.cpu().numpy(), n1.cpu().numpy(), n2.cpu().numpy())
+        i64 = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)
+        nodes2, root = refit_cwbvh(
+            torch.as_tensor(nodes_l.view(np.int32), device=dev), n0, n1, n2,
+            i64(cw.slot_child), i64(cw.slot_tri_base),
+            i64(cw.slot_tri_count), level_worklists(cw.node_depth, dev))
+        table = pack_table(nodes2, tf(rows))
+        return n0, n1, n2, table, nodes2.shape[0], int(cw.depth) + 1, root
+
+    def rays(seed, R, spread):
+        g = np.random.default_rng(seed)
+        ro = g.uniform(-spread, spread, (R, 3)).astype(np.float32)
+        rd = g.normal(size=(R, 3))
+        return tf(ro), tf(rd / np.linalg.norm(rd, axis=-1, keepdims=True))
+
+    # test_refit.py
+    p0, e1, e2 = random_tris(1200, seed=2)
+
+    def twist(v):
+        ang = 0.08 * v[:, 1]
+        c, s = torch.cos(ang), torch.sin(ang)
+        return torch.stack([c * v[:, 0] - s * v[:, 2] + 0.5, v[:, 1] * 1.1,
+                            s * v[:, 0] + c * v[:, 2] - 0.25], -1)
+    n0, n1, n2, table, C, S, _ = refit_case(
+        p0, e1, e2, deform=lambda a, b, c: deform_tris(a, b, c, twist))
+    ro, rd = rays(3, 384, 15)
+    h = closest_hit_wavefront(table, C, ro, rd, 1e30, S)
+    bf = brute_force_closest(n0, n1, n2, ro, rd, 1e30)
+    hm, bm = h.tri >= 0, bf.tri >= 0
+    check(torch.equal(hm, bm) and bool(torch.allclose(
+        h.t[hm], bf.t[bm], rtol=1e-4, atol=1e-4)),
+        "test_refit_after_deformation_matches_brute_force")
+    p0, e1, e2 = random_tris(1200, seed=0)
+    n0, n1, n2, table, C, S, root = refit_case(
+        p0, e1, e2, deform=lambda a, b, c: (a, b, c))
+    box = aabb.from_tris(p0, p0 + e1, p0 + e2)
+    bvh = build_bvh2(box, max_leaf=3, sah_leaf_cap=3)
+    cw = build_cwbvh(bvh, box[bvh.order])
+    perm = bvh.order[cw.tri_index]
+    nodes_l, rows = pack_leaf_rows(cw.nodes, cw.slot_tri_base,
+                                   cw.slot_tri_count, p0[perm], e1[perm],
+                                   e2[perm])
+    ro, rd = rays(1, 256, 15)
+    h_old = closest_hit_wavefront(pack_table(torch.as_tensor(
+        nodes_l.view(np.int32), device=dev), tf(rows)), C, ro, rd, 1e30, S)
+    h_new = closest_hit_wavefront(table, C, ro, rd, 1e30, S)
+    lo = np.minimum(np.minimum(p0, p0 + e1), p0 + e2).min(0)
+    hi = np.maximum(np.maximum(p0, p0 + e1), p0 + e2).max(0)
+    check(torch.equal(h_old.tri, h_new.tri)
+          and bool((root[0].cpu().numpy() <= lo + 1e-4).all())
+          and bool((root[1].cpu().numpy() >= hi - 1e-4).all()),
+          "test_refit_identity_preserves_traversal")
+    out["refit"] = "pass"
+
+    # test_skinning.py
+    mesh = make_two_bone_cylinder(device=dev)
+    rest = mesh.rest_verts
+    bb = lambda a0, t0, a1, t1: torch.stack([
+        bone_matrix(a0, t0, (0, 0, 0), device=dev),
+        bone_matrix(a1, t1, (0, 1.0, 0), device=dev)])
+    v = skin_vertices(mesh, bb((0, 0, 1), 0.0, (0, 0, 1), 0.0))
+    check(float((v - rest).abs().max()) <= 1e-5,
+          "test_rest_pose_is_identity")
+    v = skin_vertices(mesh, bb((0, 0, 1), 0.0, (0, 0, 1), 0.7))
+    root_v, tip_v = rest[:, 1] < 0.2, rest[:, 1] > 1.8
+    check(float((v[root_v] - rest[root_v]).abs().max()) < 1e-4
+          and float((v[tip_v] - rest[tip_v]).abs().max()) > 0.3,
+          "test_bend_moves_tip_not_root")
+    r0, r1, r2 = (x.cpu().numpy() for x in skinned_tris(
+        mesh, bb((0, 0, 1), 0.0, (0, 0, 1), 0.0)))
+    n0, n1, n2, table, C, S, _ = refit_case(
+        r0, r1, r2, mesh=mesh, bones=bb((0, 0, 1), 0.1, (1, 0, 0), 0.9))
+    ro, rd = rays(5, 256, 4)
+    h = closest_hit_wavefront(table, C, ro, rd, 1e30, S)
+    bf = brute_force_closest(n0, n1, n2, ro, rd, 1e30)
+    hm = h.tri >= 0
+    check(torch.equal(hm, bf.tri >= 0) and bool(torch.allclose(
+        h.t[hm], bf.t[hm], rtol=1e-4, atol=1e-4)),
+        "test_skinned_refit_traversal_matches_brute_force")
+    out["skinning"] = "pass"
+
+    # test_light_refit.py
+    for seed, move in ((0, False), (3, True)):
+        tris, ids, power = light_refit_scene(seed=seed)
+        lb = build_light_bvh(tris, ids, power)
+        if move:
+            ang = 0.5
+            R = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                          [-np.sin(ang), 0, np.cos(ang)]], np.float32)
+            tris = dict(p0=tris["p0"] @ R.T + np.array([1.0, 0.5, -2.0],
+                                                       np.float32),
+                        e1=tris["e1"] @ R.T, e2=tris["e2"] @ R.T)
+        i64 = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)
+        nodes2 = refit_light_bvh(
+            tf(lb.nodes), i64(lb.info), i64(lb.prim), tf(tris["p0"]),
+            tf(tris["e1"]), tf(tris["e2"]), i64(ids), tf(power),
+            light_level_worklists(lb.info, dev))
+        n_np = nodes2.cpu().numpy()
+        check_light_nodes_conservative(n_np, lb.info, lb.prim, tris, ids)
+        if not move:
+            check(abs(float(n_np[0, 11]) - float(power.sum()))
+                  <= 1e-5 * float(power.sum()),
+                  "test_identity_refit_conservative_and_power_exact")
+            continue
+        pairs0, children = build_pairs(lb.nodes, lb.info)
+        pairs = build_pairs_torch(nodes2, tf(pairs0), i64(children))
+        g = np.random.default_rng(1)
+        K = 128
+        p = tf(g.uniform(-6, 6, (K, 3)))
+        n = tf(np.tile([0, 1, 0], (K, 1)))
+        u = tf(g.uniform(0, 1, K))
+        depth = light_bvh_depth(lb.info)
+        idx, pmf, _ = sample_light_tree(pairs, i64(lb.prim), p, n, u, depth)
+        pdf = light_tree_pdf(pairs, torch.as_tensor(
+            lb.trail.view(np.int32), device=dev), idx, p, n, depth)
+        check(bool(torch.allclose(pmf, pdf, rtol=1e-4, atol=1e-6))
+              and bool((pmf > 0).all()),
+              "test_refit_after_motion_stays_valid_and_samples")
+    out["light_refit"] = "pass"
+
+    # test_dynamic_scene.py
+    from truetrace_tpu_torch.renderer import Renderer, RendererConfig
+    from truetrace_tpu_torch.scene.dynamic import (compile_dynamic_scene,
+                                                   pose_scene)
+    from truetrace_tpu_torch.scene.mesh import (HostMaterial, HostMesh,
+                                                compile_scene)
+    mats = [HostMaterial(base_color=(0.7, 0.7, 0.7)),
+            HostMaterial(base_color=(0.6, 0.3, 0.2)),
+            HostMaterial(emission=(10.0, 10.0, 10.0))]
+    floor = HostMesh(np.array([[-4, 0, -4], [4, 0, -4], [4, 0, 4],
+                               [-4, 0, 4]], np.float32),
+                     np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+                     np.zeros(2, np.int32))
+    light = HostMesh(np.array([[-1, 3.2, -1], [1, 3.2, -1], [1, 3.2, 1],
+                               [-1, 3.2, 1]], np.float32),
+                     np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+                     np.full(2, 2, np.int32))
+    mesh = make_two_bone_cylinder(n_radial=10, n_height=12, device=dev)
+    dyn = compile_dynamic_scene(mesh, 1, mats, static_meshes=[floor, light],
+                                device=dev)
+    cam = Camera.look_at(eye=(0, 2.5, 5.5), target=(0, 1.0, 0),
+                         fov_y_deg=45, device=dev)
+    bent = bb((0, 0, 1), 0.15, (1, 0, 0), 0.8)
+    posed = pose_scene(dyn, bent)
+    v = skin_vertices(mesh, bent).cpu().numpy()
+    rebuilt = compile_scene(
+        [floor, light, HostMesh(v, mesh.tri_vidx.cpu().numpy(),
+                                np.full(mesh.tri_vidx.shape[0], 1,
+                                        np.int32))], mats, with_cwbvh=True,
+        device=dev)
+    kw = dict(bounces=2, bsdf="lambert", traversal="wavefront",
+              light_sampling="cdf")
+    a = _render_np(posed, cam, 24, 12, **kw)
+    b = _render_np(rebuilt, cam, 24, 12, **kw)
+    close = np.abs(a - b).mean(-1) / np.maximum(b.mean(-1), 0.05)
+    check(np.isfinite(a).all() and a.mean() > 0.01
+          and abs(a.mean() - b.mean()) <= 0.02 * b.mean()
+          and float(np.mean(close < 0.5)) > 0.92,
+          "test_pose_refit_matches_rebuild_image")
+    r = Renderer(dyn.scene, cam, RendererConfig(width=24, height=24,
+                                                denoiser="svgf", **kw))
+    st = r.init_state()
+    for k in range(4):
+        disp, rad, st = r.step(st, scene=pose_scene(dyn, bb(
+            (0, 0, 1), 0.05 * k, (1, 0, 0), 0.25 * k)))
+        check(bool(torch.isfinite(disp).all()), "animated sequence finite")
+    check(float(st.accum.count) == 1.0 and float(rad.max()) > 0.0,
+          "test_animated_sequence_through_renderer")
+    out["dynamic_scene"] = "pass"
+
+    # test_asset_manager.py
+    import truetrace_tpu_torch.scene.asset_manager as am_mod
+    from truetrace_tpu_torch.scene.instances import (compile_scene_instanced,
+                                                     make_transform)
+    sources, amats, instances = instanced_sources()
+    acam = Camera.look_at(eye=(0, 3.0, 6.0), target=(0, 0.5, 0),
+                          fov_y_deg=45, device=dev)
+    akw = dict(bounces=2, bsdf="lambert", traversal="tlas",
+               light_sampling="cdf")
+    img = lambda sc: _render_np(sc, acam, 24, 8, **akw)
+
+    def same_image(sc, srcs, ms, insts, what):
+        ref, _ = compile_scene_instanced(srcs, ms, insts, device=dev)
+        check(np.allclose(img(sc), img(ref), rtol=1e-4, atol=1e-5), what)
+
+    def manager():
+        am = am_mod.AssetManager(materials=list(amats), device=dev)
+        src_h = [am.add_mesh(s) for s in sources]
+        inst_h = [am.add_instance(src_h[s], m) for s, m in instances]
+        return am, src_h, inst_h
+
+    am, _, _ = manager()
+    same_image(am.commit(), sources, amats, instances,
+               "test_commit_matches_direct_compile")
+    calls = []
+    orig = am_mod.build_source
+    am_mod.build_source = lambda m, **k: calls.append(m) or orig(m, **k)
+    try:
+        am, src_h, inst_h = manager()
+        am.commit()
+        calls.clear()
+        m_new = make_transform((-0.6, 0.7, 0.4), rot_y=1.1)
+        am.set_transform(inst_h[1], m_new)
+        moved = list(instances)
+        moved[1] = (moved[1][0], m_new)
+        same_image(am.commit(), sources, amats, moved,
+                   "test_transform_update_fast_path")
+        check(calls == [], "a transform commit rebuilt a BLAS")
+        m_add = make_transform((0.0, 0.4, 1.5), rot_y=0.9, scale=0.6)
+        am.add_instance(src_h[0], m_add)
+        am.remove_instance(inst_h[2])
+        same_image(am.commit(), sources, amats,
+                   [moved[0], moved[1], moved[3], (0, m_add)],
+                   "test_add_remove_instance_and_blas_cache")
+        check(calls == [], "an instance add / remove rebuilt a BLAS")
+        am, src_h, _ = manager()
+        am.commit()
+        calls.clear()
+        bigger = HostMesh(sources[0].positions * 1.4, sources[0].indices,
+                          sources[0].mat_id)
+        am.update_mesh(src_h[0], bigger)
+        same_image(am.commit(), [bigger] + sources[1:], amats, instances,
+                   "test_update_mesh_rebuilds_only_that_source")
+        check(len(calls) == 1, "update_mesh rebuilt more than its source")
+    finally:
+        am_mod.build_source = orig
+    am, src_h, _ = manager()
+    am.commit()
+    blue = HostMaterial(base_color=(0.2, 0.6, 0.9))
+    am.set_material(1, blue)
+    check(not am._topology_dirty, "a colour edit is a topology change")
+    mats2 = list(amats)
+    mats2[1] = blue
+    same_image(am.commit(), sources, mats2, instances,
+               "test_material_edit_no_rebuild_unless_emission")
+    lit = HostMaterial(base_color=(0.2, 0.6, 0.9), emission=(3.0, 3.0, 3.0))
+    am.set_material(1, lit)
+    check(am._topology_dirty, "an emission edit is no topology change")
+    mats2[1] = lit
+    same_image(am.commit(), sources, mats2, instances,
+               "test_material_edit_no_rebuild_unless_emission (emission)")
+    am.remove_mesh(src_h[0])
+    same_image(am.commit(), sources[1:], mats2,
+               [(s - 1, m) for s, m in instances if s != 0],
+               "test_remove_mesh_drops_its_instances")
+    out["asset_manager"] = "pass"
+
+    # test_video_matcap.py
+    from truetrace_tpu_torch.scene.atlas import AtlasBuilder
+    from truetrace_tpu_torch.scene.ir import EnvMap
+    from truetrace_tpu_torch.scene.video import (bind_video_frame,
+                                                 bind_video_time,
+                                                 register_video)
+    quad = HostMesh(np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0],
+                              [-1, 1, 0]], np.float32),
+                    np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+                    np.zeros(2, np.int32),
+                    uvs=np.array([[0, 0], [1, 0], [1, 1], [0, 1]],
+                                 np.float32))
+    vcam = Camera.look_at(eye=(0, 0, 3), target=(0, 0, 0), fov_y_deg=45,
+                          device=dev)
+    builder = AtlasBuilder()
+    frames = np.zeros((3, 8, 8, 3), np.float32)
+    for k in range(3):
+        frames[k, ..., k] = 1.0
+    vid = register_video(builder, frames, fps=10.0, device=dev)
+    atlas, rects, level_y = builder.build()
+    vscene = compile_scene(
+        [quad], [HostMaterial(base_color=(1, 1, 1), emission=(4, 4, 4),
+                              tex_emission=vid.tex_id)],
+        env=EnvMap.constant((0, 0, 0), dev), atlas=atlas, atlas_rects=rects,
+        atlas_level_y=level_y, with_cwbvh=True, device=dev)
+    vkw = dict(bounces=1, bsdf="lambert", traversal="wavefront")
+    for k in range(3):
+        m = _render_np(bind_video_frame(vscene, vid, k), vcam, 16, 4,
+                       **vkw).reshape(-1, 3).mean(0)
+        check(m[k] > 2.0 * (m.sum() - m[k]) + 1e-6,
+              f"test_video_frame_binding (frame {k}: {m})")
+    check(torch.equal(bind_video_time(vscene, vid, 0.25).atlas,
+                      bind_video_frame(vscene, vid, 5).atlas),
+          "test_video_time_binding_wraps")
+    builder = AtlasBuilder()
+    mc = np.zeros((16, 16, 3), np.float32)
+    mc[..., 0] = 1.0
+    mc_id = builder.add(mc)
+    atlas, rects, level_y = builder.build()
+    env = EnvMap.constant((1.0, 1.0, 1.0), dev)
+    mkw = dict(bounces=2, bsdf="lambert", traversal="wavefront")
+    c = [_render_np(compile_scene(
+        [quad], [HostMaterial(base_color=(1, 1, 1), **x)], env=env,
+        atlas=atlas, atlas_rects=rects, atlas_level_y=level_y,
+        with_cwbvh=True, device=dev), vcam, 16, 4, **mkw).reshape(
+            -1, 3).mean(0) for x in ({}, dict(tex_matcap=mc_id))]
+    check(abs(c[1][0] - c[0][0]) < 0.05 and c[1][1] < 0.5 * c[0][1]
+          and c[1][2] < 0.5 * c[0][2], "test_matcap_modulates_primary")
+    out["video_matcap"] = "pass"
+    log(f"animated gates (the JAX package's dynamic-scene checks with the "
+        f"port on the card): {out}")
+    results["animated_gates"] = out
+
+
+def random_tris(n, seed=0, spread=10.0, size=0.5):
+    """tests/test_bvh2.py's random triangles (p0, e1, e2)."""
+    r = np.random.default_rng(seed)
+    p0 = (r.uniform(-1, 1, size=(n, 3)) * spread).astype(np.float32)
+    e1 = (r.normal(size=(n, 3)) * size).astype(np.float32)
+    e2 = (r.normal(size=(n, 3)) * size).astype(np.float32)
+    return p0, e1, e2
+
+
+def light_refit_scene(n_lights=24, seed=0):
+    """tests/test_light_refit.py's emissive triangles: (tris, ids,
+    power)."""
+    rng = np.random.default_rng(seed)
+    p0 = rng.uniform(-5, 5, (n_lights, 3)).astype(np.float32)
+    e1 = rng.uniform(-0.4, 0.4, (n_lights, 3)).astype(np.float32)
+    e2 = rng.uniform(-0.4, 0.4, (n_lights, 3)).astype(np.float32)
+    ids = np.arange(n_lights, dtype=np.int32)
+    area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
+    power = (area * rng.uniform(1, 5, n_lights)).astype(np.float32)
+    return dict(p0=p0, e1=e1, e2=e2), ids, power
+
+
+def check_light_nodes_conservative(nodes, info, prim, tris, ids):
+    """tests/test_light_refit.py's check: every light under a node lies
+    inside its box and its cone."""
+    p0, e1, e2 = tris["p0"], tris["e1"], tris["e2"]
+    gn = np.cross(e1, e2)
+    gn /= np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-20)
+
+    def lights_under(n):
+        if info[n, 1] > 0:
+            return [prim[info[n, 0] + k] for k in range(info[n, 1])]
+        return lights_under(info[n, 0]) + lights_under(-info[n, 1])
+
+    for n in range(nodes.shape[0]):
+        lo, hi = nodes[n, 0:3], nodes[n, 3:6]
+        theta_o = np.arccos(np.clip(nodes[n, 9], -1, 1))
+        for li in lights_under(n):
+            t = ids[li]
+            for v in (p0[t], p0[t] + e1[t], p0[t] + e2[t]):
+                check(bool((v >= lo - 1e-3).all() and (v <= hi + 1e-3).all()),
+                      f"light node {n}: light {li} outside its box")
+            ang = np.arccos(np.clip(np.dot(nodes[n, 6:9], gn[t]), -1, 1))
+            check(ang <= theta_o + 1e-3, f"light node {n}: light {li} "
+                  f"outside its cone")
+
+
+def instanced_sources():
+    """tests/test_instanced_render.py's sources (a box, a floor, a light
+    facing down) and four instances, from the port's classes."""
+    from truetrace_tpu_torch.scene.instances import make_transform
+    from truetrace_tpu_torch.scene.mesh import HostMaterial, HostMesh
+    mats = [HostMaterial(base_color=(0.75, 0.75, 0.75)),
+            HostMaterial(base_color=(0.8, 0.2, 0.2)),
+            HostMaterial(emission=(12.0, 11.0, 10.0))]
+    bv = np.array([[x, y, z] for x in (-.4, .4) for y in (-.4, .4)
+                   for z in (-.4, .4)], np.float32)
+    bf = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5],
+                   [0, 5, 1], [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4],
+                   [1, 5, 7], [1, 7, 3]], np.int32)
+    quad = lambda y, h: np.array([[-h, y, -h], [h, y, -h], [h, y, h],
+                                  [-h, y, h]], np.float32)
+    up = np.array([[0, 2, 1], [0, 3, 2]], np.int32)
+    sources = [HostMesh(bv, bf, np.ones(12, np.int32)),
+               HostMesh(quad(0.0, 4.0), up, np.zeros(2, np.int32)),
+               HostMesh(quad(0.0, 0.6), up[:, ::-1].copy(),
+                        np.full(2, 2, np.int32))]
+    instances = [(1, make_transform((0, 0, 0))),
+                 (0, make_transform((-1.2, 0.4, 0.0), rot_y=0.4)),
+                 (0, make_transform((1.1, 0.4, -0.6), rot_y=-0.7,
+                                    scale=0.8)),
+                 (2, make_transform((0.0, 2.5, 0.0), rot_y=0.3))]
+    return sources, mats, instances
+
+
+def phase_animated_card_vs_cpu(results):
+    """The animated frame small (the atrium at detail 0.2 with a 16 x 24
+    cylinder) at 16x16, three frames on the card and on the CPU, the pose
+    changing every frame: the displays within 1e-3 on >= 98% of
+    pixels."""
+    import torch
+    small = dict(ANIMATED, width=16, height=16, bounces=3)
+    frames = {}
+    for dev in (DEVICE, "cpu"):
+        dyn, cam = animated_scene(dev, detail=0.2, n_radial=16, n_height=24)
+        posed = animated_poses(dyn, [0, 3, 6])
+        r = make_renderer(dyn.scene, cam, small)
+        st = r.init_state()
+        out = []
+        for sc in posed:
+            d, _, st = r.step(st, cam=cam, cam_moved=True, scene=sc)
+            out.append(d.cpu())
+        frames[dev] = out
+    shares = []
+    for a, b in zip(frames[DEVICE], frames["cpu"]):
+        shares.append(float(((a - b).abs() <= 1e-3).all(-1).float().mean()))
+        check(bool(torch.isfinite(a).all()) and shares[-1] >= 0.98,
+              f"animated card vs CPU: {shares[-1]:.4f} of pixels within "
+              f"1e-3")
+    log(f"animated 16x16 card vs CPU, three poses: display shares within "
+        f"1e-3 {[round(s, 4) for s in shares]}")
+    results["animated_card_vs_cpu"] = dict(display_share=shares)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: correctness of the output
 # ---------------------------------------------------------------------------
 
@@ -3464,11 +4294,12 @@ PATHS = {"atrium": _OPAQUE, "composed": _OPAQUE, "sponza": _OPAQUE,
          "neural": ("closest_hit_wavefront", "any_hit_wavefront"),
          "forest": ("closest_hit_tlas", "any_hit_tlas", "heightmap_closest",
                     "heightmap_any", "atrous_pass"),
-         "tinted": ("closest_hit_tlas", "transmit_tlas", "atrous_pass")}
+         "tinted": ("closest_hit_tlas", "transmit_tlas", "atrous_pass"),
+         "animated": _OPAQUE}
 # the frames after the first three, each with its own launch counts in
 # the kernels line
 NEW_PATHS = ("asvgf", "recur", "composed_asvgf", "glass", "post",
-             "interactive", "neural", "forest")
+             "interactive", "neural", "forest", "animated")
 # a profiled frame's host copies and syncs (phase_profile)
 COPY_KEYS = ("memcpy_htod", "memcpy_dtoh", "stream_syncs",
              "blocking_memcpy_calls", "memcpy_dtod")
@@ -3615,6 +4446,24 @@ def main() -> int:
     phase_forest_gates(results)
     phase_forest_card_vs_cpu(results)
 
+    t0 = time.perf_counter()
+    dyn, a_cam = animated_scene(DEVICE)
+    log(f"animated atrium: {dyn.scene.n_tris()} triangles "
+        f"({dyn.skin_tri_ids.shape[0]} skinned), "
+        f"{dyn.scene.cw_nodes.shape[0]} nodes, "
+        f"{dyn.scene.cw_leaf_rows.shape[0]} leaf rows, K = "
+        f"{dyn.scene.cw_leaf_rows.shape[1] // 10}, {len(dyn.levels)} refit "
+        f"levels, stack {dyn.scene.cw_stack}; compile_dynamic_scene "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(dyn.scene.n_tris() == ANIMATED_TRIS,
+          f"animated atrium: {dyn.scene.n_tris()} triangles")
+    phase_animated_pose(results, dyn)
+    phase_animated_kernels(results, dyn, a_cam)
+    new_launches["animated"] = phase_animated(results, dyn, a_cam)
+    del dyn
+    phase_animated_gates(results)
+    phase_animated_card_vs_cpu(results)
+
     for k in (6, 3):
         log(f"traversal Mrays/s (bench mix, atrium K={k}): " + ", ".join(
             f"{results[f'traversal_k{k}_{n}']['mrays']:.2f} at {n} rays"
@@ -3679,6 +4528,11 @@ def main() -> int:
         instances=results["forest"]["instances"],
         gates=results["forest_gates"],
         card_vs_cpu=results["forest_card_vs_cpu"])
+    frames["animated"].update(
+        **{k: results["animated"][k] for k in (
+            "captures", "poses", "rebuild_s", "pose_replay_ms")},
+        pose=results["animated_pose"], gates=results["animated_gates"],
+        card_vs_cpu=results["animated_card_vs_cpu"])
     frames["composed"].update(
         scatter_ms=results["composed_profile"]["scatter_ms"],
         cache_update_ms=results["composed_cache"]["update_ms"],
@@ -3704,6 +4558,7 @@ def main() -> int:
         "heightmap_any")}, transmit_tlas=new_launches["tinted"][
             "transmit_tlas"])
     rows = {}
+    src_of = {name: src for name, src, _, _ in KERNELS}
     for name, src, rep, _ in KERNELS:
         res = results[name]
         n = main_launches[name]
@@ -3727,6 +4582,13 @@ def main() -> int:
     rows["transmit_wavefront"]["atrium"].update(results["transmit_atrium"])
     rows["transmit_tlas"]["forest"].update(results["transmit_tlas_forest"])
     rows["transmit_tlas"]["main_path"] = "tinted"
+    # the K = 3 traversal, which only the animated frame runs at full
+    # size: its time and bound on that frame's bounce-0 rays
+    for name, q, inst in (("closest_hit_wavefront", "closest", "<3,0>"),
+                          ("any_hit_wavefront", "any", "<3,1>")):
+        rows[name]["animated"].update(
+            k=3, ptxas=ptxas_of(src_of[name], "traverse_kernel" + inst),
+            **results["animated_kernels"][q])
     for name in ("closest_hit_wavefront", "any_hit_wavefront",
                  "transmit_wavefront"):
         # the ring stack's dynamic shared memory, as the launch sizes it

@@ -21,7 +21,10 @@ lights, and the neural_taa denoiser; the two-level traversal's three
 queries bit for bit at every leaf width (a 2-entry stack among them),
 the heightmap march bit for bit, and the two frame checks for the
 forest (instances on a terrain, the lanterns moved between frames by
-update_instance_transforms and replayed with no recapture).
+update_instance_transforms and replayed with no recapture); and the
+animated atrium: pose_scene without a host sync and bit for bit the
+CPU's, posed scenes replayed with no recapture, the two frame checks,
+and the skinning's clamped bone indices.
 
 Needs an NVIDIA card and nvcc; skips elsewhere. It imports no JAX, so it
 runs on a machine without it (the JAX-side conftest is skipped):
@@ -678,7 +681,8 @@ FRAMES = {"asvgf": ("atrium", dict(SLICE, denoiser="asvgf")),
           "glass": ("glass", dict(SLICE, bounces=10, rr_start=6,
                                   denoiser="svgf")),
           "forest": ("forest", dict(SLICE, traversal="tlas",
-                                    light_sampling="tree", denoiser="svgf"))}
+                                    light_sampling="tree", denoiser="svgf")),
+          "animated": ("animated", dict(SLICE, denoiser="svgf"))}
 FOREST_SMALL = dict(n_hm=65, n_trees=128, n_lanterns=8)
 
 
@@ -689,6 +693,8 @@ def _slice_frame(dev, name):
         sc, cam = chip_smoke.nested_glass_scene(dev)
     elif scene == "forest":
         sc, cam = _forest_small(dev)[0], _forest_small(dev)[4]
+    elif scene == "animated":
+        sc, cam = _animated_small(dev)[0].scene, _animated_small(dev)[1]
     else:
         sc, cam = _atrium_small(dev)
     return sc, cam, cfg
@@ -717,14 +723,45 @@ def _forest_small(dev):
     return _forest_cache["f"]
 
 
+_animated_cache = {}
+
+
+def _animated_small(dev):
+    """chip_smoke's animated atrium small (detail 0.2, a 16 x 24
+    cylinder): (DynamicScene, camera)."""
+    if "a" not in _animated_cache:
+        import chip_smoke
+        _animated_cache["a"] = chip_smoke.animated_scene(
+            dev, detail=0.2, n_radial=16, n_height=24)
+    return _animated_cache["a"]
+
+
+def _next_scene(dev, name, k=1):
+    """A function making the scene a slice's later frame swaps in: the
+    forest's lanterns moved, or the animated cylinder at pose k (its
+    bones made here, pose_scene when it is called)."""
+    if name == "forest":
+        nxt = _forest_small(dev)[5][k - 1]
+        return lambda: nxt
+    if name == "animated":
+        import chip_smoke
+        from truetrace_tpu_torch.scene.dynamic import pose_scene
+        dyn = _animated_small(dev)[0]
+        bones = chip_smoke.animated_bones(k, dev)
+        return lambda: pose_scene(dyn, bones)
+    return lambda: None
+
+
 @pytest.mark.parametrize("name", ["asvgf", "restir_asvgf", "glass",
-                                  "forest"])
+                                  "forest", "animated"])
 def test_slice_frame_makes_no_host_sync(dev, name):
     """The ASVGF frame (its stratum replay reads the previous sample id
     on the card), ReSTIR-ASVGF, the nested-glass frame (the
-    transmittance kernel, the medium stack) and the forest (the
+    transmittance kernel, the medium stack), the forest (the
     two-level traversal, the march, per-object motion; its second frame
-    also swaps in a scene with the lanterns moved): after a warm-up
+    also swaps in a scene with the lanterns moved) and the animated
+    atrium (its second frame swaps in a pose made by pose_scene inside
+    the checked region): after a warm-up
     frame, one more and one moving the camera with cam_moved=True, under
     torch.cuda.set_sync_debug_mode("error")."""
     import chip_smoke
@@ -736,12 +773,12 @@ def test_slice_frame_makes_no_host_sync(dev, name):
     _, _, st = r.step(st)
     moved = chip_smoke.moved_camera(cam)
     launches = transmit_wavefront.launches
-    nxt = _forest_small(dev)[5][0] if name == "forest" else None
+    nxt = _next_scene(dev, name)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         _, _, st = r.step(st)
-        disp, _, st = r.step(st, cam=moved, cam_moved=True, scene=nxt)
+        disp, _, st = r.step(st, cam=moved, cam_moved=True, scene=nxt())
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert float(st.accum.count) == 1.0 and st.sample == 3
@@ -749,17 +786,19 @@ def test_slice_frame_makes_no_host_sync(dev, name):
     assert (transmit_wavefront.launches > launches) == (name == "glass")
 
 
-@pytest.mark.parametrize("name", ["asvgf", "recur", "glass", "forest"])
+@pytest.mark.parametrize("name", ["asvgf", "recur", "glass", "forest",
+                                  "animated"])
 def test_slice_graph_frames_match_eager(dev, name):
     """Renderer.graph_step against Renderer.step on the ASVGF, ReCur,
-    nested-glass and forest frames, four frames as
+    nested-glass, forest and animated frames, four frames as
     test_graph_frames_match_eager runs them (a camera move among them):
     display, radiance and every state tensor (ASVGF's nested SVGF state,
     its stratum luminance and previous sample id, ReCur's histories, the
     forest's previous instance transforms) bit for bit; the forest then
     two more frames with the lanterns moved by update_instance_transforms,
-    the moved scene handed to the cam_moved graph and copied into its
-    captured scene on the device: bit for bit, with no recapture."""
+    and the animated atrium three more at new poses (pose_scene), the new
+    scene handed to the cam_moved graph and copied into its captured
+    scene on the device: bit for bit, with no recapture."""
     import chip_smoke
     from truetrace_tpu_torch.renderer import _tensors
     sc, cam, cfg = _slice_frame(dev, name)
@@ -779,16 +818,99 @@ def test_slice_graph_frames_match_eager(dev, name):
     assert (gs.captures, gm.captures) == (1, 1)
     if name == "asvgf":
         assert "asvgf.svgf.color" in te and int(sg.asvgf.prev_sid) == 3
-    if name == "forest":
-        assert "prev_inst_l2w" in te
-        for nxt in _forest_small(dev)[5]:
+    if name in ("forest", "animated"):
+        for k in (1, 2) if name == "forest" else (1, 2, 3):
+            nxt = _next_scene(dev, name, k)()
             de, ae, se = re.step(se, cam=moved, cam_moved=True, scene=nxt)
             dg, ag, sg = gm(sg, cam=moved, scene=nxt)
             te, tg = dict(_tensors(se)), dict(_tensors(sg))
             assert all(chip_smoke.torch_equal_bits(a, b) for a, b in
                        [(de, dg), (ae, ag)] + [(te[k], tg[k]) for k in te])
         assert (gs.captures, gm.captures) == (1, 1)
+    if name == "forest":
+        assert "prev_inst_l2w" in te
         assert torch.equal(sg.prev_inst_l2w, nxt.inst_l2w)
+
+
+def test_posed_scenes_replay_without_recapture(dev):
+    """The animated atrium through Renderer.graph_step(cam_moved=True)
+    over five poses (each pose_scene's new scene handed to the graph),
+    against Renderer.step with the same scenes: the first frame eager,
+    one capture, then three replays of posed scenes copied into the
+    captured one; display, radiance and every state tensor bit for
+    bit."""
+    import chip_smoke
+    from truetrace_tpu_torch.renderer import _tensors
+    from truetrace_tpu_torch.scene.dynamic import pose_scene
+    dyn, cam = _animated_small(dev)
+    cfg = dict(SLICE, denoiser="svgf")
+    re = chip_smoke.make_renderer(dyn.scene, cam, cfg)
+    rg = chip_smoke.make_renderer(dyn.scene, cam, cfg)
+    gm = rg.graph_step(cam_moved=True)
+    se, sg = re.init_state(), rg.init_state()
+    for k in range(5):
+        sc = pose_scene(dyn, chip_smoke.animated_bones(k, dev))
+        de, ae, se = re.step(se, cam_moved=True, scene=sc)
+        dg, ag, sg = gm(sg, scene=sc)
+        te, tg = dict(_tensors(se)), dict(_tensors(sg))
+        assert te.keys() == tg.keys()
+        assert all(chip_smoke.torch_equal_bits(a, b) for a, b in
+                   [(de, dg), (ae, ag)] + [(te[n], tg[n]) for n in te]), k
+    assert gm.captures == 1
+
+
+def test_pose_scene_makes_no_host_sync_and_matches_cpu(dev):
+    """pose_scene on the card under torch.cuda.set_sync_debug_mode(
+    "error") (a new scene, the rest scene unchanged), and its tables
+    against the same pose on the CPU: the node words, leaf rows and
+    triangles bit for bit (the refit's log2 / exp2 and the skinning's
+    fmas are exact emulations), the normals and light rows to 1e-6."""
+    import chip_smoke
+    from truetrace_tpu_torch.scene.dynamic import pose_scene
+    dyn, _ = _animated_small(dev)
+    dyn_cpu, _ = chip_smoke.animated_scene("cpu", detail=0.2, n_radial=16,
+                                           n_height=24)
+    bones = chip_smoke.animated_bones(4, dev)
+    rest = dyn.scene.cw_nodes.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        posed = pose_scene(dyn, bones)
+        posed.cw_table()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert posed is not dyn.scene and torch.equal(dyn.scene.cw_nodes, rest)
+    ref = pose_scene(dyn_cpu, bones.cpu())
+    assert not torch.equal(ref.cw_nodes, dyn_cpu.scene.cw_nodes)
+    for f in ("cw_nodes", "cw_leaf_rows", "tri_p0", "tri_e1", "tri_e2"):
+        a, b = getattr(posed, f).cpu(), getattr(ref, f)
+        assert chip_smoke.torch_equal_bits(a, b), f
+    for a, b in ((posed.tri_n, ref.tri_n),
+                 (posed.light_tris.rows, ref.light_tris.rows)):
+        assert torch.allclose(a.cpu(), b, rtol=0, atol=1e-6)
+
+
+def test_skinning_clamps_bone_indices(dev):
+    """Bone indices outside [0, B) (the two-bone cylinder's 2 and 3, a
+    9 and a -1) are clamped as XLA's gather clamps them, with no device
+    assert, and the card's vertices are the CPU's bit for bit."""
+    from truetrace_tpu_torch.scene.skinning import (
+        bone_matrix, make_two_bone_cylinder, skin_vertices)
+    mesh = make_two_bone_cylinder(device=dev)
+    idx = mesh.bone_idx.clone()
+    idx[::5, 2] = 9
+    idx[::7, 3] = -1
+    mesh = mesh._replace(bone_idx=idx)
+    bones = torch.stack([bone_matrix((0, 0, 1), 0.2, (0, 0, 0), device=dev),
+                         bone_matrix((1, 0, 0), 0.9, (0, 1.0, 0),
+                                     device=dev)])
+    v = skin_vertices(mesh, bones)
+    torch.cuda.synchronize()
+    cpu = skin_vertices(mesh._replace(**{f: getattr(mesh, f).cpu()
+                                         for f in mesh._fields}),
+                        bones.cpu())
+    assert bool(torch.isfinite(v).all())
+    assert torch.equal(v.cpu().view(torch.int32), cpu.view(torch.int32))
 
 
 # (config) of each frame of the TAAU / partial rendering / neural slice,

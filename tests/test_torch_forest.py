@@ -3,7 +3,9 @@ Renderer: an instanced scene (chip_smoke.forest_host at 16x16: 24 trees
 and 4 emissive lanterns scattered on a 33^2 hills terrain, the baked
 sky) through the two-level traversal, the terrain's march, NEE by the
 light tree over the lanterns' world light rows (compile_scene_instanced
-with_light_bvh, rebuilt by every update), per-object motion vectors,
+with_light_bvh, rebuilt by every update; each light BVH is built once,
+by the port's builder, for both packages' scenes), per-object motion
+vectors,
 partial rendering
 (its instance G-buffer) and SVGF; three frames, the camera and the
 lanterns moving on the second and third (update_instance_transforms, the
@@ -68,11 +70,21 @@ def _moved(cam, dx, cls, arr):
                focus_dist=cam.focus_dist)
 
 
+_SKY = []
+
+
+def _sky():
+    """The baked sky, once a module."""
+    if not _SKY:
+        _SKY.append(bake_sky_env(**cs.FOREST_SKY, device="cpu"))
+    return _SKY[0]
+
+
 def _forest(pkg):
     """(scene, InstancedScene, materials, instances, camera) of the small
     forest by one package, under the same sky (the port's bake, whose
     CDF tables the JAX package builds for itself)."""
-    sky = bake_sky_env(**cs.FOREST_SKY, device="cpu")
+    sky = _sky()
     img = sky.image.numpy()
     if pkg == "jax":
         sources, mats, inst, (hm, ter), (eye, target, fov) = cs.forest_host(
@@ -101,12 +113,40 @@ def _scenes(pkg, forest):
                    for k in (1, 2)]
 
 
+def _light_bvh_once():
+    """The port's light-BVH build, memoised on its inputs: both packages'
+    forests take it, so each of the three light BVHs is built once. The
+    JAX package's build is the same SAOH algorithm in slower Python, held
+    bit for bit to the port's on instanced scenes and their updates by
+    tests/test_torch_tlas.py."""
+    from truetrace_tpu_torch.build.lightbvh import build_light_bvh
+    memo = {}
+
+    def build(tris, ids, power):
+        ids = np.asarray(ids)
+        key = (ids.astype(np.int64).tobytes(),
+               np.asarray(power).tobytes()) + tuple(
+            np.asarray(tris[k])[ids].tobytes() for k in ("p0", "e1", "e2"))
+        if key not in memo:
+            memo[key] = build_light_bvh(tris, ids, power)
+        return memo[key]
+    return build
+
+
 @pytest.fixture(scope="module")
 def run():
     """Three frames of the JAX Renderer: [(display, radiance, state
     leaves)], the port's scenes and cameras beside them."""
-    jf = _forest("jax")
-    jscenes = _scenes("jax", jf)
+    import truetrace_tpu.build.lightbvh as jlbvh
+    import truetrace_tpu_torch.build.lightbvh as tlbvh
+    build = _light_bvh_once()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jlbvh, "build_light_bvh", build)
+        mp.setattr(tlbvh, "build_light_bvh", build)
+        jf = _forest("jax")
+        jscenes = _scenes("jax", jf)
+        tf = _forest("torch")
+        tscenes = _scenes("torch", tf)
     jcam = jf[4]
     jr = jrenderer.Renderer(jscenes[0], jcam,
                             jrenderer.RendererConfig(**CFG))
@@ -127,9 +167,8 @@ def run():
             kw = dict(cam=cam, cam_moved=True, scene=jscenes[i]) if i else {}
             disp, acc, st = jr.step(st, **kw)
             frames.append((np.asarray(disp), np.asarray(acc), leaves(st)))
-    tf = _forest("torch")
     tcam = tf[4]
-    return dict(frames=frames, scenes=_scenes("torch", tf), cam=tcam,
+    return dict(frames=frames, scenes=tscenes, cam=tcam,
                 jscenes=jscenes, cams=[None] + [
                     _moved(tcam, dx, Camera, torch.from_numpy)
                     for dx in MOVES[1:]])
@@ -232,13 +271,13 @@ def test_motion_vectors_objects_match_jax(run):
     np.testing.assert_allclose(M, Mj, atol=2e-5)
 
 
-def test_terrain_lane_keeps_the_instance_behind():
+def test_terrain_lane_keeps_the_instance_behind(run):
     """The reference's fact the port keeps (ROADMAP.md §C): where the
     terrain is nearer than a TLAS hit, the primary-hit instance G-buffer
     holds the instance behind the terrain, not -1 (so per-object motion
     moves that terrain pixel with it). A camera low over the hills sees
     trees behind them."""
-    sc, _, _, _, _ = _forest("torch")
+    sc = run["scenes"][0]
     cam = Camera.look_at((-20.0, 4.0, 20.0), (10.0, 2.0, -10.0),
                          fov_y_deg=60.0, device="cpu")
     W, H = 48, 32

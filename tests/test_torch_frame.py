@@ -1,19 +1,16 @@
 """Torch port, the frame: one path-traced sample per pixel and three
 Renderer.step frames with SVGF against the JAX package on the same
-(carried-across) Cornell scene, camera and sample ids, and the port's
-own twin of scripts/verify_drive.py's physics checks."""
+(carried-across) Cornell scene, camera and sample ids (one eager JAX
+Renderer run, its first frame's sample recorded on the way), and the
+port's own twin of scripts/verify_drive.py's physics checks."""
 import dataclasses
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from truetrace_tpu.integrate.pathtrace import RenderConfig as JRenderConfig
-from truetrace_tpu.integrate.pathtrace import (
-    render_sample_with_stats as jrender_sample_with_stats)
+from truetrace_tpu import renderer as jrenderer
 from truetrace_tpu.renderer import Renderer as JRenderer
 from truetrace_tpu.renderer import RendererConfig as JRendererConfig
 from truetrace_tpu.scene import cornell as jcornell
@@ -46,20 +43,49 @@ def _close_share(a, b, rtol, atol):
     return np.isclose(a, b, rtol=rtol, atol=atol).all(-1).mean()
 
 
-def test_render_sample_matches_jax(cornell_pair):
-    """One sample of a 32x32 Cornell frame, 3 bounces, Disney, tree NEE.
-    The RNG and camera rays are bitwise and the traversal is bitwise, so
-    pixels differ only by the ulps of transcendentals and contracted
-    mul-adds (and, rarely, a branch flip: RR, lobe choice, bf16 light
-    pick): >= 99% of pixels agree to rtol 1e-4 / atol 1e-5, the image
-    means to rtol 1e-4, and both packages traced the same rays."""
-    js, jcam, ts, tcam = cornell_pair
+SVGF_FRAME = dict(width=32, height=32, denoiser="svgf", **FRAME)
+
+
+@pytest.fixture(scope="module")
+def jax_frames(cornell_pair):
+    """Three frames of a fresh, eager JAX Renderer at SVGF_FRAME, each
+    frame's render_sample_with_stats call recorded on the way (its
+    arguments and results pass unchanged): the frames, the calls and the
+    last state."""
+    js, jcam, _, _ = cornell_pair
+    calls, orig = [], jrenderer.render_sample_with_stats
+
+    def record(*args, **kw):
+        out = orig(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+    jr = JRenderer(js, jcam, JRendererConfig(**SVGF_FRAME))
+    st, frames = jr.init_state(), []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jrenderer, "render_sample_with_stats", record)
+        for _ in range(3):
+            jd, ja, st = jr.step(st)
+            frames.append((np.asarray(jd), np.asarray(ja)))
+    return dict(frames=frames, calls=calls, state=st)
+
+
+def test_render_sample_matches_jax(cornell_pair, jax_frames):
+    """One sample of a 32x32 Cornell frame, 3 bounces, Disney, tree NEE
+    (the JAX Renderer's first-frame sample, recorded). The RNG and
+    camera rays are bitwise and the traversal is bitwise, so pixels
+    differ only by the ulps of transcendentals and contracted mul-adds
+    (and, rarely, a branch flip: RR, lobe choice, bf16 light pick): >=
+    99% of pixels agree to rtol 1e-4 / atol 1e-5, the image means to
+    rtol 1e-4, and both packages traced the same rays."""
+    _, _, ts, tcam = cornell_pair
     W = H = 32
-    jcfg = JRenderConfig(width=W, height=H, **FRAME)
-    f = jax.jit(lambda s, c, p: jrender_sample_with_stats(s, c, jcfg, p, 0))
-    jr, jst = f(js, jcam, jnp.arange(W * H, dtype=jnp.uint32))
-    tr, tst = render_sample_with_stats(ts, tcam, RenderConfig(
-        width=W, height=H, **FRAME), torch.arange(W * H), 0)
+    args, kw, (jr, jst) = jax_frames["calls"][0]
+    assert int(args[4]) == 0 and kw.get("di_sample") is None \
+        and kw.get("jitter") is None
+    np.testing.assert_array_equal(np.asarray(args[3]), np.arange(W * H))
+    rcfg = Renderer(ts, tcam, RendererConfig(**SVGF_FRAME)).rcfg
+    assert (rcfg.width, rcfg.height, rcfg.bounces) == (W, H, 3)
+    tr, tst = render_sample_with_stats(ts, tcam, rcfg, torch.arange(W * H), 0)
     jr, tr = np.asarray(jr), tr.numpy()
     assert np.isfinite(tr).all()
     assert _close_share(jr, tr, 1e-4, 1e-5) >= 0.99
@@ -72,27 +98,24 @@ def test_render_sample_matches_jax(cornell_pair):
     assert float(jst["n_shadow"]) == float(tst["n_shadow"])
 
 
-def test_renderer_three_svgf_frames_match_jax(cornell_pair):
+def test_renderer_three_svgf_frames_match_jax(cornell_pair, jax_frames):
     """Three Renderer.step frames with SVGF (ACES, TAA from frame 2,
-    firefly clamp) against a fresh, eager JAX Renderer: the displays
-    agree to 1e-3 on >= 99% of pixels and their means to rtol 1e-4; the
-    port's state carries back in from the JAX state's leaves."""
-    js, jcam, ts, tcam = cornell_pair
-    kw = dict(width=32, height=32, denoiser="svgf", **FRAME)
-    jr = JRenderer(js, jcam, JRendererConfig(**kw))
-    tr = Renderer(ts, tcam, RendererConfig(**kw))
-    jst, tst = jr.init_state(), tr.init_state()
-    for _ in range(3):
-        jd, ja, jst = jr.step(jst)
+    firefly clamp) against a fresh, eager JAX Renderer's (jax_frames):
+    the displays agree to 1e-3 on >= 99% of pixels and their means to
+    rtol 1e-4; the port's state carries back in from the JAX state's
+    leaves."""
+    _, _, ts, tcam = cornell_pair
+    tr = Renderer(ts, tcam, RendererConfig(**SVGF_FRAME))
+    tst = tr.init_state()
+    for jd, ja in jax_frames["frames"]:
         td, ta, tst = tr.step(tst)
-        jd, td = np.asarray(jd), td.numpy()
+        td = td.numpy()
         assert td.shape == (32, 32, 3)
         assert np.isfinite(td).all() and td.min() >= 0 and td.max() <= 1
         assert _close_share(jd, td, 0.0, 1e-3) >= 0.99
         np.testing.assert_allclose(jd.mean(), td.mean(), rtol=1e-4)
-        np.testing.assert_allclose(np.asarray(ja).mean(), ta.numpy().mean(),
-                                   rtol=1e-4)
-    back = FrameState.from_numpy(leaves(jst), "cpu")
+        np.testing.assert_allclose(ja.mean(), ta.numpy().mean(), rtol=1e-4)
+    back = FrameState.from_numpy(leaves(jax_frames["state"]), "cpu")
     assert back.sample == tst.sample == 3
     np.testing.assert_allclose(back.accum.image.numpy(),
                                tst.accum.image.numpy(), atol=1e-3)

@@ -20,12 +20,15 @@ from truetrace_tpu_torch.post import neural as tneural
 from truetrace_tpu_torch.post import pipeline as tpipe
 from truetrace_tpu_torch.post import svgf as tsvgf
 from truetrace_tpu_torch.scene import atmosphere as tatmosphere
+from truetrace_tpu_torch.scene import asset_manager as tasset_manager
 from truetrace_tpu_torch.scene import atrium as tatrium
 from truetrace_tpu_torch.scene import cornell as tcornell
+from truetrace_tpu_torch.scene import dynamic as tdynamic
 from truetrace_tpu_torch.scene import ir as tir
 from truetrace_tpu_torch.scene import instances as tinstances
 from truetrace_tpu_torch.scene import sponza_like as tsponza
 from truetrace_tpu_torch.scene import terrain as tterrain
+from truetrace_tpu_torch.scene import video as tvideo
 from truetrace_tpu_torch.scene.ir import Scene
 from truetrace_tpu_torch.scene.mesh import compile_scene as tcompile
 
@@ -239,7 +242,10 @@ def test_build_options_match_jax(opt):
                                 tneural.load_denoiser,
                                 tinstances.compile_scene_instanced,
                                 tterrain.make_terrain,
-                                tatmosphere.bake_sky_env],
+                                tatmosphere.bake_sky_env,
+                                tdynamic.compile_dynamic_scene,
+                                tasset_manager.AssetManager,
+                                tvideo.register_video],
                          ids=["compile_scene", "Camera.look_at",
                               "atrium.make", "cornell.make",
                               "SVGFState.create", "Accumulator.create",
@@ -247,8 +253,53 @@ def test_build_options_match_jax(opt):
                               "build_env_cdf", "sponza_like.make",
                               "bake_tonemap_lut", "load_denoiser",
                               "compile_scene_instanced", "make_terrain",
-                              "bake_sky_env"])
+                              "bake_sky_env", "compile_dynamic_scene",
+                              "AssetManager", "register_video"])
 def test_entry_points_default_to_the_card(fn):
     """The port's scene entry points build on the card unless the caller
     asks for the CPU (every CPU test passes device="cpu")."""
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_native_sources_are_the_jax_copies():
+    """The port compiles its own copies of the JAX package's C++ builders
+    (build/native/), byte for byte the JAX sources, and nothing of the
+    JAX package's directory."""
+    import os
+
+    from truetrace_tpu_torch.build import native as tnative
+    jdir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(jcompile.__code__.co_filename))), "build", "native")
+    assert os.path.dirname(tnative.SRC_DIR) == os.path.dirname(
+        os.path.abspath(tnative.__file__))
+    assert "truetrace_tpu_torch" in tnative.SRC_DIR.split(os.sep)
+    for name in tnative.SOURCES:
+        with open(os.path.join(tnative.SRC_DIR, name), "rb") as f:
+            mine = f.read()
+        with open(os.path.join(jdir, name), "rb") as f:
+            assert mine == f.read(), name
+
+
+def test_native_build_matches_jax():
+    """The port's native BVH2 and CWBVH builds (its own library) give the
+    JAX package's node words, leaf order and refit metadata for the same
+    3000 boxes (the JAX package's Python builders, the same algorithm)."""
+    from truetrace_tpu.build.bvh2 import build_bvh2 as jbvh2
+    from truetrace_tpu.build.cwbvh import build_cwbvh as jcwbvh
+    from truetrace_tpu_torch.build import native as tnative
+    rng = np.random.default_rng(4)
+    lo = rng.uniform(-10, 10, (3000, 3)).astype(np.float32)
+    box = np.stack([lo, lo + rng.uniform(0.01, 1.0, (3000, 3)).astype(
+        np.float32)], 1)
+    tb = tnative.build_bvh2_native(box, 3, 3)
+    assert tb is not None, "the port's native library did not build"
+    jb = jbvh2(box, max_leaf=3, sah_leaf_cap=3, use_native=False)
+    for a, b in zip((jb.box, jb.left, jb.count, jb.order), tb[:4]):
+        _same_bits(a, b, "bvh2")
+    tc = tnative.build_cwbvh_native(*tb[:3], p_max=3)
+    jc = jcwbvh(jb, box[jb.order], use_native=False)
+    for f, b in zip(("nodes", "tri_index", "leaf_start"), tc[:3]):
+        _same_bits(getattr(jc, f), b, f)
+    for f, b in zip(("node_depth", "slot_child", "slot_tri_base",
+                     "slot_tri_count"), tc[4:]):
+        _same_bits(getattr(jc, f), b, f)

@@ -113,9 +113,20 @@ def test_build_instanced_tables_match_jax(built):
     assert table.shape == (C + L + I, ts.leaf_rows.shape[1])
 
 
+_PAIRS = {}
+
+
 def _scene_pair(inst, with_light_bvh=True):
     """An emissive source (a quad facing down) among the 3, compiled by
-    both packages with the light BVH over the world light rows."""
+    both packages with the light BVH over the world light rows (built
+    once a module for the same instances)."""
+    key = (tuple((s, m.tobytes()) for s, m in inst), with_light_bvh)
+    if key not in _PAIRS:
+        _PAIRS[key] = _build_pair(inst, with_light_bvh)
+    return _PAIRS[key]
+
+
+def _build_pair(inst, with_light_bvh):
     quad = (np.array([[-.3, 0, -.3], [.3, 0, -.3], [.3, 0, .3], [-.3, 0, .3]],
                      np.float32), np.array([[0, 1, 2], [0, 2, 3]], np.int32))
     out = []

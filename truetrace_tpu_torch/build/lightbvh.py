@@ -23,6 +23,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 MAX_LEAF = 1            # one emissive tri per leaf keeps pdf eval exact
 N_SPLIT_BINS = 12
@@ -279,3 +280,11 @@ def build_cut(bvh: LightBVH, max_cut: int = 128) -> LightCut:
             skip[li] = d
     return LightCut(bounds=bounds, link=link, node_ids=node_ids,
                     of_light=of_light, skip=skip)
+
+
+def build_pairs_torch(nodes, pairs_old, pair_children):
+    """The pair rows refreshed on the device after refit_light_bvh: the
+    links stay (the topology is fixed), the two children's 12-float rows
+    are gathered anew."""
+    return torch.cat([nodes[pair_children[:, 0]], nodes[pair_children[:, 1]],
+                      pairs_old[:, 24:26]], 1)

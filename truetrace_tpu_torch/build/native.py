@@ -1,9 +1,11 @@
 """ctypes loader for the native C++ BVH builders.
 
-The sources are the JAX package's own (`truetrace_tpu/build/native/
-{bvh2,cwbvh}.cpp`), compiled by path with g++ into this package's
-git-ignored `_build/` directory, so both packages build identical trees.
-Importing this module compiles nothing; the first large build does.
+The sources are this package's own copies (`build/native/{bvh2,
+cwbvh}.cpp`) of the JAX package's builders, byte for byte
+(tests/test_torch_scene.py), compiled with g++ into the git-ignored
+`_build/` directory with the JAX loader's flags, so both packages build
+identical trees. Importing this module compiles nothing; the first large
+build does.
 """
 from __future__ import annotations
 
@@ -16,12 +18,11 @@ from typing import Optional
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC_DIR = os.path.join(os.path.dirname(_PKG), "truetrace_tpu", "build",
-                        "native")
+SRC_DIR = os.path.join(_PKG, "build", "native")
 BUILD_DIR = os.path.join(_PKG, "_build")
 # versioned name: bump when the C ABI grows so a stale library rebuilds
 _SO = os.path.join(BUILD_DIR, "libttnative_v3.so")
-_SOURCES = ("bvh2.cpp", "cwbvh.cpp")
+SOURCES = ("bvh2.cpp", "cwbvh.cpp")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
@@ -36,7 +37,7 @@ def make_native() -> bool:
     if os.path.exists(_SO):
         return True
     os.makedirs(BUILD_DIR, exist_ok=True)
-    srcs = [os.path.join(_SRC_DIR, s) for s in _SOURCES]
+    srcs = [os.path.join(SRC_DIR, s) for s in SOURCES]
     tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
            "-std=c++17", *srcs, "-o", tmp]

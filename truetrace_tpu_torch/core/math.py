@@ -24,6 +24,15 @@ def cross(a, b):
                         a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
 
 
+def cross_fma(a, b):
+    """cross(a, b) as jnp.cross compiles on XLA:CPU: each component's
+    first product fused into the difference, fma(a1, b2, -(a2 * b1))."""
+    return torch.stack([fma(a[..., 1], b[..., 2], -(a[..., 2] * b[..., 1])),
+                        fma(a[..., 2], b[..., 0], -(a[..., 0] * b[..., 2])),
+                        fma(a[..., 0], b[..., 1], -(a[..., 1] * b[..., 0]))],
+                       -1)
+
+
 def luminance(rgb):
     """Rec.709 luminance."""
     return rgb[..., 0] * 0.2126 + rgb[..., 1] * 0.7152 + rgb[..., 2] * 0.0722
@@ -151,3 +160,71 @@ def adjust_color(rgb, hue_deg, brightness, saturation, contrast,
     c = (c - 0.5) * contrast[..., None] + 0.5
     c = torch.clamp(c, 0.0, 1.0)
     return c + (blend_color - c) * blend_factor[..., None]
+
+
+# XLA:CPU's float32 log and exp (the Cephes polynomials its CPU backend
+# emits, with the mul-adds it contracts written as fma), for the few
+# places where a log or exp decides an integer that must be the JAX
+# package's: the refit's quantisation exponent (build/refit.py). torch's
+# own log2 / exp2 differ from XLA's by an ulp near powers of two, which
+# moves ceil(log2(x)) by one (tests/test_torch_dynamic.py).
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+          4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+_FLT_MIN = 1.17549435e-38
+_LN2 = 0.693147182           # float32 ln 2, jnp.exp2's factor
+_INV_LN2 = 1.4426950408889634
+
+
+def _c(x, v):
+    return torch.full_like(x, v)
+
+
+def log_xla(x):
+    """XLA:CPU's float32 natural log, bit for bit (x > 0, finite)."""
+    x = torch.clamp(x, min=_FLT_MIN)
+    b = x.view(torch.int32)
+    e = ((b >> 23) - 0x7f).to(torch.float32) + 1.0
+    m = ((b & ~0x7f800000) | 0x3f000000).view(torch.float32)  # in [0.5, 1)
+    small = m < 0.707106781186547524
+    e = e - small.to(torch.float32)
+    m = (m - 1.0) + torch.where(small, m, 0.0)
+    p = [_c(m, v) for v in _LOG_P]
+    x2 = m * m
+    x3 = x2 * m
+    y = fma(p[0], m, p[1])
+    y1 = fma(p[3], m, p[4])
+    y2 = fma(p[6], m, p[7])
+    y = fma(y, m, p[2])
+    y1 = fma(y1, m, p[5])
+    y2 = fma(y2, m, p[8])
+    y = fma(y, x3, y1)
+    y = fma(y, x3, y2)
+    y = fma(y, x3, e * -2.12194440e-4)
+    # x2 * 0.5 and e * 0.693359375 are exact: no rounding to contract
+    return ((m - x2 * 0.5) + y) + e * 0.693359375
+
+
+def log2_xla(x):
+    """jnp.log2 on XLA:CPU: log(x) times the float32 1/ln 2."""
+    return log_xla(x) * _INV_LN2
+
+
+def exp2_xla(x):
+    """jnp.exp2 on XLA:CPU, bit for bit: exp(x * float32 ln 2) by the
+    Cephes polynomial, a denormal result flushed to zero."""
+    a = torch.clamp(x * _LN2, -88.3762626647949, 88.3762626647950)
+    fx = torch.floor(fma(a, _c(a, 1.44269504088896341), _c(a, 0.5)))
+    r = fma(_c(a, -0.693359375), fx, a)
+    r = fma(_c(a, 2.12194440e-4), fx, r)
+    z = r * r
+    p = [_c(r, v) for v in _EXP_P]
+    y = fma(r, p[0], p[1])
+    for k in range(2, 6):
+        y = fma(y, r, p[k])
+    y = fma(y, z, r) + 1.0
+    pow2n = ((fx.to(torch.int32) + 0x7f) << 23).view(torch.float32)
+    out = y * pow2n
+    return torch.where(out.abs() < _FLT_MIN, 0.0, out)

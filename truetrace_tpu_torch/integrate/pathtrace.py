@@ -149,25 +149,51 @@ class LightSample(NamedTuple):
 def sample_light_tris(scene: Scene, p, u_sel, u2, sn=None,
                       use_tree: bool = False,
                       approx_mis: bool = False) -> LightSample:
-    """One point on one emissive triangle per lane, from the packed
-    [L,16] light rows (emission gathered live from the material table)."""
+    """One point on one emissive triangle per lane: light-tree selection
+    (the cut, or the descent from the root when the scene has no cut) or
+    the power CDF; the triangle from the packed [L,16] light rows
+    (emission gathered live from the material table), or from the
+    triangle tables when the light list has no rows."""
     lt = scene.light_tris
     L = lt.tri_index.shape[0]
     if use_tree:
-        from truetrace_tpu_torch.kernels.lighttree import (
-            sample_light_tree_cut)
-        idx, pmf, _ = sample_light_tree_cut(
-            scene.lbvh_pairs, scene.lbvh_prim, scene.lcut_bounds,
-            scene.lcut_link, p, sn, u_sel, depth=scene.lbvh_depth,
-            select_dtype=torch.bfloat16 if approx_mis else torch.float32)
+        from truetrace_tpu_torch.kernels import lighttree
+        if scene.lcut_bounds is not None:
+            idx, pmf, _ = lighttree.sample_light_tree_cut(
+                scene.lbvh_pairs, scene.lbvh_prim, scene.lcut_bounds,
+                scene.lcut_link, p, sn, u_sel, depth=scene.lbvh_depth,
+                select_dtype=torch.bfloat16 if approx_mis else torch.float32)
+        else:
+            idx, pmf, _ = lighttree.sample_light_tree(
+                scene.lbvh_pairs, scene.lbvh_prim, p, sn, u_sel,
+                depth=scene.lbvh_depth)
         idx = torch.clamp(idx, 0, L - 1)
     else:
         idx = torch.clamp(torch.searchsorted(lt.cdf, u_sel), 0, L - 1)
         pmf = lt.pmf[idx]
-    row = lt.rows[idx].t()                    # [16,R]
     su = torch.sqrt(u2[..., 0])
     b1 = 1.0 - su
     b2 = u2[..., 1] * su
+    if lt.rows is None:
+        tid = lt.tri_index[idx]
+        p0, e1, e2 = scene.tri_p0[tid], scene.tri_e1[tid], scene.tri_e2[tid]
+        lp = p0 + e1 * b1[..., None] + e2 * b2[..., None]
+        gn = cross(e1, e2)
+        area2 = torch.linalg.norm(gn, dim=-1)
+        gn = gn / torch.clamp(area2, min=1e-20)[..., None]
+        to_l = lp - p
+        d2 = torch.clamp(dot(to_l, to_l), min=1e-12)
+        wi = to_l / torch.sqrt(d2)[..., None]
+        cos_l = -dot(wi, gn)
+        geo = d2 / torch.clamp(cos_l * (0.5 * area2), min=1e-12)
+        pdf_sa = pmf * geo
+        pdf_w = lt.pmf[idx] * geo if (use_tree and approx_mis) else pdf_sa
+        return LightSample(pos=lp, normal=gn,
+                           radiance=scene.materials.emission[
+                               scene.tri_mat[tid]],
+                           pdf_sa=pdf_sa, valid=(cos_l > 1e-6) & (L > 0),
+                           pdf_w=pdf_w)
+    row = lt.rows[idx].t()                    # [16,R]
     lpx = row[0] + row[3] * b1 + row[6] * b2
     lpy = row[1] + row[4] * b1 + row[7] * b2
     lpz = row[2] + row[5] * b1 + row[8] * b2
@@ -204,14 +230,28 @@ def light_pdf_sa(scene: Scene, tid, p, hit_p, cos_l, sn_prev=None,
         li = torch.where(inst >= 0, torch.where(
             (rank >= 0) & (off >= 0), off + rank, -1), li)
     if use_tree:
-        from truetrace_tpu_torch.kernels.lighttree import light_tree_pdf_cut
-        pmf = light_tree_pdf_cut(
-            scene.lbvh_pairs, scene.lbvh_trail, scene.lcut_bounds,
-            scene.lcut_link, scene.lcut_of_light, scene.lcut_skip,
-            li, p, sn_prev, depth=scene.lbvh_depth)
+        from truetrace_tpu_torch.kernels import lighttree
+        if scene.lcut_bounds is not None:
+            pmf = lighttree.light_tree_pdf_cut(
+                scene.lbvh_pairs, scene.lbvh_trail, scene.lcut_bounds,
+                scene.lcut_link, scene.lcut_of_light, scene.lcut_skip,
+                li, p, sn_prev, depth=scene.lbvh_depth)
+        else:
+            pmf = lighttree.light_tree_pdf(scene.lbvh_pairs,
+                                           scene.lbvh_trail, li, p, sn_prev,
+                                           depth=scene.lbvh_depth)
     else:
         pmf = scene.light_tris.pmf[torch.clamp(li, min=0)]
-    area = scene.light_tris.rows[torch.clamp(li, min=0), 12]
+    lt = scene.light_tris
+    if lt.rows is not None and lt.rows.shape[0] > 0:
+        area = lt.rows[torch.clamp(li, min=0), 12]
+    else:
+        # the light's own triangle (an instanced scene's world copy)
+        L = lt.tri_index.shape[0]
+        tid_l = lt.tri_index[torch.clamp(li, 0, max(L - 1, 0))] \
+            if L > 0 else tid
+        area = 0.5 * torch.linalg.norm(
+            cross(scene.tri_e1[tid_l], scene.tri_e2[tid_l]), dim=-1)
     to_l = hit_p - p
     d2 = torch.clamp(dot(to_l, to_l), min=1e-12)
     pdf = pmf * d2 / torch.clamp(cos_l * area, min=1e-12)

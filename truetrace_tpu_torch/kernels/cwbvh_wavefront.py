@@ -80,6 +80,28 @@ def pack_leaf_rows(nodes: np.ndarray, slot_tri_base: np.ndarray,
     return nodes2, rows
 
 
+def pack_leaf_rows_torch(slot_tri_base: torch.Tensor,
+                         slot_tri_count: torch.Tensor, p0: torch.Tensor,
+                         e1: torch.Tensor, e2: torch.Tensor, k: int = 3):
+    """The leaf rows of `pack_leaf_rows` rebuilt on the device for
+    deformed triangles (skinning, refit): slot_tri_base / slot_tri_count
+    are the [L] slots that hold triangles (the builder's [C,8] metadata
+    at count > 0, in node-major order), p0 / e1 / e2 [T,3] in CWBVH
+    order. The id columns are int32 bits, written through an int32
+    view."""
+    T = p0.shape[0]
+    cols, ids = [], []
+    for j in range(k):
+        valid = (j < slot_tri_count)[:, None]
+        tid = torch.clamp(slot_tri_base + j, 0, T - 1)
+        cols += [torch.where(valid, p0[tid], 0.0),
+                 torch.where(valid, e1[tid], 0.0),
+                 torch.where(valid, e2[tid], 0.0)]
+        ids.append(torch.where(valid[:, 0], slot_tri_base + j, -1))
+    idf = torch.stack(ids, 1).to(torch.int32).view(torch.float32)
+    return torch.cat(cols + [idf], 1)
+
+
 # ---------------------------------------------------------------------------
 # uint32 helpers: bit patterns in int64, masked (see core/rng.py)
 # ---------------------------------------------------------------------------

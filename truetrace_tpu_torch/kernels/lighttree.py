@@ -1,12 +1,14 @@
-"""Light-BVH cut selection + residual descent, and its pdf — torch ops.
+"""Light-BVH importance descent and its pdf — torch ops.
 
-Port of the cut path of `truetrace_tpu/kernels/lighttree.py`
-(`_cut_select`, `sample_light_tree_cut`, `light_tree_pdf_cut`): a dense
+Port of `truetrace_tpu/kernels/lighttree.py`: the cut path
+(`_cut_select`, `sample_light_tree_cut`, `light_tree_pdf_cut`: a dense
 categorical pick over a <=128-entry cut of subtree roots, then a descent
-below the picked entry over "pair rows" (build/lightbvh.py build_pairs:
-both children's 12-float bounds + two int32 links per row). The JAX
-while_loops become Python loops over the tree depth (`Scene.lbvh_depth`);
-iterations after a lane is done leave it unchanged, as there.
+below the picked entry) and the descent from the root for a scene
+without a cut (`sample_light_tree`, `light_tree_pdf`), over "pair rows"
+(build/lightbvh.py build_pairs: both children's 12-float bounds + two
+int32 links per row), and `node_importance`. The JAX while_loops become
+Python loops over the tree depth (`Scene.lbvh_depth`); iterations after
+a lane is done leave it unchanged, as there.
 """
 from __future__ import annotations
 
@@ -79,6 +81,14 @@ def _importance_dense(cut, p, n, dtype=torch.float32):
     return _importance(lambda k: cut[:, k][:, None], *q, *m)
 
 
+def node_importance(nodes, idx, p, n):
+    """Importance of standalone node rows [N,12] at indices idx (the
+    refit and diagnostic checks; the samplers read pair rows)."""
+    row = nodes[idx]
+    return _importance(lambda k: row[:, k], p[..., 0], p[..., 1], p[..., 2],
+                       n[..., 0], n[..., 1], n[..., 2])
+
+
 def _link(row, col):
     return row[:, col].contiguous().view(torch.int32).to(torch.int64)
 
@@ -122,26 +132,8 @@ def sample_light_tree_cut(pairs, prim, cut_bounds, cut_link, p, n, u,
         return prim[first], p_cut, u
 
     row = pairs[torch.clamp(torch.where(leaf_now, 0, link), 0, Ni - 1)]
-    pmf, done = p_cut, leaf_now
-    for _ in range(depth):
-        il = _importance_cols(row, 0, p, n)
-        ir = _importance_cols(row, 12, p, n)
-        tot = il + ir
-        ql = torch.where(tot > 0.0, il / torch.clamp(tot, min=1e-20), 0.5)
-        go_left = u < ql
-        u_new = torch.where(go_left, u / torch.clamp(ql, min=1e-9),
-                            (u - ql) / torch.clamp(1.0 - ql, min=1e-9))
-        u_new = torch.clamp(u_new, 0.0, 1.0 - 1e-7)
-        q = torch.where(go_left, ql, 1.0 - ql)
-        lnk = torch.where(go_left, _link(row, 24), _link(row, 25))
-        act = ~done
-        pmf = torch.where(act, pmf * torch.clamp(q, min=1e-12), pmf)
-        u = torch.where(act, u_new, u)
-        hit_leaf = act & (lnk < 0)
-        first = torch.where(hit_leaf, -(lnk + 1), first)
-        done = done | hit_leaf
-        nxt = torch.clamp(torch.where(act & ~hit_leaf, lnk, 0), 0, Ni - 1)
-        row = torch.where(done[:, None], row, pairs[nxt])
+    pmf, u, first = _descend(pairs, row, p_cut, u, first, leaf_now, p, n,
+                             depth)
     return prim[first], pmf, u
 
 
@@ -167,14 +159,47 @@ def light_tree_pdf_cut(pairs, trail, cut_bounds, cut_link, cut_of_light,
 
     leaf_now = link < 0
     row = pairs[torch.clamp(torch.where(leaf_now, 0, link), 0, Ni - 1)]
-    pmf, done = p_cut, leaf_now
+    pmf = _trail_pmf(pairs, row, p_cut, leaf_now, bits, k0, p, n, depth)
+    return torch.where(light_idx >= 0, pmf, 0.0)
+
+
+def _descend(pairs, row, pmf, u, first, done, p, n, depth: int):
+    """The importance descent from gathered pair rows `row`: up to
+    `depth` branch steps, each rescaling u and multiplying pmf by the
+    branch probability; lanes already done stay."""
+    Ni = pairs.shape[0]
+    for _ in range(depth):
+        il = _importance_cols(row, 0, p, n)
+        ir = _importance_cols(row, 12, p, n)
+        tot = il + ir
+        ql = torch.where(tot > 0.0, il / torch.clamp(tot, min=1e-20), 0.5)
+        go_left = u < ql
+        u_new = torch.where(go_left, u / torch.clamp(ql, min=1e-9),
+                            (u - ql) / torch.clamp(1.0 - ql, min=1e-9))
+        u_new = torch.clamp(u_new, 0.0, 1.0 - 1e-7)
+        q = torch.where(go_left, ql, 1.0 - ql)
+        lnk = torch.where(go_left, _link(row, 24), _link(row, 25))
+        act = ~done
+        pmf = torch.where(act, pmf * torch.clamp(q, min=1e-12), pmf)
+        u = torch.where(act, u_new, u)
+        hit_leaf = act & (lnk < 0)
+        first = torch.where(hit_leaf, -(lnk + 1), first)
+        done = done | hit_leaf
+        nxt = torch.clamp(torch.where(act & ~hit_leaf, lnk, 0), 0, Ni - 1)
+        row = torch.where(done[:, None], row, pairs[nxt])
+    return pmf, u, first
+
+
+def _trail_pmf(pairs, row, pmf, done, bits, k0, p, n, depth: int):
+    """The pmf of the descent that follows the trail bits (bit k0 + k at
+    step k: 1 = right) from gathered pair rows `row`."""
+    Ni = pairs.shape[0]
     for k in range(depth):
         il = _importance_cols(row, 0, p, n)
         ir = _importance_cols(row, 12, p, n)
         tot = il + ir
         ql = torch.where(tot > 0.0, il / torch.clamp(tot, min=1e-20), 0.5)
-        sh = torch.clamp(k0 + k, max=31)
-        go_right = ((bits >> sh) & 1) == 1
+        go_right = ((bits >> torch.clamp(k0 + k, max=31)) & 1) == 1
         q = torch.where(go_right, 1.0 - ql, ql)
         lnk = torch.where(go_right, _link(row, 25), _link(row, 24))
         act = ~done
@@ -182,4 +207,33 @@ def light_tree_pdf_cut(pairs, trail, cut_bounds, cut_link, cut_of_light,
         done = done | (act & (lnk < 0))
         nxt = torch.clamp(torch.where(lnk >= 0, lnk, 0), 0, Ni - 1)
         row = torch.where(done[:, None], row, pairs[nxt])
+    return pmf
+
+
+def sample_light_tree(pairs, prim, p, n, u, depth: int):
+    """The descent from the root (a scene without a cut): (light_idx [R],
+    pmf [R], u' [R]); u is one uniform a lane, rescaled at every branch
+    (the reference's SampleLightBVH, CommonData.cginc:1126)."""
+    R = p.shape[0]
+    z = torch.zeros((R,), dtype=torch.int64, device=p.device)
+    one = torch.ones((R,), device=p.device)
+    if pairs.shape[0] == 0:          # a single-leaf tree
+        return prim[z], one, u
+    row = pairs[0].expand(R, -1)
+    pmf, u, first = _descend(pairs, row, one, u, z, z.bool(), p, n, depth)
+    return prim[first], pmf, u
+
+
+def light_tree_pdf(pairs, trail, light_idx, p, n, depth: int):
+    """The pmf sample_light_tree assigns to `light_idx` from p, following
+    its stored root->leaf bit trail (the reference's CalcLightPDF,
+    CommonData.cginc:1057). trail holds the trails as int32 bits."""
+    R = p.shape[0]
+    if pairs.shape[0] == 0:
+        return torch.where(light_idx >= 0, 1.0, 0.0)
+    bits = trail[torch.clamp(light_idx, min=0)].to(torch.int64) & 0xFFFFFFFF
+    z = torch.zeros((R,), dtype=torch.int64, device=p.device)
+    pmf = _trail_pmf(pairs, pairs[0].expand(R, -1),
+                     torch.ones((R,), device=p.device), z.bool(), bits, z,
+                     p, n, depth)
     return torch.where(light_idx >= 0, pmf, 0.0)

@@ -114,19 +114,17 @@ class MaterialTable:
 class LightTris:
     """Emissive-triangle list with its power CDF and packed sample rows
     [L,16]: p0(0:3) e1(3:6) e2(6:9) unit-gn(9:12) area(12) pmf(13)
-    mat_id(14) pad(15)."""
+    mat_id(14) pad(15). Without rows (None) NEE reads the light's
+    triangle from the scene's triangle tables."""
     tri_index: torch.Tensor
     power: torch.Tensor
     cdf: torch.Tensor
     pmf: torch.Tensor
     tri_to_light: torch.Tensor
-    rows: torch.Tensor
+    rows: Optional[torch.Tensor] = None
 
     @staticmethod
     def from_numpy(d: dict, device) -> "LightTris":
-        if d.get("rows") is None:
-            raise NotImplementedError(
-                "LightTris without packed rows (ROADMAP.md A.15)")
         return _from_dict(LightTris, d, device)
 
 

@@ -137,32 +137,32 @@ def flatten_meshes(meshes: List[HostMesh]):
         mat=np.concatenate(ml))
 
 
-def _fma32(a, b, c):
-    """float32 a*b + c rounded once (see core/math.py fma)."""
-    from truetrace_tpu_torch.core.math import fma
-    return fma(torch.from_numpy(a), torch.from_numpy(b),
-               torch.from_numpy(c)).numpy()
-
-
-def pack_light_rows(p0, e1, e2, mat_id, pmf):
+def pack_light_rows_torch(p0, e1, e2, mat_id, pmf):
     """[L,16] packed per-light NEE sample rows: p0(0:3) e1(3:6) e2(6:9)
-    unit-gn(9:12) area(12) pmf(13) mat_id(14, exact float) pad(15).
+    unit-gn(9:12) area(12) pmf(13) mat_id(14, exact float) pad(15), from
+    tensors on any device (pose_scene rebuilds them on the card).
 
     The JAX package computes these with jnp.cross and jnp.linalg.norm,
     which XLA:CPU compiles with contracted mul-adds; the cross product is
-    therefore formed as fma(a1, b2, -(a2*b1)), and the norm by
-    torch.linalg.norm, which rounds the same way."""
-    gn = np.stack([_fma32(e1[:, 1], e2[:, 2], -(e1[:, 2] * e2[:, 1])),
-                   _fma32(e1[:, 2], e2[:, 0], -(e1[:, 0] * e2[:, 2])),
-                   _fma32(e1[:, 0], e2[:, 1], -(e1[:, 1] * e2[:, 0]))], -1)
-    area2 = torch.linalg.norm(torch.from_numpy(gn), dim=-1).numpy()
-    gnu = gn / np.maximum(area2, np.float32(1e-20))[:, None]
-    area = np.float32(0.5) * area2
+    therefore formed as fma(a1, b2, -(a2*b1)) (core/math.py cross_fma),
+    and the norm by torch.linalg.norm, which rounds the same way."""
+    from truetrace_tpu_torch.core.math import cross_fma
+    gn = cross_fma(e1, e2)
+    area2 = torch.linalg.norm(gn, dim=-1)
+    gnu = gn / torch.clamp(area2, min=1e-20)[:, None]
     L = p0.shape[0]
-    return np.concatenate(
-        [p0, e1, e2, gnu, area[:, None], pmf[:, None],
-         np.asarray(mat_id, np.float32)[:, None],
-         np.zeros((L, 1), np.float32)], axis=1).astype(np.float32)
+    return torch.cat([p0, e1, e2, gnu, (0.5 * area2)[:, None], pmf[:, None],
+                      mat_id.to(torch.float32)[:, None],
+                      torch.zeros((L, 1), device=p0.device)], 1)
+
+
+def pack_light_rows(p0, e1, e2, mat_id, pmf):
+    """`pack_light_rows_torch` on numpy arrays."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    return pack_light_rows_torch(
+        t(p0.astype(np.float32)), t(e1.astype(np.float32)),
+        t(e2.astype(np.float32)), t(np.asarray(mat_id)),
+        t(pmf.astype(np.float32))).numpy()
 
 
 def _emissive_light_tris(tris, mats: List[HostMaterial], device) -> LightTris:
