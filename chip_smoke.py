@@ -113,7 +113,18 @@ Phases, each of which raises on a failed check:
    capture, bit for bit; a from-scratch compile_scene at one pose for
    scale; the JAX package's refit, light-refit, skinning, dynamic-scene,
    AssetManager and video checks on the card; and the small animated
-   frame at 16x16, card against CPU.
+   frame at 16x16, card against CPU;
+10. differentiable rendering and denoiser training: render_loss_and_grad
+   on the atrium at 512x512, 6 bounces, Disney, light-tree NEE, against
+   another sample's image (launch counts set to 0 just before, read just
+   after), with remat and without: the loss and gradients finite, remat
+   against no remat, peak memory against the forward's (the JAX gate: at
+   most 2x with remat), times at 1 and 4 spp, the traversal's launches
+   forward and in the recompute, no host copy or sync; the JAX package's
+   finite-difference gates on the card; the U-Net trained on pairs the
+   card renders (a cut of scripts/torch_train_denoiser.py's mix), its
+   loss falling, its step time, its checkpoint read back bit for bit,
+   three steps card against CPU, and tests/test_neural.py's gates.
 
 It prints the card line, one JSON line of kernel results (time, plain
 time, bound and what sets it, launches per frame, ptxas registers,
@@ -122,8 +133,9 @@ a-trous the time at each step and of packing; under "sponza" each
 kernel's launches, time and bound on the sponza_like path, under
 "composed" its launches on the composed frame, and so under "asvgf",
 "recur", "composed_asvgf", "glass", "post", "interactive", "neural",
-"forest", "tinted" and "animated" (where the traversal rows also hold
-the K = 3 kernels' times and bounds on the animated frame's rays); under
+"forest", "tinted", "animated" (where the traversal rows also hold
+the K = 3 kernels' times and bounds on the animated frame's rays),
+"grad" and "train"; under
 "frames" each
 path's eager and replayed frame times, device busy, kernel counts and
 host copies, and the composed frame's cache numbers and gates), and as
@@ -4229,6 +4241,429 @@ def phase_sponza_card_vs_cpu(parts, scene, cam):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: differentiable rendering and denoiser training
+# ---------------------------------------------------------------------------
+
+# the gradient's path: the atrium at 512x512, Disney, light-tree NEE, at
+# the JAX memory gate's 6 bounces and 1 spp (tests/test_diff.py
+# test_remat_backward_memory), timed at GRAD_SPP too
+GRAD = dict(width=512, height=512, bounces=6, bsdf="disney",
+            traversal="wavefront", light_sampling="tree")
+GRAD_SPP = 4
+# remat against no remat: the same ops on the same values, but the
+# backward's scatter-adds (the material gathers' index backward) sum in
+# an order CUDA does not fix
+GRAD_REMAT_RTOL = 1e-5
+# the training phase: a cut of scripts/torch_train_denoiser.py's mix (one
+# Cornell variant, one atrium orbit frame, the held-out instanced boxes)
+TRAIN_RES = 96
+TRAIN_SPP = (2, 64)     # noisy, target (the script's 192 cut to fit)
+TRAIN_STEPS = 150
+TRAIN_LR = 1e-3
+# three train steps, card against CPU: cuDNN's and the CPU's convolutions
+# sum in different orders, and Adam's first steps move a weight by about
+# the learning rate whatever its gradient's size, so a weight whose
+# gradient is near 0 moves by another amount where the two round it
+# differently (8.7e-5 at lr 3e-3 on a 32x32 batch, on an H100)
+TRAIN_CPU_ATOL = 3e-4
+
+
+def peak_mib(fn):
+    """(MiB that fn() allocated at its peak above what was allocated
+    before it, fn()'s result): torch.cuda.max_memory_allocated after
+    reset_peak_memory_stats."""
+    import gc
+    import torch
+    torch.cuda.synchronize()
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20, out
+
+
+def phase_grad(results, scene, cam):
+    """render_loss_and_grad on the atrium at GRAD against a target image
+    (another sample's render): the main run (remat, the default variant)
+    with the launch counts set to 0 just before and read just after; the
+    loss and every gradient finite, base_color's and emission's non-zero;
+    remat against no remat within GRAD_REMAT_RTOL (or bit for bit); peak
+    memory of the forward alone (the loss without grad) and of each
+    variant, the JAX gate (the gradient's peak at most 2x the forward's)
+    on remat; CUDA-event times at 1 and GRAD_SPP spp; the traversal's
+    launches forward and in the recompute; no host sync (sync debug mode) in the gradient step, and its
+    kernels, device busy time and host copies (none) under the profiler.
+    Returns the main run's launches."""
+    import torch
+    from truetrace_tpu_torch.diff import render_grad as rg
+    from truetrace_tpu_torch.integrate.pathtrace import RenderConfig, render
+    cfgs = {r: RenderConfig(**GRAD, remat=r) for r in (False, True)}
+    scene.cw_table()
+    with torch.no_grad():
+        target = render(scene, cam, cfgs[False], spp=1, base_sample=1000)
+
+    def fwd(spp=1):
+        with torch.no_grad():
+            return torch.mean((render(scene, cam, cfgs[False], spp=spp)
+                               - target) ** 2)
+
+    def grad(remat, spp=1):
+        return rg.render_loss_and_grad(scene, cam, cfgs[remat], target,
+                                       spp=spp, device=DEVICE)
+
+    counters = launch_counters()
+    res = {"config": dict(GRAD), "spp": 1}
+    res["forward"] = dict(peak_mib=peak_mib(fwd)[0],
+                          ms=cuda_ms(fwd, 2),
+                          ms_spp4=cuda_ms(lambda: fwd(GRAD_SPP), 1))
+    out = {}
+    main = None
+    for name, remat in (("no_remat", False), ("remat", True)):
+        for fn in counters.values():
+            fn.launches = 0
+        mb, (loss, g, img) = peak_mib(lambda: grad(remat))
+        launches = {k: fn.launches for k, fn in counters.items()}
+        ms = cuda_ms(lambda: grad(remat), 2)
+        ms4 = cuda_ms(lambda: grad(remat, GRAD_SPP), 1)
+        check(math.isfinite(float(loss)), f"grad {name}: loss {loss}")
+        for k, v in g.items():
+            check(bool(torch.isfinite(v).all()), f"grad {name}: {k} not "
+                  f"finite")
+        for k in ("base_color", "emission"):
+            check(float(g[k].abs().max()) > 0, f"grad {name}: {k} is 0")
+        check(tuple(img.shape) == (GRAD["height"], GRAD["width"], 3),
+              f"grad image {img.shape}")
+        out[name] = g
+        res[name] = dict(peak_mib=mb, ms=ms, ms_spp4=ms4, loss=float(loss),
+                         launches={k: v for k, v in launches.items() if v},
+                         grad_absmax={k: float(v.abs().max())
+                                      for k, v in g.items()})
+        if name == "remat":
+            main = launches
+        log(f"grad {name}: loss {float(loss):.6g}, peak {mb:.1f} MiB, "
+            f"{ms:.1f} ms at 1 spp, {ms4:.1f} ms at {GRAD_SPP} spp; "
+            f"launches {res[name]['launches']}")
+    fw = res["forward"]
+    log(f"grad: forward alone peak {fw['peak_mib']:.1f} MiB, "
+        f"{fw['ms']:.1f} ms at 1 spp, {fw['ms_spp4']:.1f} ms at {GRAD_SPP}")
+    same = {k: bool(torch.equal(out["remat"][k], out["no_remat"][k]))
+            for k in out["remat"]}
+    rel = {k: float((out["remat"][k] - out["no_remat"][k]).abs().max()
+                    / out["no_remat"][k].abs().max().clamp(min=1e-30))
+           for k in out["remat"]}
+    res["remat"].update(bitwise_no_remat=same, rel_err_no_remat=rel)
+    check(max(rel.values()) <= GRAD_REMAT_RTOL,
+          f"grad remat against no remat: {rel}")
+    log(f"grad remat against no remat: bit for bit {same}, largest error "
+        f"relative to each key's largest gradient {rel}")
+    ratio = res["remat"]["peak_mib"] / fw["peak_mib"]
+    res["remat_peak_over_forward"] = ratio
+    res["no_remat_peak_over_forward"] = (res["no_remat"]["peak_mib"]
+                                         / fw["peak_mib"])
+    log(f"grad: peak over the forward's: remat {ratio:.2f}, no remat "
+        f"{res['no_remat_peak_over_forward']:.2f}")
+    check(ratio <= 2.0, f"grad: remat's peak {ratio:.2f} x the forward's "
+          f"(the JAX gate: at most 2)")
+    for name in PATHS["grad"]:
+        check(main[name] > 0, f"{name} never launched on the grad path")
+    # the forward traces each bounce once, the recompute again
+    fwd_trav = res["no_remat"]["launches"].get("closest_hit_wavefront", 0)
+    check(fwd_trav == GRAD["bounces"], f"grad: {fwd_trav} closest hits")
+    res["traversal_launches"] = dict(
+        forward=fwd_trav,
+        recompute=main["closest_hit_wavefront"] - fwd_trav)
+    check(res["traversal_launches"]["recompute"] == fwd_trav,
+          f"grad: traversal launches {res['traversal_launches']}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grad(True)
+        grad(False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    res["profile"] = phase_profile(None, None, frame=lambda: grad(True),
+                                   label="gradient step (remat)")
+    log(f"grad: remat and no remat under set_sync_debug_mode('error'): no "
+        f"host sync; traversal launches {res['traversal_launches']}")
+    results["grad"] = res
+    return main
+
+
+def phase_grad_fd(results):
+    """The JAX package's finite-difference gates (tests/test_diff.py) on
+    the card, traversal="wavefront": albedo (rtol 0.05) and emission
+    (0.05) on the 24x24 Cornell box at 3 bounces, Disney, 8 spp; the
+    BSDF-level roughness integral (0.02); env intensity (2%) and
+    analytic-light radiance (5%) at 16x16, 2 bounces, Lambert, 4 spp;
+    the finite, non-zero gradients; the albedo recovery (10 steps)."""
+    import torch
+    from truetrace_tpu_torch.core import rng as trng
+    from truetrace_tpu_torch.core.math import dot
+    from truetrace_tpu_torch.diff import render_grad as rg
+    from truetrace_tpu_torch.integrate.pathtrace import RenderConfig, render
+    from truetrace_tpu_torch.kernels.disney import disney_eval
+    from truetrace_tpu_torch.scene import cornell
+    from truetrace_tpu_torch.scene.ir import AnalyticLights, EnvMap
+    from truetrace_tpu_torch.scene.mesh import (HostMaterial, compile_scene,
+                                                material_table)
+    res = {}
+
+    def box(**kw):
+        meshes, mats, cam = cornell.make(device=DEVICE)
+        return compile_scene(meshes, mats, with_cwbvh=True, device=DEVICE,
+                             **kw), cam
+
+    def fd(scene, cam, cfg, key, eps, direction, spp):
+        def loss_of(v):
+            return torch.mean(render(rg.set_scene_params(scene, {key: v}),
+                                     cam, cfg, spp=spp))
+        v0 = rg.get_scene_params(scene)[key]
+        v = v0.detach().clone().requires_grad_(True)
+        g, = torch.autograd.grad(loss_of(v), v)
+        with torch.no_grad():
+            f = (loss_of(v0 + eps * direction) - loss_of(v0 - eps * direction)
+                 ) / (2 * eps)
+        return float(torch.sum(g * direction)), float(f)
+
+    scene, cam = box()
+    cfg = RenderConfig(width=24, height=24, bounces=3, bsdf="disney",
+                       traversal="wavefront")
+    d = torch.from_numpy(np.random.default_rng(0).normal(
+        size=tuple(scene.materials.base_color.shape)).astype(np.float32)
+    ).to(DEVICE)
+    res["albedo"] = fd(scene, cam, cfg, "base_color", 1e-3, d, 8)
+    de = torch.zeros_like(scene.materials.emission)
+    de[3] = torch.tensor([1.0, 0.8, 0.6])
+    res["emission"] = fd(scene, cam, cfg, "emission", 1e-2, de, 8)
+    for k in ("albedo", "emission"):
+        ad, f = res[k]
+        check(abs(ad - f) <= 0.05 * abs(f) + 1e-6, f"fd {k}: {ad} vs {f}")
+
+    R = 1 << 14
+    wo = torch.tensor([0.4, 0.0, 0.9165151], device=DEVICE).expand(R, 3)
+    n = torch.tensor([0.0, 0.0, 1.0], device=DEVICE).expand(R, 3)
+    u = trng.uniform2(torch.arange(R, device=DEVICE), 5, 9)
+    z = 1.0 - 2.0 * u[..., 0]
+    rr = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * math.pi * u[..., 1]
+    wi = torch.stack([rr * torch.cos(phi), rr * torch.sin(phi), z], -1)
+    table = material_table([HostMaterial(base_color=(0.7, 0.6, 0.5),
+                                         metallic=0.5)], DEVICE)
+
+    def integral(rough):
+        mat = table.gather(torch.zeros((R,), dtype=torch.int64,
+                                       device=DEVICE))
+        mat.roughness = rough.expand(R)
+        f, _ = disney_eval(mat, n, wo, wi)
+        return torch.mean(torch.sum(f, -1) * dot(wi, n).abs()) * 4 * math.pi
+
+    r0 = torch.tensor(0.4, device=DEVICE, requires_grad=True)
+    ad = float(torch.autograd.grad(integral(r0), r0)[0])
+    with torch.no_grad():
+        f = float((integral(r0 + 1e-3) - integral(r0 - 1e-3)) / 2e-3)
+    res["roughness_bsdf"] = (ad, f)
+    check(abs(ad - f) <= 0.02 * abs(f) + 1e-4, f"fd roughness: {ad} vs {f}")
+
+    lam = RenderConfig(width=16, height=16, bounces=2, bsdf="lambert",
+                       traversal="wavefront")
+    sc_env, cam_e = box(env=EnvMap.constant((0.4, 0.5, 0.7), device=DEVICE))
+    res["env_intensity"] = fd(sc_env, cam_e, lam, "env_intensity", 1e-2,
+                              torch.ones((), device=DEVICE), 4)
+    lights = {k: np.asarray(v, np.int32 if k == "ltype" else np.float32)
+              for k, v in dict(
+                  position=[[0.0, 0.45, 0.3]], direction=[[0.0, -1.0, 0.0]],
+                  radiance=[[3.0, 2.0, 1.0]], ltype=[0],
+                  spot_cos=[[0.9, 0.8]], extent=[[0.3, 0.3]],
+                  softness=[0.0]).items()}
+    sc_l, cam_l = box(lights=AnalyticLights.from_numpy(lights, DEVICE))
+    res["light_radiance"] = fd(sc_l, cam_l, lam, "light_radiance", 1e-2,
+                               torch.tensor([[0.7, -0.3, 0.5]],
+                                            device=DEVICE), 4)
+    for k, tol in (("env_intensity", 0.02), ("light_radiance", 0.05)):
+        ad, f = res[k]
+        check(abs(ad - f) <= tol * max(abs(f), 1e-7) and abs(ad) > 1e-8,
+              f"fd {k}: {ad} vs {f}")
+
+    loss, grads, _ = rg.render_loss_and_grad(
+        scene, cam, cfg, torch.zeros((24, 24, 3), device=DEVICE), spp=4,
+        device=DEVICE)
+    check(math.isfinite(float(loss)), "grad loss not finite")
+    for k, v in grads.items():
+        check(bool(torch.isfinite(v).all()), f"grad {k} not finite")
+    check(float(grads["base_color"].abs().max()) > 0, "albedo grad 0")
+    with torch.no_grad():
+        target = render(scene, cam, cfg, spp=8)
+    bc = scene.materials.base_color.clone()
+    bc[1] = torch.tensor([0.2, 0.6, 0.7])
+    cur = rg.set_material_params(scene, {"base_color": bc})
+    losses = []
+    for i in range(10):
+        loss, grads, _ = rg.render_loss_and_grad(
+            cur, cam, cfg, target, spp=4, base_sample=100 + i * 7,
+            device=DEVICE)
+        p = rg.get_material_params(cur)
+        g = grads["base_color"]
+        p["base_color"] = torch.clamp(
+            p["base_color"] - 0.05 / torch.clamp(g.abs().max(), min=1e-6)
+            * g, 0.0, 1.0)
+        cur = rg.set_material_params(cur, p)
+        losses.append(float(loss))
+    res["recover_albedo_losses"] = losses
+    check(losses[-1] < 0.7 * losses[0], f"albedo recovery {losses}")
+    log(f"grad gates on the card (AD, FD): {res}")
+    results["grad_fd"] = res
+
+
+def _train_script():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_denoiser",
+        os.path.join(HERE, "scripts", "torch_train_denoiser.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_train(results):
+    """The U-Net trained on the card: pairs rendered on the card at
+    TRAIN_RES by scripts/torch_train_denoiser.py's renderer from a cut of
+    its mix (cut: one of its four Cornell variants, one of its three
+    atrium orbit frames, no sphere still-life, TRAIN_SPP's target spp for
+    its 192; the held-out instanced boxes kept), init_params, then
+    TRAIN_STEPS steps with its flips and gains, the launch counts set to
+    0 before the renders and read after the eval; the loss on the
+    unaugmented pairs falls; step time by CUDA events; the checkpoint
+    written by write_msgpack read back by load_denoiser bit for bit;
+    the held-out PSNRs of noisy, SVGF and the network; three train steps
+    on the card against the same on the CPU within TRAIN_CPU_ATOL.
+    Returns the launches."""
+    import torch
+    from truetrace_tpu_torch.post import neural as tn
+    mod = _train_script()
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    rng = np.random.default_rng(0)
+    mix = mod.build_scene_mix(rng, device=DEVICE, cornells=1, orbits=1,
+                              spheres=0)
+    t0 = time.perf_counter()
+    pairs, hold = [], []
+    for name, scene, cam, kw in mix:
+        p = mod.render_pair(scene, cam, kw, TRAIN_RES, *TRAIN_SPP)
+        p["name"] = name
+        (hold if name.startswith("HELDOUT") else pairs).append(p)
+    render_s = time.perf_counter() - t0
+    model = tn.init_params(torch.Generator().manual_seed(0), device=DEVICE)
+    init, step = tn.make_train_step(TRAIN_LR, device=DEVICE)
+    opt = init(model)
+    batches = [{k: torch.from_numpy(np.ascontiguousarray(v)[None]).to(DEVICE)
+                for k, v in p.items()
+                if k in ("noisy", "target", "albedo", "normal")}
+               for p in pairs]
+
+    def mean_loss():
+        with torch.no_grad():
+            return float(sum(tn.loss_fn(model, b) for b in batches)
+                         / len(batches))
+    l0 = mean_loss()
+    aug = []
+    for _ in range(TRAIN_STEPS):
+        k = rng.integers(len(pairs))
+        aug.append({kk: torch.from_numpy(v).to(DEVICE)
+                    for kk, v in mod.augment(rng, pairs[k]).items()})
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for b in aug:
+        step(model, opt, b)
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    l1 = mean_loss()
+    report = mod.evaluate(model, hold + pairs, DEVICE)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for name in PATHS["train"]:
+        check(launches[name] > 0, f"{name} never launched on the train "
+              f"path")
+    check(l1 < l0, f"train: loss {l0} -> {l1}")
+    with tempfile.TemporaryDirectory(prefix="unet_") as tmp:
+        path = os.path.join(tmp, "d.msgpack")
+        with open(path, "wb") as f:
+            f.write(tn.write_msgpack(tn.params_to_numpy(model.state_dict())))
+        back = tn.load_denoiser(path, device=DEVICE)
+    for k, v in model.state_dict().items():
+        check(torch.equal(back.state_dict()[k], v), f"checkpoint {k}")
+    # three steps card against CPU from the same weights and batch
+    b = batches[0]
+    ls, models = {}, {}
+    for dev in (DEVICE, "cpu"):
+        m = tn.init_params(torch.Generator().manual_seed(1), device=dev)
+        i_, s_ = tn.make_train_step(TRAIN_LR, device=dev)
+        o = i_(m)
+        ls[dev] = [float(s_(m, o, {k: v.to(dev) for k, v in b.items()}))
+                   for _ in range(3)]
+        models[dev] = m
+    diff = max(float((p.detach().cpu() - q.detach()).abs().max())
+               for p, q in zip(models[DEVICE].parameters(),
+                               models["cpu"].parameters()))
+    check(diff <= TRAIN_CPU_ATOL, f"train: card vs CPU weights {diff}")
+    res = dict(res=TRAIN_RES, spp=TRAIN_SPP, steps=TRAIN_STEPS,
+               pairs=[p["name"] for p in pairs + hold], render_s=render_s,
+               loss_before=l0, loss_after=l1, step_ms=step_ms,
+               steps_per_s=TRAIN_STEPS / host_s, eval=report,
+               card_vs_cpu=dict(max_weight_diff=diff, losses=ls),
+               launches={k: v for k, v in launches.items() if v})
+    log(f"train: {res}")
+    results["train"] = res
+    return launches
+
+
+def phase_train_gates(results):
+    """tests/test_neural.py's test_forward_shapes_and_finiteness and
+    test_training_reduces_loss with the port on the card (its batch drawn
+    by numpy: uniform targets, gamma-noised inputs)."""
+    import torch
+    from truetrace_tpu_torch.post import neural as tn
+    r = np.random.default_rng(2)
+    tgt = r.uniform(0, 0.5, (1, 32, 32, 3)).astype(np.float32)
+    b = {k: torch.from_numpy(v).to(DEVICE) for k, v in dict(
+        target=tgt,
+        noisy=(tgt * r.gamma(2.0, 1.0, tgt.shape) / 2.0).astype(np.float32),
+        albedo=np.full(tgt.shape, 0.5, np.float32),
+        normal=np.concatenate([np.zeros((1, 32, 32, 2)),
+                               np.ones((1, 32, 32, 1))], -1).astype(
+                                   np.float32)).items()}
+    model = tn.init_params(torch.Generator().manual_seed(0), device=DEVICE)
+    with torch.no_grad():
+        out = tn.denoise(model, b["noisy"][0], b["albedo"][0],
+                         b["normal"][0])
+    check(tuple(out.shape) == (32, 32, 3), f"denoise {out.shape}")
+    check(bool(torch.isfinite(out).all()) and float(out.min()) >= 0.0,
+          "denoise not finite or negative")
+    init, step = tn.make_train_step(3e-3, device=DEVICE)
+    opt = init(model)
+    with torch.no_grad():
+        l0 = float(tn.loss_fn(model, b))
+    for _ in range(120):
+        step(model, opt, b)
+    with torch.no_grad():
+        l1 = float(tn.loss_fn(model, b))
+        out = tn.denoise(model, b["noisy"][0], b["albedo"][0],
+                         b["normal"][0])
+    err_in = float(torch.mean(torch.abs(b["noisy"][0] - b["target"][0])))
+    err_out = float(torch.mean(torch.abs(out - b["target"][0])))
+    check(math.isfinite(l1) and l1 < 0.75 * l0, f"train gate {l0} -> {l1}")
+    check(err_out < err_in, f"train gate: {err_out} >= {err_in}")
+    results["train_gates"] = dict(loss_before=l0, loss_after=l1,
+                                  err_in=err_in, err_out=err_out)
+    log(f"train gates on the card: {results['train_gates']}")
+
+
+# ---------------------------------------------------------------------------
 
 # (name, source, TPU kernel replaced, the kernel instantiations of the
 # source whose ptxas report goes into the row)
@@ -4295,7 +4730,13 @@ PATHS = {"atrium": _OPAQUE, "composed": _OPAQUE, "sponza": _OPAQUE,
          "forest": ("closest_hit_tlas", "any_hit_tlas", "heightmap_closest",
                     "heightmap_any", "atrous_pass"),
          "tinted": ("closest_hit_tlas", "transmit_tlas", "atrous_pass"),
-         "animated": _OPAQUE}
+         "animated": _OPAQUE,
+         # the gradient's traversal (forward; the kept hit records feed
+         # the recompute), and the training pairs' renders (the held-out
+         # scene on the two-level kernels) and their SVGF eval
+         "grad": ("closest_hit_wavefront", "any_hit_wavefront"),
+         "train": ("closest_hit_wavefront", "any_hit_wavefront",
+                   "closest_hit_tlas", "any_hit_tlas", "atrous_pass")}
 # the frames after the first three, each with its own launch counts in
 # the kernels line
 NEW_PATHS = ("asvgf", "recur", "composed_asvgf", "glass", "post",
@@ -4390,6 +4831,7 @@ def main() -> int:
     new_launches["neural"] = run_path(
         results, scenes[6], cam, "neural", NEURAL,
         hook=lambda r, st: phase_unet(results, r.neural, st.accum.image))
+    grad_launches = phase_grad(results, scenes[6], cam)
     del scenes
     glass, g_cam = nested_glass_scene(DEVICE)
     log(f"nested glass scene: {glass.n_tris()} triangles, "
@@ -4463,6 +4905,9 @@ def main() -> int:
     del dyn
     phase_animated_gates(results)
     phase_animated_card_vs_cpu(results)
+    phase_grad_fd(results)
+    train_launches = phase_train(results)
+    phase_train_gates(results)
 
     for k in (6, 3):
         log(f"traversal Mrays/s (bench mix, atrium K={k}): " + ", ".join(
@@ -4533,6 +4978,8 @@ def main() -> int:
             "captures", "poses", "rebuild_s", "pose_replay_ms")},
         pose=results["animated_pose"], gates=results["animated_gates"],
         card_vs_cpu=results["animated_card_vs_cpu"])
+    frames["grad"] = dict(results["grad"], gates=results["grad_fd"])
+    frames["train"] = dict(results["train"], gates=results["train_gates"])
     frames["composed"].update(
         scatter_ms=results["composed_profile"]["scatter_ms"],
         cache_update_ms=results["composed_cache"]["update_ms"],
@@ -4576,7 +5023,8 @@ def main() -> int:
                 if k in res})
         rows[name]["sponza"] = sponza_row(name, results, s_launches)
         for label, ln in [("atrium", launches), ("composed", c_launches)] + [
-                (p, new_launches[p]) for p in NEW_PATHS + ("tinted",)]:
+                (p, new_launches[p]) for p in NEW_PATHS + ("tinted",)] + [
+                ("grad", grad_launches), ("train", train_launches)]:
             rows[name].setdefault(label, {}).update(
                 launches=ln[name], launches_per_frame=ln[name] / FRAMES)
     rows["transmit_wavefront"]["atrium"].update(results["transmit_atrium"])

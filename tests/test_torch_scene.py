@@ -15,6 +15,7 @@ from truetrace_tpu.scene import atrium as jatrium
 from truetrace_tpu.scene import cornell as jcornell
 from truetrace_tpu.scene.mesh import compile_scene as jcompile
 from truetrace_tpu_torch.build import env_cdf as tenv_cdf
+from truetrace_tpu_torch.diff import render_grad as trender_grad
 from truetrace_tpu_torch.kernels import cwbvh_wavefront as twf
 from truetrace_tpu_torch.post import neural as tneural
 from truetrace_tpu_torch.post import pipeline as tpipe
@@ -22,6 +23,7 @@ from truetrace_tpu_torch.post import svgf as tsvgf
 from truetrace_tpu_torch.scene import atmosphere as tatmosphere
 from truetrace_tpu_torch.scene import asset_manager as tasset_manager
 from truetrace_tpu_torch.scene import atrium as tatrium
+from truetrace_tpu_torch.scene import camera_rig as tcamera_rig
 from truetrace_tpu_torch.scene import cornell as tcornell
 from truetrace_tpu_torch.scene import dynamic as tdynamic
 from truetrace_tpu_torch.scene import ir as tir
@@ -245,7 +247,12 @@ def test_build_options_match_jax(opt):
                                 tatmosphere.bake_sky_env,
                                 tdynamic.compile_dynamic_scene,
                                 tasset_manager.AssetManager,
-                                tvideo.register_video],
+                                tvideo.register_video,
+                                trender_grad.render_loss_and_grad,
+                                tneural.init_params, tneural.make_train_step,
+                                tcamera_rig.FlyCamera.camera,
+                                tcamera_rig.orbit_path,
+                                tcamera_rig.spline_path],
                          ids=["compile_scene", "Camera.look_at",
                               "atrium.make", "cornell.make",
                               "SVGFState.create", "Accumulator.create",
@@ -254,7 +261,10 @@ def test_build_options_match_jax(opt):
                               "bake_tonemap_lut", "load_denoiser",
                               "compile_scene_instanced", "make_terrain",
                               "bake_sky_env", "compile_dynamic_scene",
-                              "AssetManager", "register_video"])
+                              "AssetManager", "register_video",
+                              "render_loss_and_grad", "init_params",
+                              "make_train_step", "FlyCamera.camera",
+                              "orbit_path", "spline_path"])
 def test_entry_points_default_to_the_card(fn):
     """The port's scene entry points build on the card unless the caller
     asks for the CPU (every CPU test passes device="cpu")."""

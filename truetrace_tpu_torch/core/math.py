@@ -99,6 +99,19 @@ def finite_or_zero(x):
     return torch.where(torch.isfinite(x), x, 0.0)
 
 
+def clip(x, lo: float, hi: float):
+    """jnp.clip(x, lo, hi): torch.clamp's value, with JAX's gradient at
+    a bound (lax.max and lax.min split a tie's cotangent in half, where
+    torch.clamp passes all of it), so a parameter that sits on a bound
+    (metallic 0, roughness 1) gets the JAX package's gradient. Without
+    grad it is torch.clamp alone."""
+    y = torch.clamp(x, lo, hi)
+    if not x.requires_grad:
+        return y
+    tie = ((x == lo) | (x == hi)).to(x.dtype)
+    return y - 0.5 * tie * (x - x.detach())
+
+
 def safe_div(a, b, eps: float = 1e-20):
     """a / b with |b| raised to eps, keeping its sign (b = 0 counts as
     positive)."""

@@ -23,6 +23,15 @@ the radiance cache's per-bounce records (`cache_capture`) and query
 (`cache_query_bounce`), and the ReSTIR DI light samples that drive the
 bounce-0 NEE (`di_sample`). Everything else raises NotImplementedError
 naming its ROADMAP.md item, never silently ignored.
+
+The loop is an autograd graph in the scene's parameters (material
+columns, env intensity, analytic-light radiance; diff/render_grad.py)
+with the JAX package's detached-sampling estimator: the hit record, the
+shadow transmittance and the sampled direction and pdf are detached, so
+no kernel is differentiated (their wrappers refuse a tensor that requires
+grad). With `RenderConfig.remat` each bounce is a non-reentrant
+`torch.utils.checkpoint` of `bounce`, a pure function of the loop-carried
+state.
 """
 from __future__ import annotations
 
@@ -32,10 +41,11 @@ from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from truetrace_tpu_torch.core import rng
 from truetrace_tpu_torch.core.math import (
-    cross, dot, finite_or_zero, luminance, normalize, power_heuristic,
+    clip, cross, dot, finite_or_zero, luminance, normalize, power_heuristic,
     sample_cosine_hemisphere, to_world)
 from truetrace_tpu_torch.kernels.cwbvh_tlas import (
     any_hit_tlas, closest_hit_tlas, transmit_tlas)
@@ -97,8 +107,6 @@ def check_supported(scene: Scene, cfg: RenderConfig) -> None:
         _todo("nee_sort", "A.19")
     if cfg.debug_nee:
         _todo(f"debug_nee={cfg.debug_nee!r}", "A.19")
-    if cfg.remat:
-        _todo("remat (differentiable rendering)", "A.16")
     if cfg.nee_mis not in ("approx", "exact"):
         raise ValueError(f"unknown nee_mis {cfg.nee_mis!r}")
     if cfg.light_sampling not in ("tree", "cdf"):
@@ -418,6 +426,15 @@ def _medium_update(m_ids, m_sp, crossed, front, mid):
 # the integrator
 # ---------------------------------------------------------------------------
 
+# the bounce loop's carried state: always, and with cache queries (n_cq,
+# n_ch), the medium stack (m_ids, m_sp) or the ReSTIR GI capture (r_*)
+_STATE = ("ro", "rd", "radiance", "throughput", "alive", "prev_pdf",
+          "prev_n", "g_albedo", "g_normal", "g_depth", "g_inst", "r_emit0",
+          "cone_w", "cone_s", "n_trace", "n_shadow")
+_STATE_OPT = ("n_cq", "n_ch", "m_ids", "m_sp", "r_direct", "r_x2", "r_n2",
+              "r_tp1", "r_pdf1", "r_valid", "r_x1", "r_mat1")
+
+
 def render_sample(scene: Scene, cam: Camera, cfg: RenderConfig,
                   sample_id) -> torch.Tensor:
     """One sample per pixel of the whole frame: [H*W,3] radiance."""
@@ -658,8 +675,8 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
     n_groups = ((int(has_mesh) + int(has_env_tex) + int(has_analytic))
                 if cfg.use_nee else 0)
     p_group = 1.0 / n_groups if n_groups else 1.0
-    if not has_env_tex:
-        env_rgb = scene.env.image[0, 0] * scene.env.intensity
+    env_const = (None if has_env_tex
+                 else scene.env.image[0, 0] * scene.env.intensity)
     used = set(scene.tex_slots)
     # cutout pass-through is possible only where a texture lowers alpha or
     # a material has alpha < 1 (then the scene has a shadow tint table)
@@ -680,9 +697,23 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
                            device=dev)
         m_sp = torch.zeros((R,), dtype=torch.int64, device=dev)
 
-    for b in range(cfg.bounces):
+    def bounce(b: int, st: dict):
+        """Bounce b: the loop-carried state `st` in; the next state and
+        the bounce's cache records out. Pure (no effect outside its
+        return), so a checkpoint's recompute replays it, traversals
+        included (as jax.checkpoint of the JAX bounce body does)."""
+        (ro, rd, radiance, throughput, alive, prev_pdf, prev_n, g_albedo,
+         g_normal, g_depth, g_inst, r_emit0, cone_w, cone_s, n_trace,
+         n_shadow) = (st[k] for k in _STATE)
+        (n_cq, n_ch, m_ids, m_sp, r_direct, r_x2, r_n2, r_tp1, r_pdf1,
+         r_valid, r_x1, r_mat1) = (st.get(k) for k in _STATE_OPT)
+        rec = {}
         n_trace = n_trace + alive.float().sum()
         hit, inst = _trace(scene, ro, rd, alive, cfg)
+        # the detached-sampling estimator: the traversal is not
+        # differentiated (JAX stop_gradient on the hit record and inst)
+        hit = Hit(*(x.detach() for x in hit))
+        inst = inst.detach()
         # the terrain is marched after the meshes against their hit t, and
         # the nearer hit is kept (reference kernel_heightmap after
         # kernel_trace); a terrain lane keeps the mesh hit's tri and inst
@@ -699,6 +730,7 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
             missed = missed & ~ter_take
 
         # ---- miss: environment (MIS against env NEE when it is active)
+        env_rgb = env_const
         if has_env_tex:
             from truetrace_tpu_torch.kernels.envmap import env_eval, env_pdf
             env_rgb = env_eval(scene.env, rd)
@@ -760,10 +792,10 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
                            ter=None if terrain is None else (ter_take,
                                                              th.uv))
         # roughness/metallic remap ranges ((0,1) = identity)
-        mat.roughness = torch.clamp(
+        mat.roughness = clip(
             mat.rough_remap[:, 0] + mat.roughness
             * (mat.rough_remap[:, 1] - mat.rough_remap[:, 0]), 1e-5, 1.0)
-        mat.metallic = torch.clamp(
+        mat.metallic = clip(
             mat.metal_remap[:, 0] + mat.metallic
             * (mat.metal_remap[:, 1] - mat.metal_remap[:, 0]), 0.0, 1.0)
 
@@ -803,11 +835,10 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
         if cfg.cache_capture:
             # the vertex cell, and the radiance and throughput at entry
             _, _, v_w0, v_w1 = cache_cell_packed(p, sn, cam_pos)
-            cache_rec["cache_w0"].append(torch.where(hit_ok, v_w0, 0))
-            cache_rec["cache_w1"].append(torch.where(hit_ok, v_w1, 0))
-            cache_rec["cache_prefix"].append(radiance)
-            cache_rec["cache_tp"].append(throughput)
-            cache_rec["cache_live"].append(hit_ok)
+            rec = dict(cache_w0=torch.where(hit_ok, v_w0, 0),
+                       cache_w1=torch.where(hit_ok, v_w1, 0),
+                       cache_prefix=radiance, cache_tp=throughput,
+                       cache_live=hit_ok)
         if query and b >= cfg.cache_query_bounce:
             # end paths at a confident cache entry (reference radiance-
             # cache hooks, RayTracingShader.compute:303-326)
@@ -930,7 +961,7 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
             # non-candidate lanes shoot zero-length shadow rays
             s_tm = torch.where(cand, dist_l - 2.0 * SHADOW_EPS, 0.0)
             trans = _transmission(scene, sro.contiguous(),
-                                  wi_l.contiguous(), s_tm, cfg)
+                                  wi_l.contiguous(), s_tm, cfg).detach()
             radiance = radiance + torch.where(cand[..., None],
                                               contrib * trans, 0.0)
 
@@ -938,6 +969,10 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
         u_lobe = u1(rng.path_dim(b, rng.DIM_BSDF_LOBE))
         u_dir = u2(rng.path_dim(b, rng.DIM_BSDF_SAMPLE))
         wi, f, pdf, _ = bsdf_sample(mat, sn, wo, u_lobe, u_dir)
+        # the detached-sampling estimator: the sampled direction and its
+        # pdf are constants of the backward pass; gradients flow through f
+        # and the NEE and emission terms only (JAX stop_gradient)
+        wi, pdf = wi.detach(), pdf.detach()
         cos_i = dot(wi, sn).abs()
         ok = hit_ok & (pdf > 1e-9)
         new_tp = finite_or_zero(
@@ -980,28 +1015,89 @@ def trace_rays(scene: Scene, ro, rd, cfg: RenderConfig, pixel, sample_id,
             tp1 = f * (cos_i / torch.clamp(pdf, min=1e-9))[..., None]
             r_tp1 = torch.where(alive[..., None], finite_or_zero(tp1), r_tp1)
             r_pdf1 = torch.where(alive, pdf, 0.0)
-        ro, rd = ro_n.contiguous(), wi.contiguous()
-        throughput, prev_pdf = tp_n, pdf_n
-        prev_n = sn
+        out = dict(
+            ro=ro_n.contiguous(), rd=wi.contiguous(), radiance=radiance,
+            throughput=tp_n, alive=alive, prev_pdf=pdf_n, prev_n=sn,
+            g_albedo=g_albedo, g_normal=g_normal, g_depth=g_depth,
+            g_inst=g_inst, r_emit0=r_emit0, cone_w=cone_w, cone_s=cone_s,
+            n_trace=n_trace, n_shadow=n_shadow, n_cq=n_cq, n_ch=n_ch,
+            m_ids=m_ids, m_sp=m_sp, r_direct=r_direct, r_x2=r_x2, r_n2=r_n2,
+            r_tp1=r_tp1, r_pdf1=r_pdf1, r_valid=r_valid, r_x1=r_x1,
+            r_mat1=r_mat1)
+        return {k: out[k] for k in st}, rec
 
-    stats = {"n_trace": n_trace, "n_shadow": n_shadow, "albedo": g_albedo,
-             "normal": g_normal, "depth": g_depth, "emitted0": r_emit0,
-             "inst": g_inst}
+    st = dict(ro=ro, rd=rd, radiance=radiance, throughput=throughput,
+              alive=alive, prev_pdf=prev_pdf, prev_n=prev_n,
+              g_albedo=g_albedo, g_normal=g_normal, g_depth=g_depth,
+              g_inst=g_inst, r_emit0=r_emit0, cone_w=cone_w, cone_s=cone_s,
+              n_trace=n_trace, n_shadow=n_shadow)
     if query:
-        stats["cache_hit_rate"] = n_ch / torch.clamp(n_cq, min=1.0)
+        st.update(n_cq=n_cq, n_ch=n_ch)
+    if scene.has_media:
+        st.update(m_ids=m_ids, m_sp=m_sp)
     if cfg.restir_capture:
-        stats.update(direct=r_direct, x2=r_x2, n2=r_n2, tp1=r_tp1,
-                     pdf1=r_pdf1, cand_valid=r_valid, x1=r_x1, mat1=r_mat1,
-                     indirect=radiance - r_direct)
+        st.update(r_direct=r_direct, r_x2=r_x2, r_n2=r_n2, r_tp1=r_tp1,
+                  r_pdf1=r_pdf1, r_valid=r_valid, r_x1=r_x1, r_mat1=r_mat1)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for b in range(cfg.bounces):
+        if remat:
+            # RenderConfig.remat: the bounce's shading residuals are
+            # recomputed in backward (jax.checkpoint of the bounce body)
+            st, rec = checkpoint(bounce, b, st, use_reentrant=False,
+                                 preserve_rng_state=False)
+        else:
+            st, rec = bounce(b, st)
+        for k, v in rec.items():
+            cache_rec[k].append(v)
+    radiance = st["radiance"]
+    stats = {"n_trace": st["n_trace"], "n_shadow": st["n_shadow"],
+             "albedo": st["g_albedo"], "normal": st["g_normal"],
+             "depth": st["g_depth"], "emitted0": st["r_emit0"],
+             "inst": st["g_inst"]}
+    if query:
+        stats["cache_hit_rate"] = st["n_ch"] / torch.clamp(st["n_cq"],
+                                                           min=1.0)
+    if cfg.restir_capture:
+        stats.update({k: st[f"r_{k}"] for k in (
+            "direct", "x2", "n2", "tp1", "pdf1", "x1", "mat1")},
+            cand_valid=st["r_valid"], indirect=radiance - st["r_direct"])
     if cfg.cache_capture:
         stats.update({k: torch.stack(v, 1) for k, v in cache_rec.items()})
     return radiance, stats
 
 
+# the most lanes `render_sum` traces in one pass of the bounce loop
+RENDER_LANES = 1 << 20
+
+
+def render_sum(scene: Scene, cam: Camera, cfg: RenderConfig, spp: int,
+               base_sample: int = 0):
+    """([H*W, 3] sum of samples base_sample .. base_sample + spp - 1, the
+    last sample's per-lane stats). The samples go through the bounce loop
+    together, as many as fit in RENDER_LANES lanes (the sample id is a
+    per-lane counter, so a sample takes the same path alone or beside
+    others), and are summed in sample order, as the JAX package's
+    fori_loop sums them; with RenderConfig.remat each pass's bounces are
+    the checkpoints."""
+    R = cfg.width * cfg.height
+    per = max(1, RENDER_LANES // R)
+    pixel = torch.arange(R, device=scene.device)
+    acc = torch.zeros((R, 3), device=scene.device)
+    for s0 in range(0, spp, per):
+        n = min(per, spp - s0)
+        sid = torch.arange(base_sample + s0, base_sample + s0 + n,
+                           device=scene.device).repeat_interleave(R)
+        rad, st = render_sample_with_stats(scene, cam, cfg, pixel.repeat(n),
+                                           sid)
+        for s in range(n):
+            acc = acc + rad[s * R:(s + 1) * R]
+    last = {k: v[(n - 1) * R:] for k, v in st.items()
+            if v.dim() and v.shape[0] == n * R}
+    return acc, last
+
+
 def render(scene: Scene, cam: Camera, cfg: RenderConfig, spp: int = 16,
            base_sample: int = 0) -> torch.Tensor:
-    """[H, W, 3] averaging `spp` samples per pixel."""
-    acc = torch.zeros((cfg.height * cfg.width, 3), device=scene.device)
-    for s in range(spp):
-        acc = acc + render_sample(scene, cam, cfg, base_sample + s)
+    """[H, W, 3] averaging `spp` samples per pixel (render_sum)."""
+    acc, _ = render_sum(scene, cam, cfg, spp, base_sample)
     return (acc / spp).reshape(cfg.height, cfg.width, 3)

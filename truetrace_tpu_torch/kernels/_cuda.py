@@ -217,6 +217,16 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: launch failed with cudaError_t {err}")
 
 
+def refuse_grad(what: str, detach_site: str, *tensors) -> None:
+    """Raise ValueError when a kernel wrapper is given a tensor that
+    requires grad. A launch on data_ptr() (and the plain versions' integer
+    views) would cut the autograd graph without a word; no kernel of the
+    port is differentiated, so the caller detaches at `detach_site`."""
+    if any(getattr(t, "requires_grad", False) for t in tensors):
+        raise ValueError(f"{what} is not differentiated and got a tensor "
+                         f"that requires grad: detach it, as {detach_site}")
+
+
 def stream_ptr(t) -> int:
     """Raw handle of the current stream on t's device."""
     import torch

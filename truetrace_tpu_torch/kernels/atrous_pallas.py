@@ -74,7 +74,11 @@ def atrous_pass_packed(cv, nz, step: int):
     variance), nz [H,W,4] (normal, depth) -> the next cv. CUDA tensors
     launch csrc/atrous.cu on the path `_path` picks for the step; CPU
     tensors take atrous_pass_plain. Counts launches in
-    `atrous_pass_packed.launches`."""
+    `atrous_pass_packed.launches`. A plane that requires grad raises
+    ValueError (the passes are not differentiated)."""
+    _cuda.refuse_grad("atrous_pass_packed", "SVGF's inputs are: the "
+                      "denoisers run on rendered frames, outside any "
+                      "gradient", cv, nz)
     if cv.device.type == "cpu":
         return pack(*atrous_pass_plain(*unpack(cv), *unpack(nz), step))
     _check_plane("cv", cv, cv)

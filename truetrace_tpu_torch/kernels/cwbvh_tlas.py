@@ -38,8 +38,8 @@ from truetrace_tpu_torch.core.math import fma
 from truetrace_tpu_torch.kernels import _cuda
 from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
     ANY, CLOSEST, ITER_CAP, LEAF_MASK, M32, OPAQUE, PTR_MASK, TRANSMIT,
-    _decode, _extract_slot, _inv_dir, _launch_args, _row_cols, _tri_test,
-    popcount32)
+    _DETACH_SITE, _decode, _extract_slot, _inv_dir, _launch_args, _row_cols,
+    _tri_test, popcount32)
 from truetrace_tpu_torch.kernels.traverse_ref import Hit
 
 MAX_STACK = 16          # the JAX package's MAX_STACK: the ring's depth
@@ -337,7 +337,9 @@ def closest_hit_tlas(table, C: int, L: int, ro, rd, t_max,
     [R]) in the unified table (`pack_table` with instance rows: C node
     rows, L leaf rows, then the instance rows). Returns (Hit, inst [R]
     int32). CUDA tensors launch csrc/traverse_tlas.cu; CPU tensors take
-    closest_hit_tlas_plain."""
+    closest_hit_tlas_plain. A tensor that requires grad raises
+    ValueError (the traversal is not differentiated)."""
+    _cuda.refuse_grad("closest_hit_tlas", _DETACH_SITE, table, ro, rd, t_max)
     if ro.device.type == "cpu":
         return closest_hit_tlas_plain(table, C, L, ro, rd, t_max, max_stack)
     out = _launch(table, C, L, ro, rd, t_max, CLOSEST, max_stack)
@@ -349,6 +351,7 @@ def any_hit_tlas(table, C: int, L: int, ro, rd, t_max,
                  max_stack: int = MAX_STACK):
     """Occlusion bool [R] (True = blocked before t_max); dispatch as
     closest_hit_tlas."""
+    _cuda.refuse_grad("any_hit_tlas", _DETACH_SITE, table, ro, rd, t_max)
     if ro.device.type == "cpu":
         return any_hit_tlas_plain(table, C, L, ro, rd, t_max, max_stack)
     hit, _ = _launch(table, C, L, ro, rd, t_max, ANY, max_stack)
@@ -360,6 +363,8 @@ def transmit_tlas(table, C: int, L: int, tint, ro, rd, t_max,
                   max_stack: int = MAX_STACK):
     """Shadow transmittance [R,3] (1 = clear, 0 = blocked) through the
     shadow tints tint [T,3]; dispatch as closest_hit_tlas."""
+    _cuda.refuse_grad("transmit_tlas", _DETACH_SITE, table, tint, ro, rd,
+                      t_max)
     if ro.device.type == "cpu":
         return transmit_tlas_plain(table, C, L, tint, ro, rd, t_max,
                                    max_stack)

@@ -565,11 +565,22 @@ def _launch(table, n_nodes, ro, rd, t_max, query: int, max_stack: int,
     return Hit(t=t, tri=tri, u=u, v=v)
 
 
+# where the integrator detaches what the traversal must not see with grad
+_DETACH_SITE = ("integrate/pathtrace.py detaches the hit record after _trace "
+                "and the transmittance after _transmission (the "
+                "detached-sampling estimator does not differentiate the "
+                "traversal)")
+
+
 def closest_hit_wavefront(table, n_nodes, ro, rd, t_max,
                           max_stack: int) -> Hit:
     """Closest hit of rays ro/rd [R,3] before t_max (scalar or [R]) in the
     unified table (`pack_table`, `n_nodes` node rows first). CUDA tensors
-    launch csrc/traverse.cu; CPU tensors take closest_hit_plain."""
+    launch csrc/traverse.cu; CPU tensors take closest_hit_plain. A tensor
+    that requires grad raises ValueError (the traversal is not
+    differentiated)."""
+    _cuda.refuse_grad("closest_hit_wavefront", _DETACH_SITE, table, ro, rd,
+                      t_max)
     if ro.device.type == "cpu":
         return closest_hit_plain(table, n_nodes, ro, rd, t_max, max_stack)
     hit = _launch(table, n_nodes, ro, rd, t_max, CLOSEST, max_stack)
@@ -580,6 +591,8 @@ def closest_hit_wavefront(table, n_nodes, ro, rd, t_max,
 def any_hit_wavefront(table, n_nodes, ro, rd, t_max, max_stack: int):
     """Occlusion bool [R] (True = blocked before t_max); dispatch as
     closest_hit_wavefront."""
+    _cuda.refuse_grad("any_hit_wavefront", _DETACH_SITE, table, ro, rd,
+                      t_max)
     if ro.device.type == "cpu":
         return any_hit_plain(table, n_nodes, ro, rd, t_max, max_stack)
     hit = _launch(table, n_nodes, ro, rd, t_max, ANY, max_stack)
@@ -591,6 +604,8 @@ def transmit_wavefront(table, n_nodes, tint, ro, rd, t_max, max_stack: int):
     """Shadow transmittance [R,3] (1 = unoccluded, 0 = blocked) of rays
     ro/rd [R,3] up to t_max through the shadow tints tint [T,3]; dispatch
     as closest_hit_wavefront (CPU tensors take transmit_plain)."""
+    _cuda.refuse_grad("transmit_wavefront", _DETACH_SITE, table, tint, ro,
+                      rd, t_max)
     if ro.device.type == "cpu":
         return transmit_plain(table, n_nodes, tint, ro, rd, t_max, max_stack)
     tp = _launch(table, n_nodes, ro, rd, t_max, TRANSMIT, max_stack, tint)

@@ -255,11 +255,20 @@ def _launch(ter, ro, rd, t_max, closest: bool, steps: int, bisect: int):
     return TerrainHit(t=t, valid=valid, normal=n, uv=uv)
 
 
+# where the integrator's rays lose their grad before the march
+_DETACH_SITE = ("integrate/pathtrace.py marches after detaching the hit "
+                "record, and its shadow rays carry no grad (the "
+                "detached-sampling estimator does not differentiate the "
+                "march)")
+
+
 def heightmap_closest(ter, ro, rd, t_max, steps: int = MARCH_STEPS,
                       bisect: int = BISECT_STEPS) -> TerrainHit:
     """Closest-hit march of rays ro/rd [R,3] up to t_max (scalar or [R])
     against the Terrain `ter`. CUDA tensors launch csrc/heightmap.cu; CPU
-    tensors take heightmap_closest_plain."""
+    tensors take heightmap_closest_plain. A tensor that requires grad
+    raises ValueError (the march is not differentiated)."""
+    _cuda.refuse_grad("heightmap_closest", _DETACH_SITE, ro, rd, t_max)
     if ro.device.type == "cpu":
         return heightmap_closest_plain(ter, ro, rd, t_max, steps, bisect)
     hit = _launch(ter, ro, rd, t_max, True, steps, bisect)
@@ -270,6 +279,7 @@ def heightmap_closest(ter, ro, rd, t_max, steps: int = MARCH_STEPS,
 def heightmap_any(ter, ro, rd, t_max, steps: int = MARCH_STEPS):
     """Occlusion bool [R] (a crossing before t_max); dispatch as
     heightmap_closest."""
+    _cuda.refuse_grad("heightmap_any", _DETACH_SITE, ro, rd, t_max)
     if ro.device.type == "cpu":
         return heightmap_any_plain(ter, ro, rd, t_max, steps)
     valid = _launch(ter, ro, rd, t_max, False, steps, 0)

@@ -42,7 +42,12 @@ def step_core_plain(rowt, ray9, st5, write_uv: bool = True):
 
 def step_core(rowt, ray9, st5, write_uv: bool = True):
     """Step core: CUDA tensors launch csrc/step_core.cu, CPU tensors take
-    step_core_plain. Counts launches in `step_core.launches`."""
+    step_core_plain. Counts launches in `step_core.launches`. A tensor
+    that requires grad raises ValueError (the step is not
+    differentiated)."""
+    _cuda.refuse_grad("step_core", "the traversal's rays are "
+                      "(integrate/pathtrace.py detaches the hit record)",
+                      rowt, ray9, st5)
     if rowt.device.type == "cpu":
         return step_core_plain(rowt, ray9, st5, write_uv)
     R = rowt.shape[1]
