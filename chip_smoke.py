@@ -124,7 +124,19 @@ Phases, each of which raises on a failed check:
    finite-difference gates on the card; the U-Net trained on pairs the
    card renders (a cut of scripts/torch_train_denoiser.py's mix), its
    loss falling, its step time, its checkpoint read back bit for bit,
-   three steps card against CPU, and tests/test_neural.py's gates.
+   three steps card against CPU, and tests/test_neural.py's gates;
+11. scene sources and build options, on sponza_like's export (phase
+   11, run beside phase 4's build): the OBJ written as a GLB (embedded
+   PNGs, an interleaved vertex buffer), a binary PLY, a pbrt file of
+   that PLY, a Mitsuba XML of the OBJ and a manifest (the GLB, a
+   textured sphere, auto_pair, material overrides, the baked sky), each
+   loaded by the port and giving the OBJ load's triangles bit for bit;
+   the manifest loaded twice through the build cache (every table
+   equal); compile_scene(hot_order=True): the traversal kernel's hits on
+   the frame's rays and one eager frame bit for bit the node-major
+   build's; compile_scene(presplit=16)'s frame against the unsplit one;
+   the manifest scene as phase 3's frames ("sources"), inspected, and
+   ranked by interleaved_ab; the OBJ loaded at max_tex=128 rendering.
 
 It prints the card line, one JSON line of kernel results (time, plain
 time, bound and what sets it, launches per frame, ptxas registers,
@@ -135,7 +147,7 @@ kernel's launches, time and bound on the sponza_like path, under
 "recur", "composed_asvgf", "glass", "post", "interactive", "neural",
 "forest", "tinted", "animated" (where the traversal rows also hold
 the K = 3 kernels' times and bounds on the animated frame's rays),
-"grad" and "train"; under
+"sources", "grad" and "train"; under
 "frames" each
 path's eager and replayed frame times, device busy, kernel counts and
 host copies, and the composed frame's cache numbers and gates), and as
@@ -4241,6 +4253,548 @@ def phase_sponza_card_vs_cpu(parts, scene, cam):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: scene sources and build options
+# ---------------------------------------------------------------------------
+
+SOURCES_SKY = dict(sun_dir=[0.3, 0.85, 0.44], sun_irradiance=25.0)
+SOURCES_BALL = dict(translate=[2.0, 1.2, 0.0], radius=0.6)
+SOURCES_PRESPLIT = 16.0
+SOURCES_MAX_TEX = 128   # sponza_like's 256^2 textures, halved once
+# tests/test_presplit.py:67: a presplit frame against the unsplit one
+PRESPLIT_ATOL, PRESPLIT_RTOL = 2e-3, 1e-3
+# at sponza_like's full size on the card (NVIDIA H100 80GB HBM3, 700 W)
+# 3 of 262,144 pixels fall outside those, by at most 0.0161: the frame
+# must keep all but 1e-4 of its pixels within them and every pixel within
+# PRESPLIT_MAX_DIFF, so that lost or misplaced triangles fail
+PRESPLIT_OUTSIDE, PRESPLIT_MAX_DIFF = 1e-4, 0.05
+PRESPLIT_FRAME = dict(width=512, height=512, bounces=4, bsdf="lambert",
+                      traversal="wavefront", use_nee=False)
+
+
+def _pad4(b: bytes, fill: bytes = b"\0") -> bytes:
+    return b + fill * ((-len(b)) % 4)
+
+
+def write_glb(path: str, mesh, mats, names, tex_files):
+    """One OBJ-loaded mesh as a binary glTF: a mesh whose primitives hold
+    each material's triangles in turn (in the OBJ's order within one),
+    sharing one interleaved POSITION / NORMAL / TEXCOORD_0 buffer view
+    (byteStride), with each material's albedo PNG (`tex_files[name]`)
+    embedded as a buffer-view image. Test scaffolding: neither package
+    writes glTF."""
+    import struct
+    cols = [("POSITION", mesh.positions)]
+    if mesh.normals is not None:
+        cols.append(("NORMAL", mesh.normals))
+    if mesh.uvs is not None:
+        cols.append(("TEXCOORD_0", mesh.uvs))
+    inter = np.concatenate([c.astype(np.float32) for _, c in cols], 1)
+    V = inter.shape[0]
+    blob = bytearray(_pad4(np.ascontiguousarray(inter).tobytes()))
+    views = [dict(buffer=0, byteOffset=0, byteLength=V * inter.shape[1] * 4,
+                  byteStride=inter.shape[1] * 4)]
+    accessors, attrs, off = [], {}, 0
+    for name, c in cols:
+        attrs[name] = len(accessors)
+        accessors.append(dict(bufferView=0, byteOffset=off, count=V,
+                              componentType=5126,
+                              type={3: "VEC3", 2: "VEC2"}[c.shape[1]]))
+        off += 4 * c.shape[1]
+
+    def view(data: bytes) -> int:
+        views.append(dict(buffer=0, byteOffset=len(blob),
+                          byteLength=len(data)))
+        blob.extend(_pad4(data))
+        return len(views) - 1
+
+    images, tex_of = [], {}
+    for name in names:
+        fn = tex_files.get(name, {}).get("tex_albedo")
+        if fn is not None and fn not in tex_of:
+            with open(fn, "rb") as f:
+                images.append(dict(bufferView=view(f.read()),
+                                   mimeType="image/png"))
+            tex_of[fn] = len(images) - 1
+    prims = []
+    for m in range(len(mats)):
+        sel = np.nonzero(mesh.mat_id == m)[0]
+        if sel.size == 0:
+            continue
+        idx = mesh.indices[sel].astype(np.uint32).reshape(-1)
+        accessors.append(dict(bufferView=view(idx.tobytes()),
+                              count=int(idx.size), componentType=5125,
+                              type="SCALAR"))
+        prims.append(dict(attributes=attrs, indices=len(accessors) - 1,
+                          material=m))
+    materials = []
+    for name, m in zip(names, mats):
+        pbr = dict(baseColorFactor=[*map(float, m.base_color),
+                                    float(m.alpha)],
+                   metallicFactor=float(m.metallic),
+                   roughnessFactor=float(m.roughness))
+        fn = tex_files.get(name, {}).get("tex_albedo")
+        if fn is not None:
+            pbr["baseColorTexture"] = dict(index=tex_of[fn])
+        materials.append(dict(name=name, pbrMetallicRoughness=pbr,
+                              emissiveFactor=[*map(float, m.emission)]))
+    doc = dict(asset=dict(version="2.0"), scene=0,
+               scenes=[dict(nodes=[0])], nodes=[dict(mesh=0)],
+               meshes=[dict(primitives=prims)], materials=materials,
+               textures=[dict(source=i) for i in range(len(images))],
+               images=images, accessors=accessors, bufferViews=views,
+               buffers=[dict(byteLength=len(blob))])
+    js = _pad4(json.dumps(doc).encode(), b" ")
+    total = 12 + 8 + len(js) + 8 + len(blob)
+    with open(path, "wb") as f:
+        f.write(b"glTF" + struct.pack("<II", 2, total))
+        f.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+        f.write(struct.pack("<II", len(blob), 0x004E4942) + bytes(blob))
+
+
+def write_ply(path: str, positions, indices):
+    """Positions [V,3] and triangles [F,3] as a binary little-endian PLY
+    (float x y z; a uchar-counted int vertex_indices list a face)."""
+    V, F = positions.shape[0], indices.shape[0]
+    head = (f"ply\nformat binary_little_endian 1.0\nelement vertex {V}\n"
+            "property float x\nproperty float y\nproperty float z\n"
+            f"element face {F}\n"
+            "property list uchar int vertex_indices\nend_header\n")
+    faces = np.zeros(F, np.dtype([("n", "u1"), ("i", "<i4", (3,))]))
+    faces["n"] = 3
+    faces["i"] = indices
+    with open(path, "wb") as f:
+        f.write(head.encode())
+        f.write(np.ascontiguousarray(positions, "<f4").tobytes())
+        f.write(faces.tobytes())
+
+
+def camera_look(cam):
+    """(eye, target, fov_y in degrees) of a port Camera, on the host."""
+    c2w = cam.c2w.detach().cpu().numpy().astype(np.float64)
+    eye = c2w[3, :3]
+    return eye, eye - c2w[2, :3], math.degrees(float(cam.fov_y))
+
+
+def write_sources(dir_: str, obj_path: str, cam) -> dict:
+    """Write the OBJ export at `obj_path` (sponza_like's) in every other
+    scene format, beside it in `dir_`: a GLB (write_glb), a binary PLY of
+    its geometry, a pbrt file whose one plymesh is that PLY (LookAt
+    camera, infinite light), a Mitsuba XML with one obj shape of the OBJ
+    (lookat sensor, constant emitter), and a manifest of the GLB, one
+    textured uv_sphere, auto_pair, material_overrides, a baked sky and
+    FRAME's render settings. Returns their paths and the OBJ's (meshes,
+    mats, names, tex_files)."""
+    from truetrace_tpu_torch.scene.obj_loader import load_obj
+    tex_files = {}
+    meshes, mats, names = load_obj(obj_path, _tex_paths=tex_files,
+                                   _return_names=True)
+    mesh = meshes[0]
+    eye, target, fov = camera_look(cam)
+    p = {k: os.path.join(dir_, f"sponza_like.{k}")
+         for k in ("glb", "ply", "pbrt", "xml", "json")}
+    write_glb(p["glb"], mesh, mats, names, tex_files)
+    write_ply(p["ply"], mesh.positions, mesh.indices)
+    v = lambda a: " ".join(repr(float(x)) for x in a)
+    with open(p["pbrt"], "w") as f:
+        f.write(f"LookAt {v(eye)}  {v(target)}  0 1 0\n"
+                f'Camera "perspective" "float fov" [{fov!r}]\n'
+                "WorldBegin\n"
+                'LightSource "infinite" "rgb L" [0.5 0.6 0.8]\n'
+                "AttributeBegin\n"
+                '  Material "diffuse" "rgb reflectance" [0.8 0.8 0.8]\n'
+                '  Shape "plymesh" "string filename" "sponza_like.ply"\n'
+                "AttributeEnd\nWorldEnd\n")
+    c = lambda a: ", ".join(repr(float(x)) for x in a)
+    with open(p["xml"], "w") as f:
+        f.write(f"""<scene version="2.0.0">
+  <sensor type="perspective">
+    <float name="fov" value="{fov!r}"/>
+    <transform name="to_world">
+      <lookat origin="{c(eye)}" target="{c(target)}" up="0, 1, 0"/>
+    </transform>
+  </sensor>
+  <shape type="obj">
+    <string name="filename" value="{os.path.basename(obj_path)}"/>
+    <bsdf type="diffuse"><rgb name="reflectance" value="0.8, 0.8, 0.8"/>
+    </bsdf>
+  </shape>
+  <emitter type="constant"><rgb name="radiance" value="0.5, 0.6, 0.8"/>
+  </emitter>
+</scene>
+""")
+    albedo = sorted({t["tex_albedo"] for t in tex_files.values()
+                     if "tex_albedo" in t})[0]
+    doc = dict(
+        meshes=[dict(gltf=os.path.basename(p["glb"])),
+                dict(primitive="uv_sphere", material="ball",
+                     **SOURCES_BALL)],
+        materials=dict(ball=dict(
+            base_color=[1.0, 1.0, 1.0], roughness=0.4,
+            tex_file_albedo=os.path.relpath(albedo, dir_))),
+        auto_pair=True,
+        material_overrides=dict(ball=dict(roughness=0.3)),
+        env=dict(sky=SOURCES_SKY),
+        camera=dict(eye=[*map(float, eye)], target=[*map(float, target)],
+                    fov=fov),
+        render={k: FRAME[k] for k in ("width", "height", "bounces", "bsdf",
+                                      "traversal", "light_sampling")})
+    with open(p["json"], "w") as f:
+        json.dump(doc, f, indent=1)
+    return dict(paths=p, obj=(meshes, mats, names, tex_files))
+
+
+def soup(meshes):
+    """flatten_meshes' p0 / e1 / e2 [T,9] float32 (each zero made +0:
+    the loaders' float64 transforms turn -0.0 into +0.0) and mat [T]."""
+    from truetrace_tpu_torch.scene.mesh import flatten_meshes
+    t = flatten_meshes(meshes)
+    tri = np.concatenate([t["p0"], t["e1"], t["e2"]], 1) + np.float32(0)
+    return tri, t["mat"]
+
+
+def same_soup(a, b, what: str):
+    check(a[0].shape == b[0].shape, f"{what}: {a[0].shape[0]} triangles, "
+          f"not {b[0].shape[0]}")
+    bad = (a[0].view(np.uint32) != b[0].view(np.uint32)).any(1)
+    check(not bad.any(), f"{what}: {int(bad.sum())} of {bad.size} triangles "
+          f"differ from the OBJ load's")
+    check(np.array_equal(a[1], b[1]), f"{what}: per-triangle materials "
+          f"differ from the OBJ load's")
+
+
+def sorted_rows(tri, mat):
+    """The triangles' rows (bits and material) in lexicographic order."""
+    rows = np.concatenate([tri.view(np.int32), mat[:, None]], 1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+SCENE_TABLES = ("tri_p0", "tri_e1", "tri_e2", "tri_n", "tri_uv", "tri_tan",
+                "tri_mat", "tri_lod", "bvh2_box", "bvh2_left", "bvh2_count",
+                "cw_nodes", "cw_tri_index", "cw_leaf_rows", "atlas",
+                "atlas_rects", "atlas_level_y", "lbvh_nodes", "lbvh_info",
+                "lbvh_prim", "lbvh_trail", "lbvh_pairs",
+                "lbvh_pair_children", "lcut_bounds", "lcut_link",
+                "lcut_node_ids", "lcut_of_light", "lcut_skip")
+
+
+def same_scene(a, b, what: str):
+    """Every table of two Scenes bit for bit (materials, light list and
+    env included)."""
+    import dataclasses
+    pairs = [(f, getattr(a, f), getattr(b, f)) for f in SCENE_TABLES]
+    for part in ("materials", "light_tris", "env", "lights"):
+        pa, pb = getattr(a, part), getattr(b, part)
+        pairs += [(f"{part}.{f.name}", getattr(pa, f.name),
+                   getattr(pb, f.name)) for f in dataclasses.fields(pa)]
+    for name, x, y in pairs:
+        check((x is None) == (y is None), f"{what}: {name} missing")
+        if x is not None:
+            check(tuple(x.shape) == tuple(y.shape) and torch_equal_bits(x, y),
+                  f"{what}: {name} differs")
+    check((a.cw_stack, a.has_media, a.lbvh_depth)
+          == (b.cw_stack, b.has_media, b.lbvh_depth), f"{what}: scalars")
+
+
+def phase_sources_load(tmp: str, parts) -> dict:
+    """Steps 1-3: every source written and loaded, each giving the OBJ
+    load's triangles; the manifest loaded twice through the build cache.
+    Returns the manifest scene, camera and RenderConfig with the
+    numbers."""
+    import torch
+    from truetrace_tpu_torch.scene import build_cache, primitives
+    from truetrace_tpu_torch.scene.atlas import AtlasBuilder
+    from truetrace_tpu_torch.scene.gltf_loader import load_gltf
+    from truetrace_tpu_torch.scene.manifest import load_manifest
+    from truetrace_tpu_torch.scene.mesh import HostMesh
+    from truetrace_tpu_torch.scene.mitsuba_loader import load_mitsuba
+    from truetrace_tpu_torch.scene.pbrt_loader import load_pbrt
+    from truetrace_tpu_torch.scene.ply_loader import load_ply
+    obj_path = os.path.join(tmp, "sponza_like.obj")
+    t0 = time.perf_counter()
+    src = write_sources(tmp, obj_path, parts[5])
+    secs = dict(write=time.perf_counter() - t0)
+    p = src["paths"]
+    sizes = {k: os.path.getsize(v) for k, v in p.items()}
+    ref = soup(src["obj"][0])
+    order = np.argsort(ref[1], kind="stable")
+    grouped = (ref[0][order], ref[1][order])
+    zero = np.zeros_like(ref[1])
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[key] = time.perf_counter() - t0
+        return out
+
+    ab = AtlasBuilder()
+    g_meshes, g_mats = timed("gltf", lambda: load_gltf(p["glb"],
+                                                       atlas_builder=ab))
+    same_soup(soup(g_meshes), grouped, "GLB")
+    atlas, rects, level_y = ab.build()
+    check(np.array_equal(atlas, parts[2]) and np.array_equal(rects, parts[3]),
+          "GLB: the atlas differs from the OBJ load's")
+    pos, idx, _, _ = timed("ply", lambda: load_ply(p["ply"]))
+    same_soup(soup([HostMesh(pos, idx, np.zeros(idx.shape[0], np.int32))]),
+              (ref[0], zero), "PLY")
+    pb = timed("pbrt", lambda: load_pbrt(p["pbrt"], device=DEVICE))
+    check(pb[5] == [] and pb[3] is not None and pb[4] is None,
+          f"pbrt: skipped {pb[5]}")
+    same_soup(soup(pb[0]), (ref[0], zero), "pbrt")
+    mi = timed("mitsuba", lambda: load_mitsuba(p["xml"], device=DEVICE))
+    check(mi[2] is not None and mi[3] is not None, "Mitsuba: no sensor/env")
+    same_soup(soup(mi[0]), (ref[0], zero), "Mitsuba")
+
+    cache = os.path.join(tmp, "build_cache")
+    io_s = dict(save=[], load=[])
+
+    def clocked(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            io_s[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    saved = (os.environ.get("TRUETRACE_BUILD_CACHE"),
+             build_cache.save_build, build_cache.load_build)
+    os.environ["TRUETRACE_BUILD_CACHE"] = cache
+    build_cache.save_build = clocked(saved[1], "save")
+    build_cache.load_build = clocked(saved[2], "load")
+    try:
+        first = timed("manifest", lambda: load_manifest(p["json"],
+                                                        device=DEVICE))
+        torch.cuda.synchronize()
+        entries = sorted(os.listdir(cache))
+        second = timed("manifest_cached", lambda: load_manifest(
+            p["json"], device=DEVICE))
+        torch.cuda.synchronize()
+    finally:
+        build_cache.save_build, build_cache.load_build = saved[1:]
+        if saved[0] is None:
+            del os.environ["TRUETRACE_BUILD_CACHE"]
+        else:
+            os.environ["TRUETRACE_BUILD_CACHE"] = saved[0]
+    check(len(entries) == 1 and entries[0].endswith(".npz")
+          and sorted(os.listdir(cache)) == entries,
+          f"build cache entries {entries}")
+    check(len(io_s["save"]) == 1 and len(io_s["load"]) == 2,
+          f"build cache calls {io_s}")
+    same_scene(first[0], second[0], "manifest from the build cache")
+    scene, cam, cfg = first
+    v, i, _ = primitives.uv_sphere(16, 24, radius=SOURCES_BALL["radius"])
+    v = primitives.transform(v, translate=tuple(SOURCES_BALL["translate"]))
+    want = soup(g_meshes + [HostMesh(v, i, np.full(len(i), len(g_mats),
+                                                   np.int32))])
+    got = (torch.cat([scene.tri_p0, scene.tri_e1, scene.tri_e2], 1).cpu()
+           .numpy() + np.float32(0), scene.tri_mat.cpu().numpy().astype(
+               np.int32))
+    check(np.array_equal(sorted_rows(*got), sorted_rows(*want)),
+          "manifest: its triangles are not the GLB's and the sphere's")
+    check(scene.atlas_rects.shape[0] == 9 and scene.env.image.shape[0] > 1,
+          "manifest: textures or sky missing")
+    secs.update(cache_write=io_s["save"][0], cache_read=io_s["load"][1])
+    log(f"sources: wrote GLB, PLY, pbrt, Mitsuba and manifest in "
+        f"{secs['write']:.2f} s "
+        f"({ {k: round(n / 2**20, 2) for k, n in sizes.items()} } MiB); "
+        f"each gives the OBJ load's {ref[0].shape[0]} triangles bit for "
+        f"bit (GLB grouped by material, its atlas the OBJ's); manifest "
+        f"scene {scene.n_tris()} triangles, loaded twice through the "
+        f"build cache, every table equal; host s: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in secs.items()))
+    return dict(scene=scene, cam=cam, cfg=cfg, secs=secs, sizes=sizes,
+                tris=scene.n_tris())
+
+
+def phase_sources_hot(results, parts, sponza):
+    """Step 4: compile_scene(hot_order=True) against the node-major build:
+    the same rows and nodes but for word 5 and the row order; the
+    traversal kernel's closest hits on the frame's primary and bounce
+    rays and any hits on its shadow rays bit for bit, the kernel against
+    its plain version on the hot table, and one eager frame bit for
+    bit."""
+    import torch
+    from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
+        any_hit_wavefront, closest_hit_wavefront)
+    from truetrace_tpu_torch.scene.mesh import compile_scene
+    meshes, mats, atlas, rects, level_y, cam, env = parts
+    t0 = time.perf_counter()
+    hot = compile_scene(meshes, mats, env=env, atlas=atlas,
+                        atlas_rects=rects, atlas_level_y=level_y,
+                        with_cwbvh=True, with_light_bvh=True, hot_order=True,
+                        device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    na, nb = sponza.cw_nodes, hot.cw_nodes
+    check(torch.equal(na[:, :5], nb[:, :5]) and torch.equal(
+        na[:, 6:], nb[:, 6:]), "hot order changed a node word but word 5")
+    moved = int((na[:, 5] != nb[:, 5]).sum())
+    ra = sponza.cw_leaf_rows.view(torch.int32)
+    rb = hot.cw_leaf_rows.view(torch.int32)
+    check(torch.equal(torch.sort(ra[:, -1]).values,
+                      torch.sort(rb[:, -1]).values), "hot rows lost rows")
+    R = FRAME["width"] * FRAME["height"]
+    ro_p, rd_p, ro_b, rd_b, tm_b = bench_rays(sponza, cam, R)
+    tabs = [(s.cw_table(), s.cw_nodes.shape[0], s.cw_stack)
+            for s in (sponza, hot)]
+    ms = {}
+    for name, ro, rd in (("primary", ro_p, rd_p), ("bounce", ro_b, rd_b)):
+        ha, hb = (closest_hit_wavefront(*tb[:2], ro, rd, 1e30, tb[2])
+                  for tb in tabs)
+        for f in ("t", "tri", "u", "v"):
+            check(torch_equal_bits(getattr(ha, f), getattr(hb, f)),
+                  f"hot order: closest {name} {f} differs")
+        ms[name] = [cuda_ms(lambda tb=tb: closest_hit_wavefront(
+            *tb[:2], ro, rd, 1e30, tb[2]), 10) for tb in tabs]
+    oa, ob = (any_hit_wavefront(*tb[:2], ro_b, rd_b, tm_b, tb[2])
+              for tb in tabs)
+    check(torch.equal(oa, ob), "hot order: any-hit occlusion differs")
+    n = 16384
+    hold_closest(*tabs[1][:2], tabs[1][2], ro_b[:n].contiguous(),
+                 rd_b[:n].contiguous(), f"hot-ordered sponza bounce ({n})")
+    frames = []
+    for s in (sponza, hot):
+        r = make_renderer(s, cam, FRAME)
+        st = r.init_state()
+        d, a, st = r.step(st)
+        frames.append((d, a))
+        del r, st
+    check(torch_equal_bits(frames[0][0], frames[1][0])
+          and torch_equal_bits(frames[0][1], frames[1][1]),
+          "hot order: the eager frame differs from the node-major one")
+    log(f"hot order: {moved} of {na.shape[0]} nodes' word 5 moved, build "
+        f"{build_s:.2f} s; closest and any hits on {R} primary / bounce / "
+        f"shadow rays and one eager frame bit for bit the node-major "
+        f"table's; closest ms (node-major, hot): " + ", ".join(
+            f"{k} {v[0]:.4f}, {v[1]:.4f}" for k, v in ms.items()))
+    results["sources_hot"] = dict(build_s=build_s, moved_nodes=moved,
+                                  closest_ms=ms, rays=R)
+    del hot
+
+
+def phase_sources_presplit(results, parts, sponza):
+    """Step 5: compile_scene(presplit=16) and its 4-spp frame against the
+    unsplit one's (tests/test_presplit.py's Lambert frame without NEE, so
+    the light list's split cannot move the samples)."""
+    import torch
+    from truetrace_tpu_torch.integrate.pathtrace import RenderConfig, render
+    from truetrace_tpu_torch.scene.mesh import compile_scene
+    meshes, mats, atlas, rects, level_y, cam, env = parts
+    t0 = time.perf_counter()
+    ps = compile_scene(meshes, mats, env=env, atlas=atlas,
+                       atlas_rects=rects, atlas_level_y=level_y,
+                       with_cwbvh=True, with_light_bvh=True,
+                       presplit=SOURCES_PRESPLIT, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = RenderConfig(**PRESPLIT_FRAME)
+    a = render(sponza, cam, cfg, spp=4)
+    b = render(ps, cam, cfg, spp=4)
+    check(bool(torch.isfinite(b).all()), "presplit frame not finite")
+    close = (a - b).abs() <= PRESPLIT_ATOL + PRESPLIT_RTOL * a.abs()
+    share = float(close.all(-1).float().mean())
+    gap = float((a - b).abs().max())
+    rel = abs(float(b.mean()) - float(a.mean())) / float(a.mean())
+    log(f"presplit {SOURCES_PRESPLIT:g}: {sponza.n_tris()} -> {ps.n_tris()} "
+        f"triangles, {ps.cw_nodes.shape[0]} nodes (unsplit "
+        f"{sponza.cw_nodes.shape[0]}), build {build_s:.2f} s; 4-spp frame "
+        f"against the unsplit one: {share:.6f} of pixels within atol "
+        f"{PRESPLIT_ATOL:g} / rtol {PRESPLIT_RTOL:g}, max |diff| {gap:.4g}, "
+        f"mean rel diff {rel:.2e}")
+    check(rel < 1e-2, f"presplit frame mean moved by {rel:.3e}")
+    check(share >= 1.0 - PRESPLIT_OUTSIDE, f"presplit frame: {1 - share:.2e}"
+          f" of pixels outside atol {PRESPLIT_ATOL:g} / rtol "
+          f"{PRESPLIT_RTOL:g} (at most {PRESPLIT_OUTSIDE:g})")
+    check(gap <= PRESPLIT_MAX_DIFF, f"presplit frame: max |diff| {gap:.4g} "
+          f"over {PRESPLIT_MAX_DIFF:g}")
+    results["sources_presplit"] = dict(
+        tris=ps.n_tris(), tris_unsplit=sponza.n_tris(), build_s=build_s,
+        share_within=share, max_abs_diff=gap, mean_rel_diff=rel)
+
+
+def phase_sources_frame(results, src, obj_path):
+    """Step 6: the manifest scene's frame (phase 3's: timed eager frames
+    with their launch counts, sync-free frames, the profile, the CUDA
+    graphs bit for bit), its inspection, interleaved_ab ranking one
+    replayed frame below four, and the OBJ loaded at max_tex=128 still
+    rendering."""
+    import torch
+    from truetrace_tpu_torch.scene.mesh import compile_scene
+    from truetrace_tpu_torch.scene.obj_loader import load_obj_scene
+    from truetrace_tpu_torch.tools.inspector import inspect_scene
+    from truetrace_tpu_torch.utils.profiling import interleaved_ab
+    scene, cam, cfg = src["scene"], src["cam"], src["cfg"]
+    rep = inspect_scene(scene)
+    check(rep.ok(), f"inspect_scene: {[str(f) for f in rep.errors]}")
+    log(f"inspect_scene(manifest scene): {rep.stats}; findings "
+        f"{[str(f) for f in rep.findings]}")
+    frame = dict(FRAME, **{k: getattr(cfg, k) for k in (
+        "width", "height", "bounces", "bsdf", "traversal",
+        "light_sampling")})
+    launches = run_path(results, scene, cam, "sources", frame)
+    rg = make_renderer(scene, cam, frame)
+    gs = rg.graph_step(cam_moved=False)
+    st = [rg.init_state()]
+
+    def frames(n):
+        def run():
+            for _ in range(n):
+                _, acc, st[0] = gs(st[0])
+            return acc
+        return run
+
+    ab = interleaved_ab([("one", frames(1), ()), ("four", frames(4), ())],
+                        rounds=2, n1=1, n2=3, verbose=False)
+    one, four = ab["one"]["median_s"], ab["four"]["median_s"]
+    check(one < four, f"interleaved_ab ranks one frame at {one} s, four at "
+          f"{four} s")
+    log(f"interleaved_ab on the manifest frame's replays: one frame "
+        f"{one * 1e3:.2f} ms, four {four * 1e3:.2f} ms (medians of 2 "
+        f"rounds)")
+    del rg, gs, st
+    t0 = time.perf_counter()
+    meshes, mats, atlas, rects, level_y = load_obj_scene(
+        obj_path, max_tex=SOURCES_MAX_TEX)
+    load_s = time.perf_counter() - t0
+    check(rects.shape[0] == 8 and int(rects[:, 2:].max())
+          == SOURCES_MAX_TEX, f"max_tex: rects {rects.tolist()}")
+    small = compile_scene(meshes, mats, env=scene.env, atlas=atlas,
+                          atlas_rects=rects, atlas_level_y=level_y,
+                          with_cwbvh=True, with_light_bvh=True,
+                          device=DEVICE)
+    r = make_renderer(small, cam, frame)
+    d, a, _ = r.step(r.init_state())
+    check(bool(torch.isfinite(a).all()) and float(a.mean()) > 1e-3,
+          "the max_tex frame does not render")
+    log(f"load_obj_scene(max_tex={SOURCES_MAX_TEX}): textures halved to "
+        f"{rects[:, 2:].tolist()[0]}, atlas {tuple(atlas.shape)}, load "
+        f"{load_s:.2f} s; its frame renders (radiance mean "
+        f"{float(a.mean()):.4f})")
+    results["sources"] = dict(
+        tris=src["tris"], host_s=src["secs"], file_bytes=src["sizes"],
+        ab_one_ms=one * 1e3, ab_four_ms=four * 1e3,
+        max_tex_load_s=load_s, inspect=rep.stats)
+    return launches
+
+
+def phase_sources(results, tmp: str, parts, sponza):
+    """Phase 11: the scene sources and build options on sponza_like's
+    export in `tmp` (phase_sponza_build's): steps 1-3
+    (phase_sources_load), hot order, presplit and the manifest frame.
+    Returns the frame's launches."""
+    import torch
+    t0 = time.perf_counter()
+    src = phase_sources_load(tmp, parts)
+    phase_sources_hot(results, parts, sponza)
+    phase_sources_presplit(results, parts, sponza)
+    launches = phase_sources_frame(results, src,
+                                   os.path.join(tmp, "sponza_like.obj"))
+    del src
+    torch.cuda.synchronize()
+    log(f"phase sources: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 10: differentiable rendering and denoiser training
 # ---------------------------------------------------------------------------
 
@@ -4730,7 +5284,7 @@ PATHS = {"atrium": _OPAQUE, "composed": _OPAQUE, "sponza": _OPAQUE,
          "forest": ("closest_hit_tlas", "any_hit_tlas", "heightmap_closest",
                     "heightmap_any", "atrous_pass"),
          "tinted": ("closest_hit_tlas", "transmit_tlas", "atrous_pass"),
-         "animated": _OPAQUE,
+         "animated": _OPAQUE, "sources": _OPAQUE,
          # the gradient's traversal (forward; the kept hit records feed
          # the recompute), and the training pairs' renders (the held-out
          # scene on the two-level kernels) and their SVGF eval
@@ -4740,7 +5294,7 @@ PATHS = {"atrium": _OPAQUE, "composed": _OPAQUE, "sponza": _OPAQUE,
 # the frames after the first three, each with its own launch counts in
 # the kernels line
 NEW_PATHS = ("asvgf", "recur", "composed_asvgf", "glass", "post",
-             "interactive", "neural", "forest", "animated")
+             "interactive", "neural", "forest", "animated", "sources")
 # a profiled frame's host copies and syncs (phase_profile)
 COPY_KEYS = ("memcpy_htod", "memcpy_dtoh", "stream_syncs",
              "blocking_memcpy_calls", "memcpy_dtod")
@@ -4844,6 +5398,8 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="sponza_like_") as tmp:
         parts = phase_sponza_build(tmp)
+        new_launches["sources"] = phase_sources(results, tmp, parts[:-1],
+                                                parts[-1])
     sponza, s_cam = parts[-1], parts[5]
     phase_sponza_traversal(results, sponza, s_cam)
     s_launches, renderer, state = phase_frame(results, sponza, s_cam,
@@ -4978,6 +5534,9 @@ def main() -> int:
             "captures", "poses", "rebuild_s", "pose_replay_ms")},
         pose=results["animated_pose"], gates=results["animated_gates"],
         card_vs_cpu=results["animated_card_vs_cpu"])
+    frames["sources"].update(
+        results["sources"], hot_order=results["sources_hot"],
+        presplit=results["sources_presplit"])
     frames["grad"] = dict(results["grad"], gates=results["grad_fd"])
     frames["train"] = dict(results["train"], gates=results["train_gates"])
     frames["composed"].update(

@@ -27,7 +27,8 @@ CPU's, posed scenes replayed with no recapture, the two frame checks,
 and the skinning's clamped bone indices; and the training path: the
 gradient step (render_loss_and_grad) with no host sync, with remat bit
 for bit without it, and three U-Net train steps on the card against the
-same on the CPU.
+same on the CPU; and the traversal kernel on heat-ordered leaf rows, and
+a manifest scene's frames on the card against the CPU.
 
 Needs an NVIDIA card and nvcc; skips elsewhere. It imports no JAX, so it
 runs on a machine without it (the JAX-side conftest is skipped):
@@ -1201,3 +1202,71 @@ def test_train_steps_match_cpu(dev):
     for p, q in zip(out["cuda"][0].parameters(), out["cpu"][0].parameters()):
         np.testing.assert_allclose(p.detach().cpu().numpy(),
                                    q.detach().numpy(), rtol=0, atol=3e-4)
+
+
+# ---------------------------------------------------------------------------
+# scene sources and build options: heat-ordered rows, the manifest frame
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [3, 6, 12])
+def test_traversal_kernel_bitwise_on_hot_rows(scenes, k):
+    """compile_scene(hot_order=True) moves whole leaf-row groups and
+    rewrites node word 5: the kernel on that table gives its plain
+    version's bits, and the node-major table's t, tri, u, v and
+    occlusion."""
+    out, ro, rd, tm = scenes
+    meshes, mats, _, env = atrium.make(detail=0.2, device=ro.device)
+    hot = compile_scene(meshes, mats, env=env, with_cwbvh=True, leaf_k=k,
+                        hot_order=True, device=ro.device)
+    base = out[k]
+    assert not torch.equal(hot.cw_nodes[:, 5], base.cw_nodes[:, 5])
+    hk = _check_both(hot, ro, rd, tm)
+    hb = wf.closest_hit_wavefront(base.cw_table(), base.cw_nodes.shape[0],
+                                  ro, rd, tm, base.cw_stack)
+    for f in ("t", "tri", "u", "v"):
+        a, b = getattr(hk, f), getattr(hb, f)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), f
+    assert torch.equal(
+        wf.any_hit_wavefront(hot.cw_table(), hot.cw_nodes.shape[0], ro, rd,
+                             tm, hot.cw_stack),
+        wf.any_hit_wavefront(base.cw_table(), base.cw_nodes.shape[0], ro,
+                             rd, tm, base.cw_stack))
+
+
+def test_manifest_frame_card_matches_cpu(dev, tmp_path_factory):
+    """chip_smoke.py's written sources of sponza_like (detail 0.5): the
+    manifest (the GLB, a textured sphere, auto_pair, overrides, the baked
+    sky) loaded on the card and on the CPU gives the same tables, and two
+    SVGF Renderer.step frames at 32x24 agree as the sponza frames do
+    (>= 98% of display pixels to 1e-3, the means to 1e-3)."""
+    import chip_smoke
+    from truetrace_tpu_torch.renderer import Renderer, RendererConfig
+    from truetrace_tpu_torch.scene import sponza_like
+    from truetrace_tpu_torch.scene.ir import Camera
+    from truetrace_tpu_torch.scene.manifest import load_manifest
+    d = str(tmp_path_factory.mktemp("sources"))
+    obj = sponza_like.export(d, 0.5)
+    cam = Camera.look_at(eye=(-9.5, 2.1, 0.0), target=(6.0, 3.2, -0.5),
+                         fov_y_deg=55, device="cpu")
+    p = chip_smoke.write_sources(d, obj, cam)["paths"]["json"]
+    sg, cg, _ = load_manifest(p, device=dev)
+    sc, cc, _ = load_manifest(p, device="cpu")
+    for f in ("tri_p0", "cw_nodes", "cw_leaf_rows", "lbvh_nodes", "atlas"):
+        a, b = getattr(sg, f).cpu(), getattr(sc, f)
+        if a.dtype == torch.float32:   # leaf rows' id columns are NaN bits
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f
+    kw = dict(width=32, height=24, bounces=3, denoiser="svgf",
+              traversal="wavefront", light_sampling="tree", bsdf="disney")
+    rg, rc = Renderer(sg, cg, RendererConfig(**kw)), Renderer(
+        sc, cc, RendererConfig(**kw))
+    st_g, st_c = rg.init_state(), rc.init_state()
+    for _ in range(2):
+        dg, _, st_g = rg.step(st_g)
+        dc, _, st_c = rc.step(st_c)
+        dg = dg.cpu()
+        assert bool(torch.isfinite(dg).all())
+        close = ((dg - dc).abs() <= 1e-3).all(-1).float().mean()
+        assert float(close) >= 0.98
+        assert abs(float(dg.mean()) - float(dc.mean())) <= 1e-3 * float(
+            dc.mean())

@@ -28,6 +28,9 @@ from truetrace_tpu_torch.scene import cornell as tcornell
 from truetrace_tpu_torch.scene import dynamic as tdynamic
 from truetrace_tpu_torch.scene import ir as tir
 from truetrace_tpu_torch.scene import instances as tinstances
+from truetrace_tpu_torch.scene import manifest as tmanifest
+from truetrace_tpu_torch.scene import mitsuba_loader as tmitsuba
+from truetrace_tpu_torch.scene import pbrt_loader as tpbrt
 from truetrace_tpu_torch.scene import sponza_like as tsponza
 from truetrace_tpu_torch.scene import terrain as tterrain
 from truetrace_tpu_torch.scene import video as tvideo
@@ -178,14 +181,28 @@ def _raises(fn):
 
 @pytest.mark.parametrize("opt", ["presplit", "hot_order", "bvh2_only",
                                  "cache_dir"])
-def test_unported_build_options_raise(opt):
+def test_unported_build_options_raise(opt, tmp_path):
+    """Of the build options the port once refused, only a build without
+    the CWBVH still raises (ROADMAP.md A.19); presplit, hot_order and
+    cache_dir build the JAX package's tables (tests/
+    test_torch_build_opts.py holds them at more sizes)."""
     m, mats, _ = tcornell.make(device="cpu")
-    kw = dict(with_cwbvh=True, device="cpu")
+    kw = dict(with_cwbvh=True)
     kw.update(dict(presplit=dict(presplit=0.5),
                    hot_order=dict(hot_order=True),
                    bvh2_only=dict(with_cwbvh=False),
-                   cache_dir=dict(cache_dir="x"))[opt])
-    _raises(lambda: tcompile(m, mats, **kw))
+                   cache_dir=dict(cache_dir=str(tmp_path / "t")))[opt])
+    if opt == "bvh2_only":
+        _raises(lambda: tcompile(m, mats, device="cpu", **kw))
+        return
+    jm, jmat, _ = jcornell.make()
+    if opt == "cache_dir":
+        js = jcompile(jm, jmat, with_cwbvh=True, cache_dir=str(tmp_path / "j"))
+    else:
+        js = jcompile(jm, jmat, **kw)
+    ts = tcompile(m, mats, device="cpu", **kw)
+    for f in ("tri_p0", "tri_mat", "cw_nodes", "cw_leaf_rows", "bvh2_left"):
+        _same_bits(getattr(js, f), _np(getattr(ts, f)), f)
 
 
 @pytest.mark.parametrize("opt", ["lights", "terrain"])
@@ -252,7 +269,9 @@ def test_build_options_match_jax(opt):
                                 tneural.init_params, tneural.make_train_step,
                                 tcamera_rig.FlyCamera.camera,
                                 tcamera_rig.orbit_path,
-                                tcamera_rig.spline_path],
+                                tcamera_rig.spline_path,
+                                tmanifest.load_manifest, tpbrt.load_pbrt,
+                                tmitsuba.load_mitsuba],
                          ids=["compile_scene", "Camera.look_at",
                               "atrium.make", "cornell.make",
                               "SVGFState.create", "Accumulator.create",
@@ -264,7 +283,8 @@ def test_build_options_match_jax(opt):
                               "AssetManager", "register_video",
                               "render_loss_and_grad", "init_params",
                               "make_train_step", "FlyCamera.camera",
-                              "orbit_path", "spline_path"])
+                              "orbit_path", "spline_path", "load_manifest",
+                              "load_pbrt", "load_mitsuba"])
 def test_entry_points_default_to_the_card(fn):
     """The port's scene entry points build on the card unless the caller
     asks for the CPU (every CPU test passes device="cpu")."""

@@ -337,8 +337,10 @@ def test_export_load_without_pillow(tmp_path):
 def test_loader_raises_on_unreadable_texture(tmp_path):
     """A texture file that is present but cannot be decoded raises in the
     port (the JAX loader drops it silently and renders untextured); a
-    missing one is skipped by both; a texture wider than max_tex (a
-    Pillow resize in the JAX loader) and auto_pair are not ported."""
+    missing one is skipped by both; a file other than PNG raises naming
+    ROADMAP.md A.27; auto_pair and a texture wider than max_tex (halved
+    with Pillow in the JAX loader, scene/resize.py in the port) give the
+    JAX loader's materials and atlas."""
     (tmp_path / "t.obj").write_text(
         "mtllib t.mtl\nv 0 0 0\nv 1 0 0\nv 0 1 0\nusemtl a\nf 1 2 3\n")
     (tmp_path / "t.mtl").write_text(
@@ -352,9 +354,21 @@ def test_loader_raises_on_unreadable_texture(tmp_path):
     tm = tload(str(tmp_path / "t.obj"))
     assert tm[1][0].tex_albedo == tm[1][0].tex_emission == -1
     assert tm[2] is None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.18"):
-        tload(str(tmp_path / "t.obj"), auto_pair=True)
-    write_png(str(tmp_path / "bad.png"), np.zeros((8, 32, 3), np.uint8))
+    (tmp_path / "t.mtl").write_text(
+        "newmtl a\nKd 1 1 1\nmap_Kd bad.jpg\n")
+    (tmp_path / "bad.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(16))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.27"):
+        tload(str(tmp_path / "t.obj"))
+    (tmp_path / "t.mtl").write_text(
+        "newmtl a\nKd 1 1 1\nmap_Kd bad.png\nmap_Ke gone.png\n")
+    img = np.random.default_rng(0).integers(0, 256, (8, 32, 3), np.uint8)
+    write_png(str(tmp_path / "bad.png"), img)
     assert tload(str(tmp_path / "t.obj"))[3].tolist() == [[0, 0, 32, 16]]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.18"):
-        tload(str(tmp_path / "t.obj"), max_tex=16)
+    for kw in (dict(auto_pair=True), dict(max_tex=16)):
+        jm, tm = jload(str(tmp_path / "t.obj"), **kw), tload(
+            str(tmp_path / "t.obj"), **kw)
+        assert [dataclasses.asdict(m) for m in jm[1]] == [
+            dataclasses.asdict(m) for m in tm[1]]
+        for a, b in zip(jm[2:], tm[2:]):
+            assert np.array_equal(np.asarray(a), b)
+    assert tm[3][0, 2] == 16

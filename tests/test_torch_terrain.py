@@ -148,18 +148,19 @@ def luts():
     return jatm.build_luts(), tatm.build_luts()
 
 
-# The atmosphere's limits, each just past what this bake measures against
-# the JAX package (largest relative error at atol 1e-9: transmittance
-# 4.4e-4, multiple scattering 1.43e-3, irradiance 2.4e-5; the sky at atol
-# 1e-6: 8.6e-7 under the high sun, 1.4e-4 under the low one; its CDF rows
-# within atol 1e-6). The LUT's own (r, mu) already differ: XLA:CPU
-# contracts mu's numerator H^2 - rho^2 - d^2 into two fmas, which the
-# port's products round otherwise (mu differs on 43% of texels, up to
-# 1.6e-3 relative near mu = 0), and the optical depth integrates such
-# differences over 40 steps, which exp(-depth) turns into relative
-# errors of the transmittance (ROADMAP.md §C).
-LUT_RTOL = dict(transmittance=5e-4, multiscatter=1.5e-3, irradiance=3e-5)
-SKY_RTOL = {(0.4, 0.5, 0.3): 1e-6, (0.1, 0.05, -0.6): 1.5e-4}
+# The atmosphere against the JAX package. The transmittance LUT is its
+# bits: the port writes every mul-add XLA:CPU contracts in that builder as
+# an fma, XLA's exp, its reciprocal products for the divisions by
+# constants, and square roots rounded to nearest (ROADMAP.md §C.3). The
+# multiple-scattering and irradiance LUTs take their builders' sites too
+# but for the channels the back end merges (an AVX-512 host); their
+# limits sit just past this bake's largest relative error at atol 1e-9
+# (2.5e-7 and 1.2e-7). The sky bake (eager in the JAX package) is the
+# JAX bits from the same LUTs; from each package's own LUTs every texel
+# is within atol 1e-6 (2.4e-7 / 2.9e-7 relative); its CDF rows within
+# atol 1e-6.
+LUT_RTOL = dict(transmittance=0.0, multiscatter=3e-7, irradiance=2e-7)
+SKY_RTOL = {(0.4, 0.5, 0.3): 1e-7, (0.1, 0.05, -0.6): 1e-7}
 
 
 @pytest.mark.parametrize("lut", ["transmittance", "multiscatter",
@@ -167,14 +168,16 @@ SKY_RTOL = {(0.4, 0.5, 0.3): 1e-6, (0.1, 0.05, -0.6): 1.5e-4}
 def test_atmosphere_luts_match_jax(luts, lut):
     want, got = np.asarray(getattr(luts[0], lut)), getattr(luts[1], lut)
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    if LUT_RTOL[lut] == 0.0:
+        assert (got.numpy().view(np.uint32) == want.view(np.uint32)).all()
     np.testing.assert_allclose(got.numpy(), want, rtol=LUT_RTOL[lut],
                                atol=1e-9)
 
 
 def test_atmosphere_mu_is_the_contraction():
-    """The look behind LUT_RTOL: the transmittance LUT's mu, written with
-    XLA:CPU's two fmas (and d = fma(u, d_max - d_min, d_min)), is the JAX
-    package's on every texel; the port's plain products are not."""
+    """The transmittance LUT's mu, written with XLA:CPU's two fmas (and
+    d = fma(u, d_max - d_min, d_min)), is the JAX package's on every
+    texel, and so is the port's; plain products miss it on many."""
     from truetrace_tpu_torch.core.math import fma
 
     def jax_rmu():
@@ -189,10 +192,14 @@ def test_atmosphere_mu_is_the_contraction():
         (torch.arange(tatm.T_W, dtype=torch.float32) + 0.5) / tatm.T_W,
         indexing="ij")
     r, mu = tatm._uv_to_rmu(us, vs)
-    assert (r.numpy() == jr).all()
-    assert 0.3 < (mu.numpy() == jmu).mean() < 0.9
+    assert (r.numpy() == jr).all() and (mu.numpy() == jmu).all()
     h = tatm._H_ATM
     rho = vs * h
+    d_plain = (tatm.R_TOP - r) + us * ((rho + h) - (tatm.R_TOP - r))
+    mu_plain = torch.clamp(torch.where(
+        d_plain > 1e-6, (h * h - rho * rho - d_plain * d_plain)
+        / torch.clamp(2.0 * r * d_plain, min=1e-9), 1.0), -1.0, 1.0)
+    assert 0.3 < (mu_plain.numpy() == jmu).mean() < 0.9
     d = fma(us, (rho + h) - (tatm.R_TOP - r), tatm.R_TOP - r)
     num = fma(-d, d, fma(-rho, rho, torch.full_like(rho, h * h)))
     mu_c = torch.clamp(torch.where(
@@ -200,16 +207,37 @@ def test_atmosphere_mu_is_the_contraction():
     assert (mu_c.numpy() == jmu).all()
 
 
+def test_powf_libm_is_jax_power_on_the_host_only():
+    """powf_libm gives jnp.power's float32 bits on XLA:CPU over the Mie
+    phase's base range, and refuses a tensor that is not on the CPU
+    rather than moving it there."""
+    from truetrace_tpu_torch.core.math import powf_libm
+    x = np.random.default_rng(3).uniform(0.0, 2.0, 4096).astype(np.float32)
+    want = np.asarray(jax.jit(lambda v: jnp.power(v, 1.5))(x))
+    got = powf_libm(torch.from_numpy(x).reshape(64, 64), 1.5)
+    assert got.shape == (64, 64) and got.device.type == "cpu"
+    assert (got.numpy().reshape(-1).view(np.uint32)
+            == want.view(np.uint32)).all()
+    with pytest.raises(ValueError, match="not the CPU"):
+        powf_libm(torch.empty(4, device="meta"), 1.5)
+
+
 @pytest.mark.parametrize("sun", [(0.4, 0.5, 0.3), (0.1, 0.05, -0.6)])
 def test_bake_sky_env_matches_jax(luts, sun):
     """The baked equirect sky (the forest's sun, and a low one with the
-    star field) from each package's LUTs, and its CDF tables."""
+    star field) from each package's LUTs, and its CDF tables; from the
+    JAX package's own LUTs, the JAX sky's bits."""
     kw = dict(sun_dir=sun, sun_irradiance=25.0, h=32, w=64,
               stars=0.0 if sun[1] > 0.3 else 0.5)
     je = jatm.bake_sky_env(luts=luts[0], **kw)
     te = tatm.bake_sky_env(luts=luts[1], device="cpu", **kw)
     np.testing.assert_allclose(te.image.numpy(), np.asarray(je.image),
                                rtol=SKY_RTOL[sun], atol=1e-6)
+    same = tatm.bake_sky_env(luts=tatm.AtmosphereLUTs(*(
+        torch.from_numpy(np.asarray(x)) for x in luts[0])), device="cpu",
+        **kw)
+    assert (same.image.numpy().view(np.uint32)
+            == np.asarray(je.image).view(np.uint32)).all()
     np.testing.assert_allclose(te.cdf_y.numpy(), np.asarray(je.cdf_y),
                                rtol=1e-5, atol=1e-6)
 

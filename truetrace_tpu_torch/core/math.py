@@ -118,6 +118,40 @@ def safe_div(a, b, eps: float = 1e-20):
     return a / torch.where(b.abs() < eps, torch.where(b >= 0, eps, -eps), b)
 
 
+def sqrt_rn(x):
+    """float32 sqrt rounded to nearest, as XLA:CPU and CUDA's sqrtf give
+    it. torch.sqrt on a CPU float32 tensor is not correctly rounded (its
+    vectorised kernel misses the nearest value on ~0.7% of inputs); the
+    square root of the exact float64 value, rounded once to float32, is
+    (float64 carries more than twice float32's precision)."""
+    return torch.sqrt(x.double()).float()
+
+
+_LIBM = None
+
+
+def powf_libm(x, y: float):
+    """x ** y for a float32 CPU tensor by the C library's powf, value by
+    value: XLA:CPU calls it for jnp.power (not correctly rounded: it
+    differs from the nearest float32 on ~0.07% of inputs), where
+    torch.pow differs on ~2%. For host bakes of a few thousand values
+    only: a tensor on another device raises (it is never moved to the
+    host)."""
+    global _LIBM
+    if x.device.type != "cpu":
+        raise ValueError(f"powf_libm is a host bake's helper: x is on "
+                         f"{x.device}, not the CPU")
+    import ctypes
+    import ctypes.util
+    if _LIBM is None:
+        _LIBM = ctypes.CDLL(ctypes.util.find_library("m"))
+        _LIBM.powf.restype = ctypes.c_float
+        _LIBM.powf.argtypes = [ctypes.c_float, ctypes.c_float]
+    flat = x.detach().reshape(-1).tolist()
+    out = torch.tensor([_LIBM.powf(v, y) for v in flat], dtype=torch.float32)
+    return out.reshape(x.shape)
+
+
 def fma(a, b, c):
     """a * b + c rounded once to float32, as XLA:CPU computes the mul-adds
     it contracts (its LLVM backend always allows FMA fusion) and as the
@@ -228,7 +262,15 @@ def log2_xla(x):
 def exp2_xla(x):
     """jnp.exp2 on XLA:CPU, bit for bit: exp(x * float32 ln 2) by the
     Cephes polynomial, a denormal result flushed to zero."""
-    a = torch.clamp(x * _LN2, -88.3762626647949, 88.3762626647950)
+    return exp_xla(x * _LN2)
+
+
+def exp_xla(x):
+    """jnp.exp on XLA:CPU (float32), bit for bit below x = 88.376 (above
+    it XLA still returns finite values where this returns inf): the
+    Cephes polynomial with its contracted mul-adds, a denormal result
+    flushed to zero."""
+    a = torch.clamp(x, -88.3762626647949, 88.3762626647950)
     fx = torch.floor(fma(a, _c(a, 1.44269504088896341), _c(a, 0.5)))
     r = fma(_c(a, -0.693359375), fx, a)
     r = fma(_c(a, 2.12194440e-4), fx, r)

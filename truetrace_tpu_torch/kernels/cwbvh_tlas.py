@@ -34,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from truetrace_tpu_torch.core.math import fma
+from truetrace_tpu_torch.core.math import fma, sqrt_rn
 from truetrace_tpu_torch.kernels import _cuda
 from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
     ANY, CLOSEST, ITER_CAP, LEAF_MASK, M32, OPAQUE, PTR_MASK, TRANSMIT,
@@ -75,8 +75,10 @@ def _xform(col, px, py, pz, translate: bool):
 
 
 def _local_dir(ldx, ldy, ldz, s2):
-    """The local direction over its length sqrt(s2), divided."""
-    n = torch.sqrt(s2)
+    """The local direction over its length sqrt(s2), divided. The square
+    root is rounded to nearest (core/math.py sqrt_rn), as XLA and the
+    kernel's __fsqrt_rn give it: torch.sqrt on a CPU tensor is not."""
+    n = sqrt_rn(s2)
     return torch.stack([ldx / n, ldy / n, ldz / n], -1)
 
 
@@ -210,7 +212,7 @@ def _traverse_tlas_plain(table, C: int, L: int, ro, rd, t_max, query: int,
         lox, loy, loz = _xform(fcol, ro[:, 0], ro[:, 1], ro[:, 2], True)
         ldx, ldy, ldz = _xform(fcol, rd[:, 0], rd[:, 1], rd[:, 2], False)
         s2 = torch.clamp(fma(ldz, ldz, fma(ldx, ldx, ldy * ldy)), min=1e-20)
-        lscale = torch.sqrt(s2)
+        lscale = sqrt_rn(s2)
         ro_l = torch.stack([lox, loy, loz], -1)
         rd_l = _local_dir(ldx, ldy, ldz, s2)
         # 4. stack: pop applies first, then push on the popped state; an

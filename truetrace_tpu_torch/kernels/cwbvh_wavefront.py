@@ -102,6 +102,58 @@ def pack_leaf_rows_torch(slot_tri_base: torch.Tensor,
     return torch.cat(cols + [idf], 1)
 
 
+def reorder_leaf_rows_hot(nodes2: "np.ndarray", rows: "np.ndarray"):
+    """Permute leaf-row GROUPS (one contiguous group per node) so
+    high-heat groups pack at the FRONT of the unified gather table.
+
+    Motivation (round-5 locality probe, BASELINE.md): the TPU gather
+    cache operates on address granules, so a hot subset of rows
+    SCATTERED across an HBM-sized table drags cold granule neighbours
+    into cache and thrashes, while the same subset packed contiguously
+    stays resident. Heat proxy = leaf AABB half-area (probability a
+    random ray's slab test touches the row — the same SAH measure the
+    builder minimizes; reference CWBVH exists for cache-friendly
+    traversal, CommonData.cginc:641-707).
+
+    Bitwise-neutral: rows carry their own triangle data + global ids,
+    so only node word 5 (base_leaf_row) is rewritten. NOT compatible
+    with the deformable refit path (pack_leaf_rows_jax regenerates rows
+    in node-major order) — compile_scene(hot_order=True) is for static
+    HBM-scale scenes.
+    """
+    import numpy as np
+    C = nodes2.shape[0]
+    L = rows.shape[0]
+    base = nodes2[:, 5].astype(np.int64)
+    per_node = np.diff(np.append(base, L))
+    k = rows.shape[1] // 10
+    # per-row AABB over the valid triangles' vertices
+    ids = rows.view(np.int32)[:, 9 * k:]
+    lo = np.full((L, 3), np.inf, np.float32)
+    hi = np.full((L, 3), -np.inf, np.float32)
+    for j in range(k):
+        valid = (ids[:, j] >= 0)[:, None]
+        p0 = rows[:, 9 * j: 9 * j + 3]
+        v1 = p0 + rows[:, 9 * j + 3: 9 * j + 6]
+        v2 = p0 + rows[:, 9 * j + 6: 9 * j + 9]
+        for v in (p0, v1, v2):
+            lo = np.where(valid, np.minimum(lo, v), lo)
+            hi = np.where(valid, np.maximum(hi, v), hi)
+    d = np.maximum(hi - lo, 0.0)
+    row_heat = d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 0] * d[:, 2]
+    row_heat = np.where(np.isfinite(row_heat), row_heat, 0.0)
+    node_heat = np.zeros(C)
+    np.add.at(node_heat, np.repeat(np.arange(C), per_node), row_heat)
+    order = np.argsort(-node_heat, kind="stable")
+    new_base = np.concatenate([[0], np.cumsum(per_node[order])[:-1]])
+    perm = np.concatenate([np.arange(base[n], base[n] + per_node[n])
+                           for n in order]).astype(np.int64) \
+        if L else np.zeros((0,), np.int64)
+    out_nodes = nodes2.copy()
+    out_nodes[order, 5] = new_base.astype(np.uint32)
+    return out_nodes, rows[perm]
+
+
 # ---------------------------------------------------------------------------
 # uint32 helpers: bit patterns in int64, masked (see core/rng.py)
 # ---------------------------------------------------------------------------

@@ -8,6 +8,14 @@ float32 on the CPU: it runs once per sun position and no frame runs it;
 `bake_sky_env` hands its equirect image to build_env_cdf, whose EnvMap
 goes to `device`. The JAX package's terrain scenes light themselves with
 it (scripts/demo.py scene 4).
+
+The transmittance LUT and the sky march of `bake_sky_env` round as the
+JAX package's do on XLA:CPU, bit for bit: the mul-adds XLA contracts in
+that LUT builder are fmas here, exp and pow are XLA's (`core/math.py`
+`exp_xla`, `powf_libm`) and square roots are rounded to nearest. The
+multiple-scattering LUT takes its builder's sites too, within 2.5e-7
+(ROADMAP.md C.3); the irradiance LUT's march keeps the LUT builders'
+densities and plain products elsewhere (within 1.2e-7).
 """
 from __future__ import annotations
 
@@ -16,6 +24,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from truetrace_tpu_torch.core.math import exp_xla, fma, powf_libm, sqrt_rn
 
 R_GROUND = 6360.0
 R_TOP = 6460.0
@@ -48,29 +58,57 @@ def _c3(v) -> torch.Tensor:
     return torch.tensor(v, dtype=F32)
 
 
-def _densities(h):
-    """(rayleigh, mie, ozone) density profiles at altitude h (km)."""
-    rho_r = torch.exp(-torch.clamp(h, min=0.0) / H_RAYLEIGH)
-    rho_m = torch.exp(-torch.clamp(h, min=0.0) / H_MIE)
-    rho_o = torch.clamp(1.0 - (h - 25.0).abs() / 15.0, min=0.0)
+# XLA turns a division by a constant into a product with its float32
+# reciprocal (x / 1.2 -> x * 0.833333313, x / 15 -> x * 0.0666666701)
+_INV_H_MIE = float(np.float32(1.0 / H_MIE))
+_INV_15 = float(np.float32(1.0 / 15.0))
+
+
+def _densities(h, fused: bool = True):
+    """(rayleigh, mie, ozone) density profiles at altitude h (km) with
+    XLA's own exp. fused: as XLA:CPU compiles them inside a jitted LUT
+    builder, the divisions as reciprocal products and the ozone tent's
+    1 - |h - 25| / 15 one fma; else op by op, as the JAX package's eager
+    sky bake runs them."""
+    hp = torch.clamp(h, min=0.0)
+    if not fused:
+        return (exp_xla(-hp / H_RAYLEIGH), exp_xla(-hp / H_MIE),
+                torch.clamp(1.0 - (h - 25.0).abs() / 15.0, min=0.0))
+    rho_r = exp_xla(-hp * (1.0 / H_RAYLEIGH))
+    rho_m = exp_xla(-hp * _INV_H_MIE)
+    rho_o = torch.clamp(fma(-(h - 25.0).abs(), _k(h, _INV_15), _k(h, 1.0)),
+                        min=0.0)
     return rho_r, rho_m, rho_o
 
 
-def _extinction(h):
-    rho_r, rho_m, rho_o = _densities(h)
-    return (_c3(BETA_R) * rho_r[..., None]
-            + (BETA_M_SCAT + BETA_M_ABS) * rho_m[..., None]
-            + _c3(BETA_OZONE) * rho_o[..., None])
+def _k(x, v):
+    return torch.full_like(x, v)
 
 
-def _scattering(h):
-    rho_r, rho_m, _ = _densities(h)
+def _extinction(h, fused: bool = True):
+    """[..., 3] extinction. fused: the JAX package's sum as XLA:CPU
+    contracts it in the LUT builders, fma(rho_o, beta_o, fma(rho_r,
+    beta_r, beta_m * rho_m)); else the sum's plain products."""
+    rho_r, rho_m, rho_o = _densities(h, fused)
+    if not fused:
+        return (_c3(BETA_R) * rho_r[..., None]
+                + (BETA_M_SCAT + BETA_M_ABS) * rho_m[..., None]
+                + _c3(BETA_OZONE) * rho_o[..., None])
+    shape = (*h.shape, 3)
+    m = ((BETA_M_SCAT + BETA_M_ABS) * rho_m)[..., None].expand(shape)
+    s = fma(rho_r[..., None].expand(shape), _c3(BETA_R).expand(shape), m)
+    return fma(rho_o[..., None].expand(shape), _c3(BETA_OZONE).expand(shape),
+               s)
+
+
+def _scattering(h, fused: bool = True):
+    rho_r, rho_m, _ = _densities(h, fused)
     return _c3(BETA_R) * rho_r[..., None] + BETA_M_SCAT * rho_m[..., None]
 
 
 def _dist_to_top(r, mu):
     disc = r * r * (mu * mu - 1.0) + R_TOP * R_TOP
-    return torch.clamp(-r * mu + torch.sqrt(torch.clamp(disc, min=0.0)),
+    return torch.clamp(-r * mu + sqrt_rn(torch.clamp(disc, min=0.0)),
                        min=0.0)
 
 
@@ -78,7 +116,7 @@ def _dist_to_ground(r, mu):
     """Distance to the ground, +inf where the ray misses it."""
     disc = r * r * (mu * mu - 1.0) + R_GROUND * R_GROUND
     hit = (disc >= 0.0) & (mu < 0.0)
-    d = -r * mu - torch.sqrt(torch.clamp(disc, min=0.0))
+    d = -r * mu - sqrt_rn(torch.clamp(disc, min=0.0))
     return torch.where(hit & (d > 0.0), d, math.inf)
 
 
@@ -86,18 +124,33 @@ _H_ATM = float(np.float32(math.sqrt(R_TOP ** 2 - R_GROUND ** 2)))
 
 
 def _uv_to_rmu(u, v):
+    """The transmittance LUT's (r, mu) at texel (u, v), with XLA:CPU's
+    contractions: d = fma(u, d_max - d_min, d_min) and mu's numerator
+    fma(-d, d, fma(-rho, rho, H^2)). mu's own fusion adds d_max = rho + H
+    in two roundings (rho has a second use there); the test d > 1e-6
+    runs in the step fusions, where d_max = fma(v, H, H). r = sqrt(rho^2
+    + R_ground^2) stays two roundings (XLA folds it to constants)."""
     rho = v * _H_ATM
-    r = torch.sqrt(rho * rho + R_GROUND * R_GROUND)
+    r = sqrt_rn(rho * rho + R_GROUND * R_GROUND)
     d_min = R_TOP - r
-    d_max = rho + _H_ATM
-    d = d_min + u * (d_max - d_min)
-    mu = torch.where(d > 1e-6, (_H_ATM * _H_ATM - rho * rho - d * d)
-                     / torch.clamp(2.0 * r * d, min=1e-9), 1.0)
+    d = fma(u, (rho + _H_ATM) - d_min, d_min)
+    d_test = fma(u, fma(v, _k(v, _H_ATM), _k(v, _H_ATM)) - d_min, d_min)
+    num = fma(-d, d, fma(-rho, rho, _k(rho, _H_ATM * _H_ATM)))
+    mu = torch.where(d_test > 1e-6,
+                     num / torch.clamp(2.0 * r * d, min=1e-9), 1.0)
     return r, torch.clamp(mu, -1.0, 1.0)
 
 
+def _dist_to_top_fma(r, mu):
+    """_dist_to_top as XLA:CPU contracts it in the LUT builders:
+    sqrt(fma(r^2, fma(mu, mu, -1), R_top^2)), then fma(-r, mu, .)."""
+    disc = fma(r * r, fma(mu, mu, _k(mu, -1.0)), _k(mu, R_TOP * R_TOP))
+    return torch.clamp(fma(-r, mu, sqrt_rn(torch.clamp(disc, min=0.0))),
+                       min=0.0)
+
+
 def _rmu_to_uv(r, mu):
-    rho = torch.sqrt(torch.clamp(r * r - R_GROUND * R_GROUND, min=0.0))
+    rho = sqrt_rn(torch.clamp(r * r - R_GROUND * R_GROUND, min=0.0))
     d = _dist_to_top(r, mu)
     d_min = R_TOP - r
     d_max = rho + _H_ATM
@@ -108,19 +161,32 @@ def _rmu_to_uv(r, mu):
 
 
 def build_transmittance() -> torch.Tensor:
-    """[T_H, T_W, 3] transmittance to the top of the atmosphere."""
+    """[T_H, T_W, 3] transmittance to the top of the atmosphere, bit for
+    bit the JAX package's on XLA:CPU: t = ts_i d a product, the march's
+    radius sqrt(fma(2 r mu, t, fma(t, t, r^2))), dt = d * 0.025 (XLA's
+    reciprocal of 1 / N_STEPS), the optical depth summed as fma(ext, dt,
+    od) after a first fma(ext_0, dt, ext_1 dt), and XLA's own exp."""
     vs, us = torch.meshgrid((torch.arange(T_H, dtype=F32) + 0.5) / T_H,
                             (torch.arange(T_W, dtype=F32) + 0.5) / T_W,
                             indexing="ij")
     r, mu = _uv_to_rmu(us, vs)
-    d = _dist_to_top(r, mu)
-    ts = (torch.arange(N_STEPS, dtype=F32) + 0.5) / N_STEPS
-    od = torch.zeros((*r.shape, 3))
+    d = _dist_to_top_fma(r, mu)
+    inv_n = float(np.float32(1.0 / N_STEPS))
+    ts = (torch.arange(N_STEPS, dtype=F32) + 0.5) * inv_n
+    dt = (d * inv_n)[..., None].expand(*d.shape, 3)
+    rr, r2mu = r * r, 2.0 * r * mu
+    od = None
     for i in range(N_STEPS):
         t = ts[i] * d
-        rad = torch.sqrt(r * r + t * t + 2.0 * r * mu * t)
-        od = od + _extinction(rad - R_GROUND) * (d / N_STEPS)[..., None]
-    return torch.exp(-od)
+        rad = sqrt_rn(fma(r2mu, t, fma(t, t, rr)))
+        ext = _extinction(rad - R_GROUND)
+        if i == 0:
+            ext0 = ext
+        elif i == 1:
+            od = fma(ext0, dt, ext * dt)
+        else:
+            od = fma(ext, dt, od)
+    return exp_xla(-od)
 
 
 def sample_transmittance(lut, r, mu):
@@ -132,7 +198,7 @@ def sample_transmittance(lut, r, mu):
 
 def _earth_lit(rad, mu_s):
     """1 where the planet does not shadow the sun at radius rad."""
-    return (mu_s > -torch.sqrt(torch.clamp(
+    return (mu_s > -sqrt_rn(torch.clamp(
         1.0 - (R_GROUND / rad) ** 2, min=0.0))).to(F32)
 
 
@@ -145,11 +211,48 @@ def _fibonacci_sphere(n: int) -> torch.Tensor:
                                      axis=-1).astype(np.float32))
 
 
+def _sample_transmittance_fused(lut, r, mu):
+    """sample_transmittance as XLA:CPU computes it inside the
+    multiple-scattering builder: the distance to the top contracted
+    (_dist_to_top_fma), rho's r^2 - R_ground^2 in two roundings."""
+    rho = sqrt_rn(torch.clamp(r * r - R_GROUND * R_GROUND, min=0.0))
+    d = _dist_to_top_fma(r, mu)
+    d_min = R_TOP - r
+    u = torch.clamp((d - d_min) / torch.clamp(rho + _H_ATM - d_min, min=1e-9),
+                    0.0, 1.0)
+    v = torch.clamp(rho / _H_ATM, 0.0, 1.0)
+    x = torch.clamp((u * T_W).to(torch.int64), 0, T_W - 1)
+    y = torch.clamp((v * T_H).to(torch.int64), 0, T_H - 1)
+    return lut[y, x]
+
+
+def _window_mean64(x):
+    """The mean over axis 1 (64 values) as XLA:CPU reduces it: two
+    32-wide windows summed in order, added, times 1/64. Returns (sum,
+    mean)."""
+    halves = []
+    for k in (0, 32):
+        acc = torch.zeros_like(x[:, 0])
+        for j in range(k, k + 32):
+            acc = acc + x[:, j]
+        halves.append(acc)
+    total = halves[0] + halves[1]
+    return total, total * (1.0 / 64.0)
+
+
 def build_multiscatter(tlut) -> torch.Tensor:
     """[MS_N, MS_N, 3] Psi_ms(r, mu_s): the radiance all scattering
     orders >= 2 add per unit scattering coefficient (isotropic
     approximation: the second order over the sphere and the geometric
-    transfer 1 / (1 - f_ms)). Rows: altitude; columns: mu_s."""
+    transfer 1 / (1 - f_ms)). Rows: altitude; columns: mu_s.
+
+    With XLA:CPU's sites of the JAX builder: the ray ends with a shared
+    r mu product (both distances live in one fusion), dt = t_end * 0.05,
+    the march's radius and local sun cosine as fmas, the optical depth
+    and the L2 / f_ms sums as fma(x, dt, sum) after a first fma(x_0, dt,
+    x_1 dt), the mean over directions as two 32-wide windows. Within
+    2.5e-7 of the JAX LUT: the back end leaves two colour channels'
+    ozone products unfused on an AVX-512 host (ROADMAP.md C.3)."""
     g = (torch.arange(MS_N, dtype=F32) + 0.5) / MS_N
     mu_s = 2.0 * g - 1.0
     r0 = R_GROUND + g * (R_TOP - R_GROUND) * 0.99 + 0.05
@@ -158,44 +261,61 @@ def build_multiscatter(tlut) -> torch.Tensor:
     mu_s = mu_s.reshape(-1)
     G = r.shape[0]
     dirs = _fibonacci_sphere(MS_DIRS)
-    mu_v = dirs[:, 1]
-    sin_s = torch.sqrt(torch.clamp(1.0 - mu_s * mu_s, min=0.0))
-    cos_vs = mu_s[:, None] * mu_v[None, :] + sin_s[:, None] * dirs[None, :, 2]
-    rg = r[:, None]
-    d_g = _dist_to_ground(rg, mu_v[None, :])
-    d_t = _dist_to_top(rg, mu_v[None, :])
-    hits_ground = torch.isfinite(d_g)
+    mu_v = dirs[:, 1][None, :].expand(G, MS_DIRS)
+    sin_s = sqrt_rn(torch.clamp(1.0 - mu_s * mu_s, min=0.0))
+    cos_vs = mu_s[:, None] * mu_v + sin_s[:, None] * dirs[None, :, 2]
+    rg = r[:, None].expand(G, MS_DIRS)
+    rr, rm = rg * rg, rg * mu_v
+    c = mu_v * mu_v - 1.0
+    disc_g = fma(rr, c, _k(rr, R_GROUND * R_GROUND))
+    d_g = -rm - sqrt_rn(torch.clamp(disc_g, min=0.0))
+    hits_ground = (disc_g >= 0.0) & (mu_v < 0.0) & (d_g > 0.0)
+    d_t = torch.clamp(
+        -rm + sqrt_rn(torch.clamp(fma(rr, c, _k(rr, R_TOP * R_TOP)),
+                                  min=0.0)), min=0.0)
     t_end = torch.where(hits_ground, d_g, d_t)
-    dt = t_end / MS_STEPS
-    od = torch.zeros((G, MS_DIRS, 3))
-    L2 = torch.zeros((G, MS_DIRS, 3))
-    fms = torch.zeros((G, MS_DIRS, 3))
+    dt = (t_end * float(np.float32(1.0 / MS_STEPS)))[..., None].expand(
+        G, MS_DIRS, 3)
     p_u = 1.0 / (4.0 * math.pi)
+    rms = rg * mu_s[:, None]
     for i in range(MS_STEPS):
         t = (i + 0.5) / MS_STEPS * t_end
-        rad = torch.sqrt(rg * rg + t * t + 2.0 * rg * mu_v[None, :] * t)
+        rad = sqrt_rn(fma(2.0 * rg * mu_v, t, fma(t, t, rr)))
         h = rad - R_GROUND
-        od = od + _extinction(h) * dt[..., None]
-        t_view = torch.exp(-od)
-        sig_s = _scattering(h)
-        mu_sx = torch.clamp((rg * mu_s[:, None] + t * cos_vs) / rad,
-                            -1.0, 1.0)
-        t_sun = sample_transmittance(tlut, rad, mu_sx)
+        ext = _extinction(h)
+        rho_r, rho_m, _ = _densities(h)
+        sig_s = fma(rho_r[..., None].expand_as(ext),
+                    _c3(BETA_R).expand_as(ext),
+                    (BETA_M_SCAT * rho_m)[..., None].expand_as(ext))
+        mu_sx = torch.clamp(fma(t, cos_vs, rms) / rad, -1.0, 1.0)
+        t_sun = _sample_transmittance_fused(tlut, rad, mu_sx)
         lit = _earth_lit(rad, mu_sx)
-        L2 = L2 + t_view * sig_s * p_u * t_sun * lit[..., None] \
-            * dt[..., None]
-        fms = fms + t_view * sig_s * dt[..., None]
+        if i == 0:
+            od = ext * dt
+        elif i == 1:
+            od = fma(ext0, dt, ext * dt)
+        else:
+            od = fma(ext, dt, od)
+        t_view = exp_xla(-od)
+        xf = t_view * sig_s
+        xl = xf * p_u * t_sun * lit[..., None]
+        if i == 0:
+            ext0, xf0, xl0 = ext, xf, xl
+        elif i == 1:
+            fms, L2 = fma(xf0, dt, xf * dt), fma(xl0, dt, xl * dt)
+        else:
+            fms, L2 = fma(xf, dt, fms), fma(xl, dt, L2)
     rad_g = torch.full_like(t_end, R_GROUND)
-    mu_sg = torch.clamp((rg * mu_s[:, None] + t_end * cos_vs) / rad_g,
-                        -1.0, 1.0)
+    mu_sg = torch.clamp((rms + t_end * cos_vs) / rad_g, -1.0, 1.0)
     t_sun_g = sample_transmittance(tlut, rad_g, mu_sg)
     L2 = L2 + torch.where(
         hits_ground[..., None],
-        torch.exp(-od) * (GROUND_ALBEDO / math.pi)
+        exp_xla(-od) * (GROUND_ALBEDO / math.pi)
         * torch.clamp(mu_sg, min=0.0)[..., None] * t_sun_g, 0.0)
-    L2 = L2.mean(1)
-    fms = fms.mean(1)
-    psi = L2 / torch.clamp(1.0 - fms, min=1e-3)
+    _, L2 = _window_mean64(L2)
+    f_sum, _ = _window_mean64(fms)
+    psi = L2 / torch.clamp(fma(-f_sum, _k(f_sum, 1.0 / 64.0),
+                               torch.ones_like(f_sum)), min=1e-3)
     return psi.reshape(MS_N, MS_N, 3)
 
 
@@ -226,22 +346,20 @@ def build_irradiance(tlut, ms_lut) -> torch.Tensor:
     nth, nph = 8, 16
     u1 = (torch.arange(nth, dtype=F32) + 0.5) / nth
     u2 = (torch.arange(nph, dtype=F32) + 0.5) / nph
-    ct = torch.sqrt(u1)
-    st = torch.sqrt(1.0 - u1)
+    ct = sqrt_rn(u1)
+    st = sqrt_rn(1.0 - u1)
     phi = 2.0 * math.pi * u2
     dirs = torch.stack(torch.broadcast_tensors(
         st[:, None] * torch.cos(phi)[None, :],
         ct[:, None] * torch.ones((1, nph)),
         st[:, None] * torch.sin(phi)[None, :]), -1).reshape(-1, 3)
     luts = AtmosphereLUTs(transmittance=tlut, multiscatter=ms_lut)
-    indirect = []
-    for mu in mu_s:
-        sun = torch.stack([0.0 * mu, mu,
-                           torch.sqrt(torch.clamp(1.0 - mu * mu, min=0.0))])
-        L = _sky_march(luts, dirs, sun, R_GROUND + 0.01, n_steps=12,
-                       ground_albedo=0.0)
-        indirect.append(math.pi * L.mean(0))
-    return direct + torch.stack(indirect)
+    # every sun cosine's march at once (the JAX package vmaps it)
+    sun = torch.stack([0.0 * mu_s, mu_s,
+                       sqrt_rn(torch.clamp(1.0 - mu_s * mu_s, min=0.0))], -1)
+    L = _sky_march(luts, dirs.expand(IR_W, -1, -1), sun[:, None, :],
+                   R_GROUND + 0.01, n_steps=12, ground_albedo=0.0)
+    return direct + math.pi * L.mean(1)
 
 
 def sample_irradiance(ir_lut, mu_s):
@@ -265,18 +383,29 @@ def _phase_rayleigh(c):
 def _phase_mie(c, g=MIE_G):
     g2 = g * g
     return (3.0 / (8.0 * math.pi) * (1.0 - g2) * (1.0 + c * c)
-            / ((2.0 + g2) * torch.pow(1.0 + g2 - 2.0 * g * c, 1.5)))
+            / ((2.0 + g2) * powf_libm(1.0 + g2 - 2.0 * g * c, 1.5)))
+
+
+def _sum3(v):
+    """The last axis's three values summed in order, as XLA reduces
+    them."""
+    return (v[..., 0] + v[..., 1]) + v[..., 2]
 
 
 def _sky_march(luts: AtmosphereLUTs, view_dir, sun_dir, r0,
-               n_steps: int = 24, ground_albedo: float = GROUND_ALBEDO):
+               n_steps: int = 24, ground_albedo: float = GROUND_ALBEDO,
+               fused: bool = True):
     """Sky radiance per unit sun irradiance for view dirs [R,3] from
     radius r0 (y up): single scattering with the real phases, Psi_ms
     multiple scattering per step, the transmitted ground bounce for rays
-    that hit the planet."""
+    that hit the planet. fused=False rounds as the JAX package's eager
+    sky bake does, op by op (XLA's exp, the C library's powf, correctly
+    rounded sqrt); fused=True takes the LUT builders' contractions of the
+    densities, which build_irradiance's march runs under jit (its other
+    sites are not matched: ROADMAP.md C.3)."""
     mu = view_dir[..., 1]
-    cos_vs = (view_dir * sun_dir).sum(-1)
-    mu_s0 = sun_dir[1]
+    cos_vs = _sum3(view_dir * sun_dir)
+    mu_s0 = sun_dir[..., 1]
     d_g = _dist_to_ground(r0, mu)
     hits_ground = torch.isfinite(d_g)
     d = torch.where(hits_ground, d_g, _dist_to_top(r0, mu))
@@ -287,11 +416,11 @@ def _sky_march(luts: AtmosphereLUTs, view_dir, sun_dir, r0,
     dt = d / n_steps
     for i in range(n_steps):
         t = (i + 0.5) / n_steps * d
-        rad = torch.sqrt(r0 * r0 + t * t + 2.0 * r0 * mu * t)
+        rad = sqrt_rn(r0 * r0 + t * t + 2.0 * r0 * mu * t)
         h = rad - R_GROUND
-        rho_r, rho_m, _ = _densities(h)
-        od = od + _extinction(h) * dt[..., None]
-        t_view = torch.exp(-od)
+        rho_r, rho_m, _ = _densities(h, fused)
+        od = od + _extinction(h, fused) * dt[..., None]
+        t_view = exp_xla(-od)
         mu_s = torch.clamp((r0 * mu_s0 + t * cos_vs) / rad, -1.0, 1.0)
         t_sun = sample_transmittance(luts.transmittance, rad, mu_s)
         lit = _earth_lit(rad, mu_s)
@@ -299,7 +428,7 @@ def _sky_march(luts: AtmosphereLUTs, view_dir, sun_dir, r0,
                 + BETA_M_SCAT * (ph_m * rho_m)[..., None])
         step_L = scat * lit[..., None] * t_sun
         if luts.multiscatter is not None:
-            step_L = step_L + _scattering(h) * sample_multiscatter(
+            step_L = step_L + _scattering(h, fused) * sample_multiscatter(
                 luts.multiscatter, rad, mu_s)
         L = L + t_view * step_L * dt[..., None]
     if ground_albedo > 0.0:
@@ -311,7 +440,7 @@ def _sky_march(luts: AtmosphereLUTs, view_dir, sun_dir, r0,
                 luts.transmittance, torch.full_like(mu_sg, R_GROUND + 0.01),
                 mu_sg) * torch.clamp(mu_sg, min=0.0)[..., None]
         L = L + torch.where(hits_ground[..., None],
-                            torch.exp(-od) * (ground_albedo / math.pi) * e_g,
+                            exp_xla(-od) * (ground_albedo / math.pi) * e_g,
                             0.0)
     return L
 
@@ -322,8 +451,8 @@ def sky_radiance(luts: AtmosphereLUTs, view_dir, sun_dir,
     """Sky radiance for view directions [R,3] (every scattering order with
     `luts.multiscatter`, else single scattering)."""
     return _sky_march(luts, view_dir, sun_dir, R_GROUND + altitude_km,
-                      n_steps=n_steps,
-                      ground_albedo=ground_albedo) * sun_irradiance
+                      n_steps=n_steps, ground_albedo=ground_albedo,
+                      fused=False) * sun_irradiance
 
 
 def bake_sky_env(sun_dir=(0.3, 0.4, 0.2), h: int = 64, w: int = 128,
@@ -344,12 +473,16 @@ def bake_sky_env(sun_dir=(0.3, 0.4, 0.2), h: int = 64, w: int = 128,
                             indexing="ij")
     theta = math.pi * ys
     phi = 2.0 * math.pi * xs
-    d = torch.stack([torch.sin(theta) * torch.cos(phi), torch.cos(theta),
-                     torch.sin(theta) * torch.sin(phi)], -1).reshape(-1, 3)
+    # sin and cos rounded once from float64: closer to XLA's than torch's
+    # float32 kernels (neither is XLA's own, ROADMAP.md C.3)
+    sin, cos = (lambda x: torch.sin(x.double()).float(),
+                lambda x: torch.cos(x.double()).float())
+    d = torch.stack([sin(theta) * cos(phi), cos(theta),
+                     sin(theta) * sin(phi)], -1).reshape(-1, 3)
     if luts is None:
         luts = build_luts()
     L = sky_radiance(luts, d, sd_t, sun_irradiance=sun_irradiance)
-    cos_sun = (d * sd_t).sum(-1)
+    cos_sun = _sum3(d * sd_t)
     t_sun = sample_transmittance(
         luts.transmittance, torch.full(d.shape[:1], R_GROUND + 0.2),
         cos_sun * 0 + float(sd[1]))

@@ -4,9 +4,11 @@ Port of `truetrace_tpu/scene/mesh.py` for the single-BLAS CWBVH scene:
 numpy in, a `Scene` of tensors on `device` out. The tables are bitwise
 equal to the JAX package's (tests/test_torch_scene.py), the texture
 atlas and per-triangle texture LOD included (tests/test_torch_sponza.py).
-A terrain (scene/terrain.py) rides along on the scene. Presplit, the
-on-disk build cache, the MXU brute-force tables and heat-ordered leaf
-rows are not ported and raise.
+A terrain (scene/terrain.py) rides along on the scene. Presplit
+(build/presplit.py), the on-disk build cache (scene/build_cache.py, whose
+entries either package can read) and heat-ordered leaf rows are the JAX
+package's too (tests/test_torch_build_opts.py); the MXU brute-force
+tables are not ported.
 """
 from __future__ import annotations
 
@@ -247,38 +249,76 @@ def compile_scene(meshes: List[HostMesh], mats: List[HostMaterial],
     leaf_k: triangles per CWBVH leaf row (any K; rows are 10K words).
     None picks the JAX package's rule (6 up to 400k triangles, else 12),
     so both packages build the same scene; the port's own default on the
-    H100 is open (ROADMAP.md)."""
-    if cache_dir is not None:
-        raise NotImplementedError("compile_scene(cache_dir=...) is not "
-                                  "ported yet (ROADMAP.md A.18)")
-    if presplit > 0.0 or hot_order:
-        raise NotImplementedError("presplit / hot_order builds are not "
-                                  "ported yet (ROADMAP.md A.18)")
+    H100 is open (ROADMAP.md).
+
+    cache_dir: directory of the on-disk build cache (scene/build_cache.py);
+    None reads the TRUETRACE_BUILD_CACHE environment variable, and unset
+    means no cache. presplit > 0 bisects triangles whose AABB half-area
+    exceeds `presplit` x the scene mean before the build
+    (build/presplit.py). hot_order places the leaf-row groups of the
+    hottest nodes first (cwbvh_wavefront.reorder_leaf_rows_hot)."""
     if not with_cwbvh:
         raise NotImplementedError("the port traverses the CWBVH only: "
                                   "pass with_cwbvh=True (ROADMAP.md A.19)")
     tris = flatten_meshes(meshes)
+    if presplit > 0.0:
+        from truetrace_tpu_torch.build.presplit import presplit_triangles
+        tris = presplit_triangles(tris, max_ratio=presplit)
     tri_box = aabb_ops.from_tris(
         tris["p0"], tris["p0"] + tris["e1"], tris["p0"] + tris["e2"])
     if leaf_k is None:
         leaf_k = 6 if tris["p0"].shape[0] <= 400_000 else 12
 
-    # CWBVH collapse needs BVH2 leaves with <= leaf_k prims
-    bvh = build_bvh2(tri_box, max_leaf=leaf_k, sah_leaf_cap=leaf_k)
-    perm = bvh.order
-    for key in ("p0", "e1", "e2", "n", "uv", "tan", "mat"):
-        tris[key] = tris[key][perm]
-    from truetrace_tpu_torch.build.cwbvh import build_cwbvh
-    cw = build_cwbvh(bvh, tri_box[perm], p_max=leaf_k)
-    # re-permute triangles into CWBVH emit order; remap BVH2 leaf starts
-    for key in ("p0", "e1", "e2", "n", "uv", "tan", "mat"):
-        tris[key] = tris[key][cw.tri_index]
-    leaf = bvh.count > 0
-    bvh.left[leaf] = cw.leaf_start[leaf]
-    from truetrace_tpu_torch.kernels.cwbvh_wavefront import pack_leaf_rows
-    nodes2, rows = pack_leaf_rows(
-        cw.nodes, cw.slot_tri_base, cw.slot_tri_count,
-        tris["p0"], tris["e1"], tris["e2"], k=leaf_k)
+    from truetrace_tpu_torch.scene import build_cache as _bc
+    if cache_dir is None:
+        cache_dir = _bc.default_cache_dir()
+    cache_key = cached = new_products = None
+    if cache_dir is not None:
+        cache_key = _bc.scene_build_key(tris, mats, leaf_k, with_light_bvh,
+                                        hot_order=hot_order)
+        cached = _bc.load_build(cache_dir, cache_key)
+
+    if cached is not None:
+        full_perm = cached["full_perm"]
+        for key in ("p0", "e1", "e2", "n", "uv", "tan", "mat"):
+            tris[key] = tris[key][full_perm]
+        bvh_box, bvh_left, bvh_count = (cached["bvh2_box"],
+                                        cached["bvh2_left"],
+                                        cached["bvh2_count"])
+        nodes2, tri_index, rows = (cached["cw_nodes"],
+                                   cached["cw_tri_index"],
+                                   cached["cw_leaf_rows"])
+        cw_stack = int(cached["cw_stack"])
+    else:
+        # CWBVH collapse needs BVH2 leaves with <= leaf_k prims
+        bvh = build_bvh2(tri_box, max_leaf=leaf_k, sah_leaf_cap=leaf_k)
+        perm = bvh.order
+        for key in ("p0", "e1", "e2", "n", "uv", "tan", "mat"):
+            tris[key] = tris[key][perm]
+        from truetrace_tpu_torch.build.cwbvh import build_cwbvh
+        cw = build_cwbvh(bvh, tri_box[perm], p_max=leaf_k)
+        # re-permute triangles into CWBVH emit order; remap BVH2 leaf starts
+        for key in ("p0", "e1", "e2", "n", "uv", "tan", "mat"):
+            tris[key] = tris[key][cw.tri_index]
+        leaf = bvh.count > 0
+        bvh.left[leaf] = cw.leaf_start[leaf]
+        from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
+            pack_leaf_rows, reorder_leaf_rows_hot)
+        nodes2, rows = pack_leaf_rows(
+            cw.nodes, cw.slot_tri_base, cw.slot_tri_count,
+            tris["p0"], tris["e1"], tris["e2"], k=leaf_k)
+        if hot_order:
+            nodes2, rows = reorder_leaf_rows_hot(nodes2, rows)
+        bvh_box, bvh_left, bvh_count = bvh.box, bvh.left, bvh.count
+        tri_index = cw.tri_index
+        cw_stack = int(cw.depth) + 1
+        if cache_key is not None:
+            new_products = dict(
+                full_perm=perm[cw.tri_index].astype(np.int32),
+                bvh2_box=bvh.box, bvh2_left=bvh.left, bvh2_count=bvh.count,
+                cw_nodes=nodes2, cw_tri_index=cw.tri_index,
+                cw_leaf_rows=rows, cw_stack=np.int32(cw_stack),
+                bvh2_depth=np.int32(bvh.depth))
 
     light_tris = _emissive_light_tris(tris, mats, device)
     tri_lod = texture_lod(tris, mats, atlas_rects)
@@ -290,25 +330,34 @@ def compile_scene(meshes: List[HostMesh], mats: List[HostMaterial],
                  lbvh_pairs=np.zeros((0, 26), np.float32),
                  lbvh_pair_children=np.zeros((0, 2), np.int32))
     if with_light_bvh and int(light_tris.tri_index.shape[0]) > 1:
-        from truetrace_tpu_torch.build.lightbvh import (
-            build_cut, build_light_bvh, build_pairs)
-        lb = build_light_bvh(tris, light_tris.tri_index.cpu().numpy(),
-                             light_tris.power.cpu().numpy())
-        pairs, pair_children = build_pairs(lb.nodes, lb.info)
-        cut = build_cut(lb)
-        lb_np = dict(lbvh_nodes=lb.nodes, lbvh_info=lb.info,
-                     lbvh_prim=lb.prim, lbvh_trail=lb.trail,
-                     lbvh_pairs=pairs, lbvh_pair_children=pair_children,
-                     lcut_bounds=cut.bounds, lcut_link=cut.link,
-                     lcut_node_ids=cut.node_ids, lcut_of_light=cut.of_light,
-                     lcut_skip=cut.skip)
+        lcut_keys = ("lcut_bounds", "lcut_link", "lcut_node_ids",
+                     "lcut_of_light", "lcut_skip")
+        if cached is not None and "lbvh_nodes" in cached:
+            lb_np = {k: cached[k] for k in tuple(lb_np) + lcut_keys}
+        else:
+            from truetrace_tpu_torch.build.lightbvh import (
+                build_cut, build_light_bvh, build_pairs)
+            lb = build_light_bvh(tris, light_tris.tri_index.cpu().numpy(),
+                                 light_tris.power.cpu().numpy())
+            pairs, pair_children = build_pairs(lb.nodes, lb.info)
+            cut = build_cut(lb)
+            lb_np = dict(lbvh_nodes=lb.nodes, lbvh_info=lb.info,
+                         lbvh_prim=lb.prim, lbvh_trail=lb.trail,
+                         lbvh_pairs=pairs, lbvh_pair_children=pair_children,
+                         lcut_bounds=cut.bounds, lcut_link=cut.link,
+                         lcut_node_ids=cut.node_ids,
+                         lcut_of_light=cut.of_light, lcut_skip=cut.skip)
+            if new_products is not None:
+                new_products.update(lb_np)
+    if new_products is not None:
+        _bc.save_build(cache_dir, cache_key, new_products)
 
     tint = shadow_tint_table(mats, tris["mat"])
     d = dict(
         tri_p0=tris["p0"], tri_e1=tris["e1"], tri_e2=tris["e2"],
         tri_n=tris["n"], tri_uv=tris["uv"], tri_tan=tris["tan"],
-        tri_mat=tris["mat"], bvh2_box=bvh.box, bvh2_left=bvh.left,
-        bvh2_count=bvh.count, cw_nodes=nodes2, cw_tri_index=cw.tri_index,
+        tri_mat=tris["mat"], bvh2_box=bvh_box, bvh2_left=bvh_left,
+        bvh2_count=bvh_count, cw_nodes=nodes2, cw_tri_index=tri_index,
         cw_leaf_rows=rows,
         atlas=np.asarray(atlas, np.float32) if atlas is not None
         else np.zeros((1, 1, 4), np.float32),
@@ -317,7 +366,7 @@ def compile_scene(meshes: List[HostMesh], mats: List[HostMaterial],
         atlas_level_y=np.asarray(atlas_level_y, np.int32)
         if atlas_level_y is not None else np.zeros((1,), np.int32),
         tri_lod=tri_lod,
-        tri_shadow=tint, cw_stack=int(cw.depth) + 1,
+        tri_shadow=tint, cw_stack=cw_stack,
         has_media=any(m.spec_trans > 0.0 and m.thin < 0.5 for m in mats),
         **lb_np)
     scene = Scene.from_parts(

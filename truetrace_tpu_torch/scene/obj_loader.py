@@ -6,10 +6,9 @@ geometry through Unity, ParentObject.LoadData,
 Objects/ParentObject.cs:452-635). `_parse_mtl` and `load_obj` are the JAX
 package's numpy code; `load_obj_scene` decodes textures with the port's
 own PNG codec (scene/png.py) in place of Pillow, with the same result as
-Pillow's convert("RGBA"). Not ported, and raising: `auto_pair`
-(scene/material_rules.py, ROADMAP.md A.18), textures wider than `max_tex`
-(a Pillow bicubic resize in the JAX package, ROADMAP.md A.18) and
-texture files other than PNG.
+Pillow's convert("RGBA"), and halves a texture wider than `max_tex` with
+the port's copy of Pillow's bicubic resize (scene/resize.py). Texture
+files other than PNG raise (ROADMAP.md A.27).
 """
 from __future__ import annotations
 
@@ -235,17 +234,19 @@ def load_obj_scene(path: str, scale: float = 1.0, max_tex: int = 1024,
     (None, None, None) when no texture resolves. A texture file that is
     missing is skipped, as in the JAX package; one that is present but
     cannot be read raises."""
-    if auto_pair:
-        raise NotImplementedError(
-            "load_obj_scene(auto_pair=True): the naming-convention material "
-            "pairing (scene/material_rules.py) is not ported yet "
-            "(ROADMAP.md A.18)")
     from truetrace_tpu_torch.scene.atlas import AtlasBuilder
-    from truetrace_tpu_torch.scene.png import read_png, to_rgba
+    from truetrace_tpu_torch.scene.png import read_texture
+    from truetrace_tpu_torch.scene.resize import halve_to_fit
 
     tex_paths: Dict[str, dict] = {}
     meshes, mats, names = load_obj(path, scale, _tex_paths=tex_paths,
                                    _return_names=True)
+    if auto_pair:
+        # naming-convention pairing for foreign assets with no manifest
+        # (reference MaterialMappings.xml; scene/material_rules.py)
+        from truetrace_tpu_torch.scene.material_rules import (
+            auto_pair as _ap)
+        mats = _ap(names, mats, rules)
     builder = AtlasBuilder()
     cache: Dict[str, Optional[int]] = {}
     out_mats: List[HostMaterial] = []
@@ -255,18 +256,8 @@ def load_obj_scene(path: str, scale: float = 1.0, max_tex: int = 1024,
             if tp not in cache:
                 tid = None
                 if os.path.exists(tp):
-                    if not tp.lower().endswith(".png"):
-                        raise NotImplementedError(
-                            f"{tp}: only PNG textures are read "
-                            f"(ROADMAP.md A.18)")
-                    im = to_rgba(read_png(tp))
-                    if max(im.shape[:2]) > max_tex:
-                        raise NotImplementedError(
-                            f"{tp}: {im.shape[1]}x{im.shape[0]} is larger "
-                            f"than max_tex={max_tex}; the downscale (a "
-                            f"bicubic resize) is not ported yet "
-                            f"(ROADMAP.md A.18)")
-                    tid = builder.add(im)
+                    tid = builder.add(halve_to_fit(read_texture(tp),
+                                                   max_tex))
                 cache[tp] = tid
             if cache[tp] is not None:
                 fields[field] = cache[tp]

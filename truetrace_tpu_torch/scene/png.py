@@ -89,7 +89,16 @@ def read_png(path: str) -> np.ndarray:
     """Decode a PNG file -> uint8 [H, W, C], C = 1 (grey), 2 (grey +
     alpha), 3 (RGB) or 4 (RGBA)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def is_png(data: bytes) -> bool:
+    return data[:8] == _SIG
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """`read_png` of a PNG file's bytes (an embedded glTF image);
+    `path` names it in errors."""
     if data[:8] != _SIG:
         raise ValueError(f"{path}: not a PNG file")
     head, idat = None, []
@@ -128,6 +137,17 @@ def to_rgba(img: np.ndarray) -> np.ndarray:
     alpha = img[..., c - 1:] if c in (2, 4) else np.full(
         img.shape[:2] + (1,), 255, np.uint8)
     return np.ascontiguousarray(np.concatenate([rgb, alpha], -1))
+
+
+def read_texture(path: str) -> np.ndarray:
+    """A texture file as uint8 RGBA [H, W, 4]. The port reads PNG only:
+    another format raises NotImplementedError, and a PNG it cannot decode
+    raises ValueError (the JAX loaders decode with Pillow and drop a file
+    that fails)."""
+    if not path.lower().endswith(".png"):
+        raise NotImplementedError(
+            f"{path}: only PNG textures are read (ROADMAP.md A.27)")
+    return to_rgba(read_png(path))
 
 
 def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
