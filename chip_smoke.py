@@ -136,7 +136,23 @@ Phases, each of which raises on a failed check:
    the frame's rays and one eager frame bit for bit the node-major
    build's; compile_scene(presplit=16)'s frame against the unsplit one;
    the manifest scene as phase 3's frames ("sources"), inspected, and
-   ranked by interleaved_ab; the OBJ loaded at max_tex=128 rendering.
+   ranked by interleaved_ab; the OBJ loaded at max_tex=128 rendering;
+12. the JAX package's default configuration (run beside phase 10, on
+   the same atrium's meshes): compile_scene's defaults (the BVH2 alone,
+   293,176 triangles, leaves of max_leaf = 4) and traversal="bvh2"
+   through csrc/traverse_bvh2.cu: the closest and any hits bit for bit
+   their plain versions on every bounce's rays of the default-build
+   frame (bounce 0 timed and bounded from the plain version's counted
+   work) and on a CWBVH build's BVH2 (leaves of 6); bench.py's ray mix
+   through the BVH2 kernel beside traverse.cu's Mrays/s on the CWBVH
+   build; the frame (BVH2_FRAME: 512x512x4, Disney, power-CDF NEE, SVGF)
+   as phase 3's frames (timed eager frames with their launch counts,
+   sync-free frames, the profile, the CUDA graphs bit for bit); and with
+   the defaults, tests/test_cornell.py's checks (phase 5),
+   tests/test_golden.py's two independent stacks on sponza_like (the
+   CWBVH kernel with the light tree against the BVH2 kernel with the
+   power CDF; phase 4) and tests/test_diff.py's finite-difference gates
+   (phase 10).
 
 It prints the card line, one JSON line of kernel results (time, plain
 time, bound and what sets it, launches per frame, ptxas registers,
@@ -147,7 +163,7 @@ kernel's launches, time and bound on the sponza_like path, under
 "recur", "composed_asvgf", "glass", "post", "interactive", "neural",
 "forest", "tinted", "animated" (where the traversal rows also hold
 the K = 3 kernels' times and bounds on the animated frame's rays),
-"sources", "grad" and "train"; under
+"sources", "bvh2", "grad" and "train"; under
 "frames" each
 path's eager and replayed frame times, device busy, kernel counts and
 host copies, and the composed frame's cache numbers and gates), and as
@@ -195,6 +211,7 @@ SPONZA_TRIS = 269260
 GOLDEN_SKY = dict(sun_dir=(0.3, 0.85, 0.44), sun_intensity=25.0,
                   sun_angle_deg=18.0)
 NEE_SPP, BSDF_SPP = 1024, 16384
+GOLDEN_SPP = 256        # phase_sponza_stacks' samples a pixel a stack
 NEE_RTOL, NEE_ATOL = 0.06, 5e-3
 # the bracket check at 3 bounces allows each end this many standard
 # errors of the difference of the two means (Monte Carlo noise only)
@@ -210,6 +227,11 @@ OPS_NODE = 216   # cwbvh_core decode_row: 8 slots x (3 axes x 8 + 3)
 OPS_TRI = 53     # cwbvh_core tri_test: 6 msub/dot3 (27), 3 scalings,
                  # 3 subs, rcp + floor, 8 compares and sums
 OPS_TINT = 3     # the three products of a tinted triangle (transmittance)
+OPS_BOX = 25     # traverse_bvh2.cu slab: 3 axes x (2 subs, 2 muls, min,
+                 # max), 2 + 2 for t_near / t_far, max with 0, 2 compares
+OPS_TRI_BVH2 = 58   # traverse_bvh2.cu triangle: 2 crosses (18), 4 dots of
+                    # 3 fmas (24), 3 subs, |det|, compare and rcp, 3
+                    # scalings, u + v, 6 compares
 OPS_ATROUS_PX = 740   # the plain pass per pixel: 24 weighted taps x 29,
                       # centre tap, prefilter, sigmas, normalisation
 ATROUS_STEPS = (1, 2, 4, 8, 16)   # svgf_denoise's five passes
@@ -435,9 +457,11 @@ def phase_atrous_frame(results, r, state, label: str):
     return color, var, normal, depth
 
 
-def bench_rays(scene, cam, R):
+def bench_rays(scene, cam, R, closest=None):
     """bench.py's mix: primary camera rays, cosine bounce rays from the
-    primary hits (t_max 1e30) and shadow rays along them (t_max 25)."""
+    primary hits (t_max 1e30) and shadow rays along them (t_max 25). The
+    primary hits come from closest(ro, rd) (a Hit), else from the CWBVH
+    kernel."""
     import torch
     from truetrace_tpu_torch.core import rng
     from truetrace_tpu_torch.core.math import (
@@ -450,8 +474,11 @@ def bench_rays(scene, cam, R):
     jit2 = rng.uniform2(pix, 0, 0)
     ro_p, rd_p = camera_rays(cam, 1 << 10, R >> 10, pix, jit2)
     ro_p, rd_p = ro_p.contiguous(), rd_p.contiguous()
-    h = closest_hit_wavefront(scene.cw_table(), scene.cw_nodes.shape[0],
-                              ro_p, rd_p, 1e30, scene.cw_stack)
+    if closest is None:
+        h = closest_hit_wavefront(scene.cw_table(), scene.cw_nodes.shape[0],
+                                  ro_p, rd_p, 1e30, scene.cw_stack)
+    else:
+        h = closest(ro_p, rd_p)
     p_hit = ro_p + rd_p * h.t[:, None]
     u2 = rng.uniform2(pix, 1, 3)
     gn = torch.zeros((R, 3), device=dev)
@@ -750,7 +777,7 @@ def make_renderer(scene, cam, cfg: dict):
 def launch_counters():
     from truetrace_tpu_torch.kernels import atrous_pallas, cwbvh_wavefront
     from truetrace_tpu_torch.kernels import cwbvh_tlas, heightmap
-    from truetrace_tpu_torch.kernels import step_pallas
+    from truetrace_tpu_torch.kernels import step_pallas, traverse_ref
     return {"closest_hit_wavefront": cwbvh_wavefront.closest_hit_wavefront,
             "any_hit_wavefront": cwbvh_wavefront.any_hit_wavefront,
             "transmit_wavefront": cwbvh_wavefront.transmit_wavefront,
@@ -760,7 +787,9 @@ def launch_counters():
             "any_hit_tlas": cwbvh_tlas.any_hit_tlas,
             "transmit_tlas": cwbvh_tlas.transmit_tlas,
             "heightmap_closest": heightmap.heightmap_closest,
-            "heightmap_any": heightmap.heightmap_any}
+            "heightmap_any": heightmap.heightmap_any,
+            "closest_hit_bvh2": traverse_ref.closest_hit_bvh2,
+            "any_hit_bvh2": traverse_ref.any_hit_bvh2}
 
 
 def phase_frame(results, scene, cam, label: str, cfg: dict = FRAME):
@@ -884,7 +913,8 @@ def phase_profile(r, state, frame=None, label: str = "frame"):
     busy = sum(dev_us(e) for e in kernels) / 1e3
     n = sum(e.count for e in kernels)
     of = lambda name: sum(dev_us(e) for e in kernels if name in e.key) / 1e3
-    trav, atr = of("traverse_kernel") + of("tlas_kernel"), of("atrous_")
+    trav = of("traverse_kernel") + of("tlas_kernel") + of("bvh2_kernel")
+    atr = of("atrous_")
     march = of("heightmap_kernel")
     # the radiance cache's sums: index_put_'s sort path (a radix sort of
     # the slots, then one segmented sum a slot)
@@ -3997,6 +4027,56 @@ def phase_cornell():
     check(top > 1.0, "light not bright")
     check(img.mean() > 0.01, "image too dark")
     check(nee_rel < 0.12, "NEE and BSDF-only renders disagree")
+    phase_cornell_defaults(meshes, mats, cg)
+
+
+def phase_cornell_defaults(meshes, mats, cam):
+    """tests/test_cornell.py's checks on the card with the JAX package's
+    defaults, compile_scene(meshes, mats) (the BVH2 alone) and
+    RenderConfig()'s traversal="bvh2", Lambert and power-CDF NEE, at the
+    test's sizes: 36 triangles and 2 emitters; a 64x64 frame at 3 bounces
+    and 8 spp finite, lit, its light visible and the top no darker than
+    half the bottom; at 32 spp the left wall red and the right green; and
+    NEE + MIS (192 spp) against BSDF-only (1024 spp) at 32x32 and 4
+    bounces, channel means within rtol 0.12. The BVH2 kernels run."""
+    from truetrace_tpu_torch.integrate.pathtrace import RenderConfig, render
+    from truetrace_tpu_torch.kernels import traverse_ref
+    from truetrace_tpu_torch.scene.mesh import compile_scene
+    sc = compile_scene(meshes, mats, device=DEVICE)
+    check(sc.n_tris() == 36 and sc.light_tris.tri_index.shape[0] == 2
+          and sc.cw_nodes.shape[0] == 0, "cornell default build")
+    n0 = (traverse_ref.closest_hit_bvh2.launches,
+          traverse_ref.any_hit_bvh2.launches)
+    check(RenderConfig().traversal == "bvh2", "RenderConfig's default")
+    img = render(sc, cam, RenderConfig(width=64, height=64, bounces=3),
+                 spp=8).cpu().numpy()
+    top, bottom = float(img[:12].mean()), float(img[-12:].mean())
+    bleed = render(sc, cam, RenderConfig(width=64, height=64, bounces=3),
+                   spp=32).cpu().numpy()
+    mid = bleed[24:40]
+    left = mid[:, 4:14].mean(axis=(0, 1))
+    right = mid[:, 50:60].mean(axis=(0, 1))
+    m_nee = render(sc, cam, RenderConfig(width=32, height=32, bounces=4),
+                   spp=192).cpu().numpy().mean(axis=(0, 1))
+    m_pt = render(sc, cam, RenderConfig(width=32, height=32, bounces=4,
+                                        use_nee=False),
+                  spp=1024).cpu().numpy().mean(axis=(0, 1))
+    nee_rel = float(np.max(np.abs(m_nee - m_pt) / m_pt))
+    launched = (traverse_ref.closest_hit_bvh2.launches - n0[0],
+                traverse_ref.any_hit_bvh2.launches - n0[1])
+    log(f"cornell, the JAX defaults (bvh2, Lambert, power CDF): 64x64 "
+        f"max {img.max():.2f}, mean {img.mean():.4f}, top {top:.4f} vs "
+        f"bottom {bottom:.4f}; left {np.round(left, 3)}, right "
+        f"{np.round(right, 3)}; NEE {np.round(m_nee, 4)} vs BSDF-only "
+        f"{np.round(m_pt, 4)} (max rel diff {nee_rel:.3f}); BVH2 kernel "
+        f"launches closest {launched[0]}, any {launched[1]}")
+    check(bool(np.isfinite(img).all()), "default cornell not finite")
+    check(img.max() > 0.5 and img.mean() > 0.01, "default cornell unlit")
+    check(top > bottom * 0.5, "default cornell: the light is not on top")
+    check(left[0] > left[1], "default cornell: left wall is not red")
+    check(right[1] > right[0], "default cornell: right wall is not green")
+    check(nee_rel < 0.12, "default cornell: NEE and BSDF-only disagree")
+    check(min(launched) > 0, f"the BVH2 kernels did not run: {launched}")
 
 
 # ---------------------------------------------------------------------------
@@ -4221,6 +4301,35 @@ def phase_sponza_unbiased(scene, cam):
           "BSDF-only(4)]")
     check(agree, "sponza NEE + MIS and BSDF-only renders disagree at 6 "
           "bounces")
+
+
+def phase_sponza_stacks(scene, cam):
+    """tests/test_golden.py's independent-stack check on the card: the
+    same sponza_like scene (its CWBVH build, under the ladder's soft
+    sun) through the CWBVH kernel with light-tree NEE and through the
+    BVH2 kernel (that build's BVH2, leaves of up to 6) with power-CDF
+    NEE, at the test's 48x36, 3 bounces, Disney: channel means within
+    rtol 0.06 / atol 5e-3, at GOLDEN_SPP samples a pixel each (the
+    test's 12, converged further)."""
+    import dataclasses
+    from truetrace_tpu_torch.build.env_cdf import (
+        build_env_cdf, procedural_sky)
+    soft = dataclasses.replace(scene, env=build_env_cdf(
+        procedural_sky(**GOLDEN_SKY), device=DEVICE))
+    kw = dict(bsdf="disney", bounces=3)
+    t0 = time.perf_counter()
+    ma, _ = render_mean(soft, cam, 48, 36, GOLDEN_SPP, traversal="wavefront",
+                        light_sampling="tree", **kw)
+    mb, _ = render_mean(soft, cam, 48, 36, GOLDEN_SPP, traversal="bvh2",
+                        light_sampling="cdf", **kw)
+    ok = bool(np.all(np.isfinite(ma)) and np.all(np.isfinite(mb))
+              and np.allclose(mb, ma, rtol=0.06, atol=5e-3))
+    log(f"sponza 48x36x3 at {GOLDEN_SPP} spp: wavefront + light tree "
+        f"{np.round(ma, 5)} vs bvh2 + power CDF {np.round(mb, 5)}: max "
+        f"rel diff {float(np.max(np.abs(ma - mb) / ma)):.4f} (rtol 0.06, "
+        f"atol 5e-3); {time.perf_counter() - t0:.1f} s")
+    check(ok, "sponza: the CWBVH + light tree and BVH2 + power CDF "
+          "stacks disagree")
 
 
 def phase_sponza_card_vs_cpu(parts, scene, cam):
@@ -4946,53 +5055,21 @@ def phase_grad(results, scene, cam):
 
 def phase_grad_fd(results):
     """The JAX package's finite-difference gates (tests/test_diff.py) on
-    the card, traversal="wavefront": albedo (rtol 0.05) and emission
-    (0.05) on the 24x24 Cornell box at 3 bounces, Disney, 8 spp; the
-    BSDF-level roughness integral (0.02); env intensity (2%) and
-    analytic-light radiance (5%) at 16x16, 2 bounces, Lambert, 4 spp;
-    the finite, non-zero gradients; the albedo recovery (10 steps)."""
+    the card, on the wavefront traversal over a CWBVH build and on the
+    JAX test's own configuration, compile_scene's defaults with
+    traversal="bvh2" (results under "bvh2"): albedo (rtol 0.05) and
+    emission (0.05) on the 24x24 Cornell box at 3 bounces, Disney, 8
+    spp; env intensity (2%) and analytic-light radiance (5%) at 16x16, 2
+    bounces, Lambert, 4 spp; the finite, non-zero gradients; the albedo
+    recovery (10 steps); and once the BSDF-level roughness integral
+    (0.02), which traces no ray."""
     import torch
     from truetrace_tpu_torch.core import rng as trng
     from truetrace_tpu_torch.core.math import dot
-    from truetrace_tpu_torch.diff import render_grad as rg
-    from truetrace_tpu_torch.integrate.pathtrace import RenderConfig, render
     from truetrace_tpu_torch.kernels.disney import disney_eval
-    from truetrace_tpu_torch.scene import cornell
-    from truetrace_tpu_torch.scene.ir import AnalyticLights, EnvMap
-    from truetrace_tpu_torch.scene.mesh import (HostMaterial, compile_scene,
-                                                material_table)
-    res = {}
-
-    def box(**kw):
-        meshes, mats, cam = cornell.make(device=DEVICE)
-        return compile_scene(meshes, mats, with_cwbvh=True, device=DEVICE,
-                             **kw), cam
-
-    def fd(scene, cam, cfg, key, eps, direction, spp):
-        def loss_of(v):
-            return torch.mean(render(rg.set_scene_params(scene, {key: v}),
-                                     cam, cfg, spp=spp))
-        v0 = rg.get_scene_params(scene)[key]
-        v = v0.detach().clone().requires_grad_(True)
-        g, = torch.autograd.grad(loss_of(v), v)
-        with torch.no_grad():
-            f = (loss_of(v0 + eps * direction) - loss_of(v0 - eps * direction)
-                 ) / (2 * eps)
-        return float(torch.sum(g * direction)), float(f)
-
-    scene, cam = box()
-    cfg = RenderConfig(width=24, height=24, bounces=3, bsdf="disney",
-                       traversal="wavefront")
-    d = torch.from_numpy(np.random.default_rng(0).normal(
-        size=tuple(scene.materials.base_color.shape)).astype(np.float32)
-    ).to(DEVICE)
-    res["albedo"] = fd(scene, cam, cfg, "base_color", 1e-3, d, 8)
-    de = torch.zeros_like(scene.materials.emission)
-    de[3] = torch.tensor([1.0, 0.8, 0.6])
-    res["emission"] = fd(scene, cam, cfg, "emission", 1e-2, de, 8)
-    for k in ("albedo", "emission"):
-        ad, f = res[k]
-        check(abs(ad - f) <= 0.05 * abs(f) + 1e-6, f"fd {k}: {ad} vs {f}")
+    from truetrace_tpu_torch.scene.mesh import HostMaterial, material_table
+    res = _grad_fd_gates("wavefront")
+    res["bvh2"] = _grad_fd_gates("bvh2")
 
     R = 1 << 14
     wo = torch.tensor([0.4, 0.0, 0.9165151], device=DEVICE).expand(R, 3)
@@ -5018,9 +5095,55 @@ def phase_grad_fd(results):
         f = float((integral(r0 + 1e-3) - integral(r0 - 1e-3)) / 2e-3)
     res["roughness_bsdf"] = (ad, f)
     check(abs(ad - f) <= 0.02 * abs(f) + 1e-4, f"fd roughness: {ad} vs {f}")
+    log(f"grad gates on the card (AD, FD): {res}")
+    results["grad_fd"] = res
+
+
+def _grad_fd_gates(traversal: str) -> dict:
+    """phase_grad_fd's gates that trace rays, on `traversal` ("wavefront"
+    over a CWBVH build, "bvh2" over compile_scene's defaults)."""
+    import torch
+    from truetrace_tpu_torch.diff import render_grad as rg
+    from truetrace_tpu_torch.integrate.pathtrace import RenderConfig, render
+    from truetrace_tpu_torch.scene import cornell
+    from truetrace_tpu_torch.scene.ir import AnalyticLights, EnvMap
+    from truetrace_tpu_torch.scene.mesh import compile_scene
+    res = {}
+    tag = f"fd {traversal}"
+
+    def box(**kw):
+        meshes, mats, cam = cornell.make(device=DEVICE)
+        return compile_scene(meshes, mats, device=DEVICE,
+                             with_cwbvh=traversal == "wavefront", **kw), cam
+
+    def fd(scene, cam, cfg, key, eps, direction, spp):
+        def loss_of(v):
+            return torch.mean(render(rg.set_scene_params(scene, {key: v}),
+                                     cam, cfg, spp=spp))
+        v0 = rg.get_scene_params(scene)[key]
+        v = v0.detach().clone().requires_grad_(True)
+        g, = torch.autograd.grad(loss_of(v), v)
+        with torch.no_grad():
+            f = (loss_of(v0 + eps * direction) - loss_of(v0 - eps * direction)
+                 ) / (2 * eps)
+        return float(torch.sum(g * direction)), float(f)
+
+    scene, cam = box()
+    cfg = RenderConfig(width=24, height=24, bounces=3, bsdf="disney",
+                       traversal=traversal)
+    d = torch.from_numpy(np.random.default_rng(0).normal(
+        size=tuple(scene.materials.base_color.shape)).astype(np.float32)
+    ).to(DEVICE)
+    res["albedo"] = fd(scene, cam, cfg, "base_color", 1e-3, d, 8)
+    de = torch.zeros_like(scene.materials.emission)
+    de[3] = torch.tensor([1.0, 0.8, 0.6])
+    res["emission"] = fd(scene, cam, cfg, "emission", 1e-2, de, 8)
+    for k in ("albedo", "emission"):
+        ad, f = res[k]
+        check(abs(ad - f) <= 0.05 * abs(f) + 1e-6, f"{tag} {k}: {ad} vs {f}")
 
     lam = RenderConfig(width=16, height=16, bounces=2, bsdf="lambert",
-                       traversal="wavefront")
+                       traversal=traversal)
     sc_env, cam_e = box(env=EnvMap.constant((0.4, 0.5, 0.7), device=DEVICE))
     res["env_intensity"] = fd(sc_env, cam_e, lam, "env_intensity", 1e-2,
                               torch.ones((), device=DEVICE), 4)
@@ -5037,15 +5160,15 @@ def phase_grad_fd(results):
     for k, tol in (("env_intensity", 0.02), ("light_radiance", 0.05)):
         ad, f = res[k]
         check(abs(ad - f) <= tol * max(abs(f), 1e-7) and abs(ad) > 1e-8,
-              f"fd {k}: {ad} vs {f}")
+              f"{tag} {k}: {ad} vs {f}")
 
     loss, grads, _ = rg.render_loss_and_grad(
         scene, cam, cfg, torch.zeros((24, 24, 3), device=DEVICE), spp=4,
         device=DEVICE)
-    check(math.isfinite(float(loss)), "grad loss not finite")
+    check(math.isfinite(float(loss)), f"{tag}: grad loss not finite")
     for k, v in grads.items():
-        check(bool(torch.isfinite(v).all()), f"grad {k} not finite")
-    check(float(grads["base_color"].abs().max()) > 0, "albedo grad 0")
+        check(bool(torch.isfinite(v).all()), f"{tag}: grad {k} not finite")
+    check(float(grads["base_color"].abs().max()) > 0, f"{tag}: albedo grad 0")
     with torch.no_grad():
         target = render(scene, cam, cfg, spp=8)
     bc = scene.materials.base_color.clone()
@@ -5064,9 +5187,8 @@ def phase_grad_fd(results):
         cur = rg.set_material_params(cur, p)
         losses.append(float(loss))
     res["recover_albedo_losses"] = losses
-    check(losses[-1] < 0.7 * losses[0], f"albedo recovery {losses}")
-    log(f"grad gates on the card (AD, FD): {res}")
-    results["grad_fd"] = res
+    check(losses[-1] < 0.7 * losses[0], f"{tag}: albedo recovery {losses}")
+    return res
 
 
 def _train_script():
@@ -5221,6 +5343,204 @@ def phase_train_gates(results):
 
 # (name, source, TPU kernel replaced, the kernel instantiations of the
 # source whose ptxas report goes into the row)
+
+# ---------------------------------------------------------------------------
+# phase 12: the JAX package's default build and BVH2 traversal
+# ---------------------------------------------------------------------------
+
+# the atrium frame on the default build (compile_scene(meshes, mats): no
+# CWBVH, no light BVH): the BVH2 kernel and power-CDF NEE
+BVH2_FRAME = dict(FRAME, traversal="bvh2", light_sampling="cdf")
+BVH2_TRIS = 293176
+
+
+def bvh2_work(counts: dict, R: int, closest: bool) -> dict:
+    """Per-ray work of the BVH2 traversal (the plain version's counts)
+    and its bound, as traversal_work counts the CWBVH's: a live lane (t_max
+    > 1e-4) costs OPS_BOX a slab test and OPS_TRI_BVH2 a triangle test,
+    28 bytes in (origin, direction, t_max) and 16 out (closest: t, tri,
+    u, v) or 4 (any: tri); a dead lane's answer is fixed (the miss), so it
+    costs its t_max in and that miss out and no operations, though it
+    walks (as in the JAX loop); and the distinct nodes (left and count,
+    16 bytes), child boxes (24) and triangles (36) the live lanes touch,
+    read once. Per-ray counts are over the live lanes."""
+    live = counts["live"]
+    n_live = int(live.sum())
+    pops, boxes, tris = (float(counts[f][live].sum()) for f in (
+        "pops", "box_tests", "tri_tests"))
+    out_b = 16 if closest else 4
+    nbytes = (16 * counts["nodes_touched"] + 24 * counts["boxes_touched"]
+              + 36 * counts["tris_touched"] + n_live * (28 + out_b)
+              + (R - n_live) * (4 + out_b))
+    per = max(n_live, 1)
+    return dict(live_share=n_live / R, pops_per_ray=pops / per,
+                box_tests_per_ray=boxes / per, tri_tests_per_ray=tris / per,
+                dead_lane_pops=float(counts["pops"][~live].sum()),
+                **{k: counts[k] for k in ("nodes_touched", "boxes_touched",
+                                          "tris_touched")},
+                **bound(OPS_BOX * boxes + OPS_TRI_BVH2 * tris, nbytes))
+
+
+def hold_bvh2(scene, ro, rd, tm, label: str, closest: bool, max_leaf: int,
+              time_it: bool = False) -> dict:
+    """closest_hit_bvh2 / any_hit_bvh2 against its plain version on one
+    ray set, bit for bit (t, tri, u, v; occlusion); the plain run (once,
+    timed by CUDA events) counts the work, which sets the bound. With
+    `time_it` the kernel's device time is measured (device_ms)."""
+    import torch
+    from truetrace_tpu_torch.integrate.pathtrace import _bvh2
+    from truetrace_tpu_torch.kernels import traverse_ref as K
+    a = _bvh2(scene)
+    R = ro.shape[0]
+    name = "closest_hit_bvh2" if closest else "any_hit_bvh2"
+    kernel, plain = ((K.closest_hit_bvh2, K.closest_hit_bvh2_plain)
+                     if closest else (K.any_hit_bvh2, K.any_hit_bvh2_plain))
+    run = lambda: kernel(*a, ro, rd, tm, max_leaf=max_leaf)
+    got = run()
+    counts = {}
+    want, plain_ms = timed_once(lambda: plain(
+        *a, ro, rd, tm, max_leaf=max_leaf, counts=counts))
+    if closest:
+        for f in ("t", "tri", "u", "v"):
+            x, y = getattr(got, f), getattr(want, f)
+            check(torch_equal_bits(x, y), f"{name} {label}: {f} differs "
+                  f"from plain on {int((x != y.to(x.dtype)).sum())} of "
+                  f"{R} rays")
+        err, share = max_abs_diff(got.t, want.t), float(
+            (got.tri >= 0).float().mean())
+    else:
+        check(torch.equal(got, want), f"{name} {label}: occlusion differs "
+              f"on {int((got != want).sum())} of {R} rays")
+        err, share = max_abs_diff(got.float(), want.float()), float(
+            got.float().mean())
+    work = bvh2_work(counts, R, closest)
+    out = dict(rays=R, max_abs_err=err, share=share, work=work,
+               plain_ms=plain_ms)
+    line = (f"{name} {label}: bit for bit equal to plain on {R} rays "
+            f"({share:.3f} {'hit' if closest else 'blocked'}); "
+            f"{work['live_share']:.4f} live (the dead lanes walk "
+            f"{work['dead_lane_pops']:.0f} pops, not in the bound); per "
+            f"live ray "
+            f"{work['pops_per_ray']:.2f} pops, "
+            f"{work['box_tests_per_ray']:.2f} slab tests, "
+            f"{work['tri_tests_per_ray']:.2f} triangle tests; plain "
+            f"{plain_ms:.1f} ms")
+    if time_it:
+        out.update(ms=device_ms(run, 20), bound_ms=work["bound_ms"],
+                   bound_by=work["bound_by"])
+        out["share_of_bound"] = work["bound_ms"] / out["ms"]
+        line += (f"; kernel {out['ms']:.4f} ms, bound "
+                 f"{out['bound_ms']:.5f} ms ({out['bound_by']}) = "
+                 f"{out['share_of_bound']:.3f} of the kernel's time")
+    log(line)
+    return out
+
+
+def phase_bvh2_kernels(results, scene, cw_scene, cam):
+    """Both BVH2 kernels against their plain versions on the default-build
+    frame's own rays (one eager BVH2_FRAME frame at 262144 lanes, its rays
+    grabbed): every lane of every bounce's closest-hit rays and NEE
+    shadow rays, bit for bit, bounce 0's timed and bounded; and the BVH2
+    of a CWBVH build (leaves of up to leaf_k = 6) on the same frame's
+    primary and first NEE rays."""
+    import torch
+    from truetrace_tpu_torch.integrate.pathtrace import (
+        T_MAX, RenderConfig, _scene_max_leaf)
+    r = make_renderer(scene, cam, BVH2_FRAME)
+    seen = grab_rays(r, r.init_state())
+    check(len(seen["_trace"]) == BVH2_FRAME["bounces"]
+          and len(seen["_occluded_mesh"]) == BVH2_FRAME["bounces"],
+          "bvh2 frame: not one closest-hit and one NEE call a bounce")
+    ml, ml_cw = (_scene_max_leaf(s, RenderConfig()) for s in (scene,
+                                                               cw_scene))
+    check((ml, ml_cw) == (4, 6), f"max_leaf {ml}, {ml_cw}")
+    res = {}
+    for b, (ro, rd, alive) in enumerate(seen["_trace"]):
+        c = hold_bvh2(scene, ro, rd, torch.where(alive, T_MAX, 0.0),
+                      f"bounce {b}", True, ml, time_it=b == 0)
+        if b == 0:
+            res["closest_hit_bvh2"] = c
+    for b, (ro, rd, tm) in enumerate(seen["_occluded_mesh"]):
+        a = hold_bvh2(scene, ro, rd, tm, f"NEE bounce {b}", False, ml,
+                      time_it=b == 0)
+        if b == 0:
+            res["any_hit_bvh2"] = a
+    ro, rd, alive = seen["_trace"][0]
+    res["closest_hit_bvh2"]["cwbvh_build"] = hold_bvh2(
+        cw_scene, ro, rd, torch.where(alive, T_MAX, 0.0),
+        "CWBVH build's BVH2, primary", True, ml_cw)
+    res["any_hit_bvh2"]["cwbvh_build"] = hold_bvh2(
+        cw_scene, *seen["_occluded_mesh"][0], "CWBVH build's BVH2, NEE "
+        "bounce 0", False, ml_cw)
+    results.update(res)
+
+
+def phase_bvh2(results, meshes, mats, env, cw_scene, cam):
+    """The JAX package's default configuration on the card: the atrium
+    (293,176 triangles) built by compile_scene's defaults (the BVH2
+    alone, as the JAX package builds it); both kernels against their
+    plain versions on the frame's rays (phase_bvh2_kernels); bench.py's
+    ray mix through the BVH2 kernel at 262144 rays a class, its Mrays/s
+    beside traverse.cu's on the same atrium's CWBVH build (phase 2); and
+    BVH2_FRAME (512x512x4, Disney, power-CDF NEE, SVGF) as phase 3's
+    frames: timed eager frames with the launch counts, two sync-free
+    frames, the profile (no host copy or sync, the traversal's share)
+    and the CUDA graphs bit for bit the eager frames. Returns the
+    frames' launches."""
+    import torch
+    from truetrace_tpu_torch.integrate.pathtrace import (
+        RenderConfig, _bvh2, _scene_max_leaf)
+    from truetrace_tpu_torch.kernels.traverse_ref import (
+        any_hit_bvh2, closest_hit_bvh2)
+    from truetrace_tpu_torch.scene.mesh import compile_scene
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    scene = compile_scene(meshes, mats, env=env, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(scene.n_tris() == BVH2_TRIS and scene.cw_nodes.shape[0] == 0
+          and scene.lbvh_nodes.shape[0] == 0,
+          f"default build: {scene.n_tris()} triangles, "
+          f"{scene.cw_nodes.shape[0]} CWBVH nodes")
+    ml = _scene_max_leaf(scene, RenderConfig())
+    over = scene.bvh2_count > ml
+    untested = int((scene.bvh2_count - ml).clamp(min=0).sum())
+    log(f"atrium detail {ATRIUM_DETAIL}, compile_scene's defaults: "
+        f"{scene.n_tris()} triangles, {scene.bvh2_box.shape[0]} BVH2 "
+        f"nodes, leaves of up to {int(scene.bvh2_count.max())} triangles "
+        f"(max_leaf {ml}): {int(over.sum())} leaves hold more, and "
+        f"{untested} triangles lie past a leaf's first {ml}, which the "
+        f"traversal (as the JAX loop) never tests; no CWBVH, built in "
+        f"{build_s:.1f} s")
+    phase_bvh2_kernels(results, scene, cw_scene, cam)
+
+    a = _bvh2(scene)
+    R = FRAME["width"] * FRAME["height"]
+    ro_p, rd_p, ro_b, rd_b, tm_b = bench_rays(
+        scene, cam, R, closest=lambda ro, rd: closest_hit_bvh2(
+            *a, ro, rd, 1e30, max_leaf=ml))
+    t_cp = cuda_ms(lambda: closest_hit_bvh2(*a, ro_p, rd_p, 1e30,
+                                            max_leaf=ml), 20)
+    t_cb = cuda_ms(lambda: closest_hit_bvh2(*a, ro_b, rd_b, 1e30,
+                                            max_leaf=ml), 20)
+    t_an = cuda_ms(lambda: any_hit_bvh2(*a, ro_b, rd_b, tm_b,
+                                        max_leaf=ml), 20)
+    mrays = 3 * R / ((t_cp + t_cb + t_an) * 1e-3) / 1e6
+    cw_mrays = results[f"traversal_k6_{R}"]["mrays"]
+    log(f"bvh2 traversal (bench mix, {R} rays per class): closest primary "
+        f"{t_cp:.4f} ms, closest bounce {t_cb:.4f} ms, any hit "
+        f"{t_an:.4f} ms -> {mrays:.2f} Mrays/s; traverse.cu on the CWBVH "
+        f"build (K = 6): {cw_mrays:.2f} Mrays/s")
+    launches = run_path(results, scene, cam, "bvh2", BVH2_FRAME)
+    phase_s = time.perf_counter() - t_phase
+    results["bvh2"].update(build_s=build_s, phase_s=phase_s, mix=dict(
+        rays=R, primary=t_cp, bounce=t_cb, shadow=t_an, mrays=mrays,
+        cwbvh_k6_mrays=cw_mrays), untested_tris=untested,
+        leaves_over_max_leaf=int(over.sum()))
+    log(f"phase bvh2: {phase_s:.1f} s")
+    return launches
+
+
 KERNELS = (
     ("closest_hit_wavefront", "truetrace_tpu_torch/kernels/csrc/traverse.cu",
      "truetrace_tpu/kernels/cwbvh_wavefront.py:861", "traverse_kernel<6,0>"),
@@ -5244,6 +5564,10 @@ KERNELS = (
      "truetrace_tpu/kernels/heightmap.py:87", "heightmap_kernel<1>"),
     ("heightmap_any", "truetrace_tpu_torch/kernels/csrc/heightmap.cu",
      "truetrace_tpu/kernels/heightmap.py:137", "heightmap_kernel<0>"),
+    ("closest_hit_bvh2", "truetrace_tpu_torch/kernels/csrc/traverse_bvh2.cu",
+     "truetrace_tpu/kernels/traverse_ref.py:119", "bvh2_kernel<0>"),
+    ("any_hit_bvh2", "truetrace_tpu_torch/kernels/csrc/traverse_bvh2.cu",
+     "truetrace_tpu/kernels/traverse_ref.py:130", "bvh2_kernel<1>"),
 )
 
 
@@ -5269,7 +5593,7 @@ def ptxas_of(src: str, want: str) -> dict:
 PATH_KERNELS = ("closest_hit_wavefront", "any_hit_wavefront",
                 "transmit_wavefront", "atrous_pass", "closest_hit_tlas",
                 "any_hit_tlas", "transmit_tlas", "heightmap_closest",
-                "heightmap_any")
+                "heightmap_any", "closest_hit_bvh2", "any_hit_bvh2")
 # the hand kernels each path launches (phase_frame fails where one of
 # them never does): the opaque frames' NEE shadow rays take the any hit,
 # the glass frame's the transmittance; ReCur filters without a-trous
@@ -5290,11 +5614,14 @@ PATHS = {"atrium": _OPAQUE, "composed": _OPAQUE, "sponza": _OPAQUE,
          # scene on the two-level kernels) and their SVGF eval
          "grad": ("closest_hit_wavefront", "any_hit_wavefront"),
          "train": ("closest_hit_wavefront", "any_hit_wavefront",
-                   "closest_hit_tlas", "any_hit_tlas", "atrous_pass")}
+                   "closest_hit_tlas", "any_hit_tlas", "atrous_pass"),
+         # the JAX package's default build and traversal
+         "bvh2": ("closest_hit_bvh2", "any_hit_bvh2", "atrous_pass")}
 # the frames after the first three, each with its own launch counts in
 # the kernels line
 NEW_PATHS = ("asvgf", "recur", "composed_asvgf", "glass", "post",
-             "interactive", "neural", "forest", "animated", "sources")
+             "interactive", "neural", "forest", "animated", "sources",
+             "bvh2")
 # a profiled frame's host copies and syncs (phase_profile)
 COPY_KEYS = ("memcpy_htod", "memcpy_dtoh", "stream_syncs",
              "blocking_memcpy_calls", "memcpy_dtod")
@@ -5386,6 +5713,8 @@ def main() -> int:
         results, scenes[6], cam, "neural", NEURAL,
         hook=lambda r, st: phase_unet(results, r.neural, st.accum.image))
     grad_launches = phase_grad(results, scenes[6], cam)
+    new_launches["bvh2"] = phase_bvh2(results, meshes, mats, env,
+                                      scenes[6], cam)
     del scenes
     glass, g_cam = nested_glass_scene(DEVICE)
     log(f"nested glass scene: {glass.n_tris()} triangles, "
@@ -5413,6 +5742,7 @@ def main() -> int:
     del renderer, state
     phase_graph(results, sponza, s_cam, "sponza")
     phase_sponza_unbiased(sponza, s_cam)
+    phase_sponza_stacks(sponza, s_cam)
     phase_sponza_card_vs_cpu(parts[:-1], sponza, s_cam)
     new_launches["interactive"] = run_path(
         results, sponza_lit(sponza, parts[0]), s_cam, "interactive",
@@ -5537,6 +5867,9 @@ def main() -> int:
     frames["sources"].update(
         results["sources"], hot_order=results["sources_hot"],
         presplit=results["sources_presplit"])
+    frames["bvh2"].update({k: results["bvh2"][k] for k in (
+        "build_s", "phase_s", "mix", "untested_tris",
+        "leaves_over_max_leaf")})
     frames["grad"] = dict(results["grad"], gates=results["grad_fd"])
     frames["train"] = dict(results["train"], gates=results["train_gates"])
     frames["composed"].update(
@@ -5563,6 +5896,9 @@ def main() -> int:
         "closest_hit_tlas", "any_hit_tlas", "heightmap_closest",
         "heightmap_any")}, transmit_tlas=new_launches["tinted"][
             "transmit_tlas"])
+    # the BVH2 kernels' main path is the default-build frame's
+    main_launches.update({k: new_launches["bvh2"][k] for k in (
+        "closest_hit_bvh2", "any_hit_bvh2")})
     rows = {}
     src_of = {name: src for name, src, _, _ in KERNELS}
     for name, src, rep, _ in KERNELS:
@@ -5578,7 +5914,7 @@ def main() -> int:
             ptxas=ptxas[name], **{k: res[k] for k in (
                 "work", "ms_by_step", "plain_ms_by_step", "pack_ms",
                 "filter_ms", "atrium_frame_max_abs_err", "by_lanes",
-                "any_hit_ms", "shares", "rays")
+                "any_hit_ms", "shares", "rays", "share", "cwbvh_build")
                 if k in res})
         rows[name]["sponza"] = sponza_row(name, results, s_launches)
         for label, ln in [("atrium", launches), ("composed", c_launches)] + [
@@ -5589,6 +5925,8 @@ def main() -> int:
     rows["transmit_wavefront"]["atrium"].update(results["transmit_atrium"])
     rows["transmit_tlas"]["forest"].update(results["transmit_tlas_forest"])
     rows["transmit_tlas"]["main_path"] = "tinted"
+    for name in ("closest_hit_bvh2", "any_hit_bvh2"):
+        rows[name]["main_path"] = "bvh2"
     # the K = 3 traversal, which only the animated frame runs at full
     # size: its time and bound on that frame's bounce-0 rays
     for name, q, inst in (("closest_hit_wavefront", "closest", "<3,0>"),

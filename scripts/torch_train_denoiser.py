@@ -8,9 +8,9 @@ sphere still-lifes; the instanced boxes held out, last), the same flips
 and gains, Adam at 1e-3 from `init_params` (flax's initialisation,
 drawn from torch.Generator seed 0). One deliberate difference: the mix's
 traversal="bvh2" becomes "wavefront" over compile_scene(with_cwbvh=True),
-since the port has no BVH2 traversal (ROADMAP.md A.19) and, as the JAX
-script says itself, the denoiser only needs pixels; the held-out scene
-keeps "tlas".
+as it was written before the port's BVH2 traversal and its recorded runs
+(PERF.md) were made so; as the JAX script says itself, the denoiser only
+needs pixels. The held-out scene keeps "tlas".
 
 Pairs come from the port's `render_sample_with_stats` on `--device`,
 as many samples a pass as `render_sum` puts together.

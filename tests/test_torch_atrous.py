@@ -69,7 +69,7 @@ def test_nvcc_flags_per_source():
     own flags."""
     assert set(_cuda.NVCC_FLAGS) == set(_cuda.SOURCES)
     for src in ("traverse.cu", "step_core.cu", "traverse_tlas.cu",
-                "heightmap.cu"):
+                "heightmap.cu", "traverse_bvh2.cu"):
         assert "--fmad=false" in _cuda.NVCC_FLAGS[src]
     assert "--fmad=false" not in _cuda.NVCC_FLAGS["atrous.cu"]
     common = set(_cuda.NVCC_FLAGS["atrous.cu"])

@@ -28,7 +28,13 @@ and the skinning's clamped bone indices; and the training path: the
 gradient step (render_loss_and_grad) with no host sync, with remat bit
 for bit without it, and three U-Net train steps on the card against the
 same on the CPU; and the traversal kernel on heat-ordered leaf rows, and
-a manifest scene's frames on the card against the CPU.
+a manifest scene's frames on the card against the CPU; and the BVH2
+traversal kernel (the JAX package's default build and traversal) bit for
+bit its plain version on small and full-size atrium builds, with a
+2-entry stack, dead lanes and signed-zero directions, and its frame
+without a host sync and replayed bit for bit; and transmit_brute (a
+tinted scene's shadow rays under traversal="bvh2") chunk by chunk bit
+for bit one unchunked call.
 
 Needs an NVIDIA card and nvcc; skips elsewhere. It imports no JAX, so it
 runs on a machine without it (the JAX-side conftest is skipped):
@@ -42,6 +48,7 @@ import torch
 from truetrace_tpu_torch.kernels import _cuda, atrous_pallas
 from truetrace_tpu_torch.kernels import cwbvh_wavefront as wf
 from truetrace_tpu_torch.kernels import step_pallas
+from truetrace_tpu_torch.kernels import traverse_ref as bvh2
 from truetrace_tpu_torch.scene import atrium
 from truetrace_tpu_torch.scene.mesh import compile_scene
 
@@ -437,25 +444,40 @@ def test_sponza_renderer_card_matches_cpu(dev, tmp_path_factory):
 # the frame: no host copy or sync inside Renderer.step
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("scene", ["atrium", "sponza_like"])
+def _frame_scene(dev, tmp_path_factory, scene):
+    """(scene, camera, RendererConfig) of the frame checks at 64x48:
+    the atrium (CWBVH, light tree) or sponza_like with the wavefront
+    traversal, or the atrium's default build (no CWBVH, power-CDF NEE)
+    with the BVH2 traversal ("atrium_bvh2")."""
+    from truetrace_tpu_torch.renderer import RendererConfig
+    if scene == "sponza_like":
+        sc, _, cam = _sponza(dev, tmp_path_factory, 0.5)
+    else:
+        meshes, mats, cam, env = atrium.make(detail=0.2, device=dev)
+        cw = scene == "atrium"
+        sc = compile_scene(meshes, mats, env=env, with_cwbvh=cw,
+                           with_light_bvh=cw, device=dev)
+    cw = sc.cw_nodes.shape[0] > 0
+    assert (sc.lbvh_pairs.shape[0] > 0) == cw
+    return sc, cam, RendererConfig(
+        width=64, height=48, bounces=4, bsdf="disney",
+        traversal="wavefront" if cw else "bvh2",
+        light_sampling="tree" if cw else "cdf", denoiser="svgf")
+
+
+@pytest.mark.parametrize("scene", ["atrium", "sponza_like", "atrium_bvh2"])
 def test_frame_makes_no_host_sync(dev, tmp_path_factory, scene):
-    """Renderer.step (Disney, light-tree NEE, SVGF) after a warm-up frame:
-    one more frame, then one that moves the camera with cam_moved=True,
-    under torch.cuda.set_sync_debug_mode("error"), which raises at any
+    """Renderer.step (Disney, light-tree NEE, SVGF; on the default build
+    the BVH2 kernel and the power CDF) after a warm-up frame: one more
+    frame, then one that moves the camera with cam_moved=True, under
+    torch.cuda.set_sync_debug_mode("error"), which raises at any
     blocking copy between host and card and at any stream or device
     sync. The moved frame restarts accumulation."""
-    from truetrace_tpu_torch.renderer import Renderer, RendererConfig
+    from truetrace_tpu_torch.renderer import Renderer
     from truetrace_tpu_torch.scene.ir import Camera
-    if scene == "atrium":
-        meshes, mats, cam, env = atrium.make(detail=0.2, device=dev)
-        sc = compile_scene(meshes, mats, env=env, with_cwbvh=True,
-                           with_light_bvh=True, device=dev)
-    else:
-        sc, _, cam = _sponza(dev, tmp_path_factory, 0.5)
-    assert sc.lbvh_pairs.shape[0] > 0
-    r = Renderer(sc, cam, RendererConfig(
-        width=64, height=48, bounces=4, bsdf="disney",
-        traversal="wavefront", light_sampling="tree", denoiser="svgf"))
+    sc, cam, cfg = _frame_scene(dev, tmp_path_factory, scene)
+    n0 = bvh2.closest_hit_bvh2.launches
+    r = Renderer(sc, cam, cfg)
     st = r.init_state()
     _, _, st = r.step(st)
     c2w = cam.c2w.clone()
@@ -471,9 +493,10 @@ def test_frame_makes_no_host_sync(dev, tmp_path_factory, scene):
         torch.cuda.set_sync_debug_mode("default")
     assert float(st.accum.count) == 1.0
     assert bool(torch.isfinite(disp).all())
+    assert (bvh2.closest_hit_bvh2.launches > n0) == (cfg.traversal == "bvh2")
 
 
-@pytest.mark.parametrize("scene", ["atrium", "sponza_like"])
+@pytest.mark.parametrize("scene", ["atrium", "sponza_like", "atrium_bvh2"])
 def test_graph_frames_match_eager(dev, tmp_path_factory, scene):
     """Renderer.graph_step against Renderer.step on fresh renderers, four
     SVGF frames each: as they are (the first runs eagerly on both paths,
@@ -483,16 +506,8 @@ def test_graph_frames_match_eager(dev, tmp_path_factory, scene):
     radiance and every state tensor are bit for bit the eager ones; two
     more replays run under set_sync_debug_mode("error")."""
     import chip_smoke
-    from truetrace_tpu_torch.renderer import Renderer, RendererConfig
-    if scene == "atrium":
-        meshes, mats, cam, env = atrium.make(detail=0.2, device=dev)
-        sc = compile_scene(meshes, mats, env=env, with_cwbvh=True,
-                           with_light_bvh=True, device=dev)
-    else:
-        sc, _, cam = _sponza(dev, tmp_path_factory, 0.5)
-    cfg = RendererConfig(width=64, height=48, bounces=4, bsdf="disney",
-                         traversal="wavefront", light_sampling="tree",
-                         denoiser="svgf")
+    from truetrace_tpu_torch.renderer import Renderer
+    sc, cam, cfg = _frame_scene(dev, tmp_path_factory, scene)
     moved = chip_smoke.moved_camera(cam)
     re, rg = Renderer(sc, cam, cfg), Renderer(sc, cam, cfg)
     gs, gm = rg.graph_step(cam_moved=False), rg.graph_step(cam_moved=True)
@@ -1270,3 +1285,155 @@ def test_manifest_frame_card_matches_cpu(dev, tmp_path_factory):
         assert float(close) >= 0.98
         assert abs(float(dg.mean()) - float(dc.mean())) <= 1e-3 * float(
             dc.mean())
+
+
+# ---------------------------------------------------------------------------
+# the BVH2 traversal (the JAX package's default build and traversal)
+# ---------------------------------------------------------------------------
+
+_BVH2 = {}
+
+
+def _bvh2_scene(dev, build):
+    """The atrium at detail 0.2 built by default (no CWBVH, leaves of
+    max_leaf = 4) or with the CWBVH (its BVH2's leaves up to leaf_k = 6),
+    or at detail 1.5 by default ("full": 293,176 triangles), with its
+    max_leaf."""
+    if build not in _BVH2:
+        detail = 1.5 if build == "full" else 0.2
+        meshes, mats, _, env = atrium.make(detail=detail, device=dev)
+        sc = compile_scene(meshes, mats, env=env,
+                           with_cwbvh=build == "cwbvh", device=dev)
+        _BVH2[build] = (sc, 6 if build == "cwbvh" else 4)
+    return _BVH2[build]
+
+
+def _bvh2_rays(sc, R, seed, dev):
+    """R random rays inside the scene's bounds with t_max of 0 (dead), a
+    finite distance or 1e30, the last 96 axis-parallel with +-0.0 in
+    their other components."""
+    r = np.random.default_rng(seed)
+    lo = sc.tri_p0.amin(0).cpu().numpy()
+    hi = sc.tri_p0.amax(0).cpu().numpy()
+    ro = r.uniform(lo, hi, (R, 3)).astype(np.float32)
+    rd = _unit(r, R)
+    tm = r.uniform(0.05, 8.0, R).astype(np.float32)
+    tm[: R // 30] = 0.0
+    tm[R // 30: R // 2] = 1e30
+    k = min(96, R // 2)
+    if k:
+        ax = np.zeros((k, 3), np.float32)
+        ax[np.arange(k), np.arange(k) % 3] = np.where(np.arange(k) % 2, 1.0,
+                                                      -1.0)
+        zero = np.where(r.uniform(size=(k, 3)) < 0.5, -0.0, 0.0)
+        rd[R - k:] = np.where(ax == 0, zero, ax)
+    return tuple(torch.from_numpy(x).to(dev) for x in (ro, rd, tm))
+
+
+def _bvh2_check(sc, ml, ro, rd, tm, S=64):
+    """Kernel against plain: closest hit bitwise (t, tri, u, v),
+    occlusion equal. Returns the kernel's closest hit."""
+    args = (sc.bvh2_box, sc.bvh2_left, sc.bvh2_count, sc.tri_p0, sc.tri_e1,
+            sc.tri_e2, ro, rd, tm)
+    hk = bvh2.closest_hit_bvh2(*args, max_leaf=ml, max_stack=S)
+    hp = bvh2.closest_hit_bvh2_plain(*args, max_leaf=ml, max_stack=S)
+    for f in ("t", "tri", "u", "v"):
+        a, b = getattr(hk, f), getattr(hp, f)
+        assert torch.equal(a.view(torch.int32), b.to(a.dtype).view(
+            torch.int32)), f
+    assert torch.equal(bvh2.any_hit_bvh2(*args, max_leaf=ml, max_stack=S),
+                       bvh2.any_hit_bvh2_plain(*args, max_leaf=ml,
+                                               max_stack=S))
+    return hk
+
+
+@pytest.mark.parametrize("build", ["default", "cwbvh"])
+@pytest.mark.parametrize("stack", [64, 2])
+@pytest.mark.parametrize("R", [1, 33, 5000])
+def test_bvh2_kernel_bitwise(dev, build, stack, R):
+    """closest_hit_bvh2 / any_hit_bvh2 on the card against their plain
+    versions: t, tri, u and v bit for bit and occlusion equal, on the
+    default build (leaves of 4) and a CWBVH build's BVH2 (leaves of 6),
+    with the JAX default stack and a 2-entry one that overflows (the
+    clamped push and pop slots), dead lanes, signed-zero directions, one
+    ray and a warp and a lane over."""
+    sc, ml = _bvh2_scene(dev, build)
+    ro, rd, tm = _bvh2_rays(sc, R, R + stack, dev)
+    n0 = bvh2.closest_hit_bvh2.launches
+    hk = _bvh2_check(sc, ml, ro, rd, tm, stack)
+    assert bvh2.closest_hit_bvh2.launches == n0 + 1
+    if R > 100:
+        assert bool((hk.tri[: R // 30] == -1).all())
+        assert 0 < int((hk.tri >= 0).sum()) < R
+    if R == 5000 and stack == 2:
+        full = bvh2.closest_hit_bvh2(sc.bvh2_box, sc.bvh2_left,
+                                     sc.bvh2_count, sc.tri_p0, sc.tri_e1,
+                                     sc.tri_e2, ro, rd, tm, max_leaf=ml)
+        assert bool((hk.tri != full.tri).any())
+
+
+def test_bvh2_kernel_bitwise_at_full_size(dev):
+    """The atrium's default build at detail 1.5 (293,176 triangles):
+    camera rays of a 256x256 frame and random rays, kernel against plain
+    bit for bit."""
+    from truetrace_tpu_torch.core import rng
+    from truetrace_tpu_torch.scene.ir import camera_rays
+    sc, ml = _bvh2_scene(dev, "full")
+    assert sc.n_tris() == 293176 and sc.cw_nodes.shape[0] == 0
+    _, _, cam, _ = atrium.make(detail=0.2, device=dev)
+    R = 1 << 16
+    pix = torch.arange(R, device=dev)
+    ro, rd = camera_rays(cam, 256, 256, pix, rng.uniform2(pix, 0, 0))
+    hk = _bvh2_check(sc, ml, ro.contiguous(), rd.contiguous(), 1e30)
+    assert float((hk.tri >= 0).float().mean()) > 0.5
+    _bvh2_check(sc, ml, *_bvh2_rays(sc, 20000, 7, dev))
+
+
+def test_bvh2_wrappers_reject_bad_arguments(dev):
+    sc, ml = _bvh2_scene(dev, "default")
+    ro, rd, tm = _bvh2_rays(sc, 64, 1, dev)
+    args = [sc.bvh2_box, sc.bvh2_left, sc.bvh2_count, sc.tri_p0, sc.tri_e1,
+            sc.tri_e2, ro, rd, tm]
+    for i, bad in ((1, sc.bvh2_left.int()), (6, ro.double()),
+                   (7, rd.t().contiguous().t()), (3, sc.tri_p0.cpu())):
+        a = list(args)
+        a[i] = bad
+        with pytest.raises(ValueError):
+            bvh2.closest_hit_bvh2(*a)
+    with pytest.raises(ValueError, match="max_stack"):
+        bvh2.any_hit_bvh2(*args, max_stack=65)
+    with pytest.raises(ValueError, match="requires grad"):
+        bvh2.closest_hit_bvh2(*args[:6], ro.clone().requires_grad_(), rd, tm)
+
+
+@pytest.mark.parametrize("rows", [4, 37, 228])
+def test_transmit_brute_chunks_keep_bits(dev, monkeypatch, rows):
+    """transmit_brute on the card (the shadow transmittance of a tinted
+    scene under traversal="bvh2") with BRUTE_CHUNK lowered, so that the
+    rays go in chunks of `rows` (228 is the full-size atrium's), against
+    one unchunked call: bit for bit. The scene is chip_smoke's glass
+    Cornell box built by default; the rays rise from the floor through
+    the spheres and the cut-out pane, crossing up to five tinted
+    triangles."""
+    import chip_smoke
+    from truetrace_tpu_torch.scene import cornell, primitives
+    from truetrace_tpu_torch.scene.mesh import HostMaterial, HostMesh
+    meshes, mats, _ = chip_smoke.glass_cornell_host(
+        HostMesh, HostMaterial, lambda: cornell.make(device=dev), primitives)
+    sc = compile_scene(meshes, mats, device=dev)
+    r = np.random.default_rng(rows)
+    R = 20000
+    ro = np.stack([r.uniform(0.05, 0.5, R), np.full(R, 0.005),
+                   r.uniform(0.05, 0.5, R)], -1).astype(np.float32)
+    rd = np.array([0.0, 1.0, 0.0]) + r.normal(0, 0.15, (R, 3))
+    rd = (rd / np.linalg.norm(rd, axis=-1, keepdims=True)).astype(np.float32)
+    tm = r.uniform(0.35, 0.5, R).astype(np.float32)   # below the ceiling
+    args = (sc.tri_p0, sc.tri_e1, sc.tri_e2, sc.tri_shadow,
+            *(torch.from_numpy(x).to(dev) for x in (ro, rd, tm)))
+    T = sc.n_tris()
+    assert R * T < bvh2.BRUTE_CHUNK
+    whole = bvh2.transmit_brute(*args)
+    assert int(((whole > 0) & (whole < 0.999)).all(-1).sum()) > 1000
+    monkeypatch.setattr(bvh2, "BRUTE_CHUNK", rows * T)
+    got = bvh2.transmit_brute(*args)
+    assert torch.equal(got.view(torch.int32), whole.view(torch.int32))

@@ -261,15 +261,16 @@ def test_cornell_physics():
 
 @pytest.mark.parametrize("opt,value", [
     ("traversal", "cwbvh"), ("sampler", "bluenoise"), ("traversal", "brute"),
-    ("traversal", "woop"), ("nee_sort", True), ("traversal", "bvh2")])
+    ("traversal", "woop"), ("nee_sort", True), ("debug_nee", "noshadow")])
 def test_unported_renderer_options_raise(cornell_pair, opt, value):
     """Options outside the port raise naming their item: the other
-    traversals (the CWBVH oracle, the MXU brute force, BVH2, which the
-    JAX package also takes for any other name), and the blue-noise
-    sampler and NEE sorting, which the RendererConfig has no field for
-    and the render config checks. (The TLAS traversal and terrain scenes
-    of this list run now: tests/test_torch_tlas.py, test_torch_terrain.py
-    and test_torch_forest.py hold them against the JAX package.)"""
+    traversals (the CWBVH oracle, the MXU brute force, and a name the
+    JAX package would take as BVH2), and the blue-noise sampler, NEE
+    sorting and the NEE debug views, which the RendererConfig has no
+    field for and the render config checks. (The TLAS traversal, terrain
+    scenes and the BVH2 traversal of this list run now:
+    tests/test_torch_tlas.py, test_torch_terrain.py, test_torch_forest.py
+    and test_torch_bvh2.py hold them against the JAX package.)"""
     _, _, ts, tcam = cornell_pair
     renderer_opt = opt == "traversal"
     kw = {opt: value} if renderer_opt else {}

@@ -174,27 +174,19 @@ def test_pack_leaf_rows_layout():
     assert torch.equal(torch.sort(real).values, torch.arange(ts.n_tris()))
 
 
-def _raises(fn):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fn()
-
-
 @pytest.mark.parametrize("opt", ["presplit", "hot_order", "bvh2_only",
                                  "cache_dir"])
 def test_unported_build_options_raise(opt, tmp_path):
-    """Of the build options the port once refused, only a build without
-    the CWBVH still raises (ROADMAP.md A.19); presplit, hot_order and
-    cache_dir build the JAX package's tables (tests/
-    test_torch_build_opts.py holds them at more sizes)."""
+    """The build options the port once refused build the JAX package's
+    tables: presplit, hot_order, cache_dir (tests/test_torch_build_opts.py
+    holds them at more sizes) and, since the BVH2 traversal, a build
+    without the CWBVH (tests/test_torch_bvh2.py holds every table)."""
     m, mats, _ = tcornell.make(device="cpu")
     kw = dict(with_cwbvh=True)
     kw.update(dict(presplit=dict(presplit=0.5),
                    hot_order=dict(hot_order=True),
                    bvh2_only=dict(with_cwbvh=False),
                    cache_dir=dict(cache_dir=str(tmp_path / "t")))[opt])
-    if opt == "bvh2_only":
-        _raises(lambda: tcompile(m, mats, device="cpu", **kw))
-        return
     jm, jmat, _ = jcornell.make()
     if opt == "cache_dir":
         js = jcompile(jm, jmat, with_cwbvh=True, cache_dir=str(tmp_path / "j"))

@@ -606,14 +606,23 @@ def test_manifest_matches_jax(tmp_path, case):
 
 
 def test_manifest_divergences_raise(tmp_path):
-    """A manifest whose traversal the port does not run (bvh2, cwbvh)
-    raises naming A.19; a tex_file_* other than PNG raises naming A.27."""
+    """A manifest whose traversal the port does not run (cwbvh) raises
+    naming A.19; a tex_file_* other than PNG raises naming A.27. A bvh2
+    manifest, which raised before the port's BVH2 traversal, builds the
+    JAX package's scene without the CWBVH, table for table."""
     doc = _manifest_doc(tmp_path, "roundtrip")
-    for trav in ("bvh2", "cwbvh"):
-        doc["render"]["traversal"] = trav
-        (tmp_path / "a.json").write_text(json.dumps(doc))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.19"):
-            tmanifest.load_manifest(str(tmp_path / "a.json"), device="cpu")
+    doc["render"]["traversal"] = "cwbvh"
+    (tmp_path / "a.json").write_text(json.dumps(doc))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.19"):
+        tmanifest.load_manifest(str(tmp_path / "a.json"), device="cpu")
+    doc["render"]["traversal"] = "bvh2"
+    (tmp_path / "c.json").write_text(json.dumps(doc))
+    js, _, jcfg = jmanifest.load_manifest(str(tmp_path / "c.json"))
+    ts, _, tcfg = tmanifest.load_manifest(str(tmp_path / "c.json"),
+                                          device="cpu")
+    same_scene(js, ts)
+    assert tcfg.traversal == jcfg.traversal == "bvh2"
+    assert ts.cw_nodes.shape[0] == 0
     doc["render"]["traversal"] = "wavefront"
     (tmp_path / "t.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(16))
     doc["materials"]["floor"]["tex_file_albedo"] = "t.jpg"

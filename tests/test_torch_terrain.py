@@ -148,19 +148,15 @@ def luts():
     return jatm.build_luts(), tatm.build_luts()
 
 
-# The atmosphere against the JAX package. The transmittance LUT is its
-# bits: the port writes every mul-add XLA:CPU contracts in that builder as
-# an fma, XLA's exp, its reciprocal products for the divisions by
-# constants, and square roots rounded to nearest (ROADMAP.md §C.3). The
-# multiple-scattering and irradiance LUTs take their builders' sites too
-# but for the channels the back end merges (an AVX-512 host); their
-# limits sit just past this bake's largest relative error at atol 1e-9
-# (2.5e-7 and 1.2e-7). The sky bake (eager in the JAX package) is the
-# JAX bits from the same LUTs; from each package's own LUTs every texel
-# is within atol 1e-6 (2.4e-7 / 2.9e-7 relative); its CDF rows within
-# atol 1e-6.
-LUT_RTOL = dict(transmittance=0.0, multiscatter=3e-7, irradiance=2e-7)
-SKY_RTOL = {(0.4, 0.5, 0.3): 1e-7, (0.1, 0.05, -0.6): 1e-7}
+# The atmosphere against the JAX package: every LUT is its bits. The port
+# writes every mul-add XLA:CPU contracts in each jitted LUT builder as an
+# fma (the sites read from the optimised IR and the machine code), XLA's
+# exp, the C library's pow, sin and cos, the reciprocal products for the
+# divisions by constants, and square roots rounded to nearest (ROADMAP.md
+# §C.3). The sky bake (eager in the JAX package) is the JAX bits from
+# either package's LUTs; its CDF rows within atol 1e-6.
+LUT_RTOL = dict(transmittance=0.0, multiscatter=0.0, irradiance=0.0)
+SKY_RTOL = {(0.4, 0.5, 0.3): 0.0, (0.1, 0.05, -0.6): 0.0}
 
 
 @pytest.mark.parametrize("lut", ["transmittance", "multiscatter",
@@ -222,6 +218,25 @@ def test_powf_libm_is_jax_power_on_the_host_only():
         powf_libm(torch.empty(4, device="meta"), 1.5)
 
 
+def test_libm_sin_cos_are_jax_sin_cos_on_the_host_only():
+    """sinf_libm / cosf_libm give jnp.sin's and jnp.cos's float32 bits on
+    XLA:CPU, jitted and eager (the irradiance builder's directions and
+    the sky bake's), where torch's float32 kernels and float64 rounded
+    once miss them on many values; a tensor not on the CPU raises."""
+    from truetrace_tpu_torch.core.math import cosf_libm, sinf_libm
+    x = np.random.default_rng(4).uniform(-7.0, 7.0, 4096).astype(np.float32)
+    t = torch.from_numpy(x)
+    for ours, theirs, tfn in ((sinf_libm, jnp.sin, torch.sin),
+                              (cosf_libm, jnp.cos, torch.cos)):
+        want = np.asarray(jax.jit(theirs)(x))
+        assert (np.asarray(theirs(x)) == want).all()
+        got = ours(t).numpy()
+        assert (got.view(np.uint32) == want.view(np.uint32)).all()
+        assert (tfn(t.double()).float().numpy() != want).sum() > 10
+        with pytest.raises(ValueError, match="not the CPU"):
+            ours(torch.empty(4, device="meta"))
+
+
 @pytest.mark.parametrize("sun", [(0.4, 0.5, 0.3), (0.1, 0.05, -0.6)])
 def test_bake_sky_env_matches_jax(luts, sun):
     """The baked equirect sky (the forest's sun, and a low one with the
@@ -233,6 +248,9 @@ def test_bake_sky_env_matches_jax(luts, sun):
     te = tatm.bake_sky_env(luts=luts[1], device="cpu", **kw)
     np.testing.assert_allclose(te.image.numpy(), np.asarray(je.image),
                                rtol=SKY_RTOL[sun], atol=1e-6)
+    if SKY_RTOL[sun] == 0.0:
+        assert (te.image.numpy().view(np.uint32)
+                == np.asarray(je.image).view(np.uint32)).all()
     same = tatm.bake_sky_env(luts=tatm.AtmosphereLUTs(*(
         torch.from_numpy(np.asarray(x)) for x in luts[0])), device="cpu",
         **kw)

@@ -95,6 +95,45 @@ def ray_tri(ro, rd, p0, e1, e2, t_max):
     return hit, t, u, v
 
 
+def dot_fma(a, b):
+    """dot(a, b) as XLA:CPU compiles jnp.sum(a * b, -1) inside the BVH2
+    traversal loop: a reduce from 0 whose every product is fused into the
+    running sum, fma(a2, b2, fma(a1, b1, fma(a0, b0, 0)))."""
+    s = a[..., 0] * b[..., 0] + 0.0
+    s = fma(a[..., 1], b[..., 1], s)
+    return fma(a[..., 2], b[..., 2], s)
+
+
+def ray_tri_fma(ro, rd, p0, e1, e2, t_max):
+    """ray_tri with the mul-adds XLA:CPU contracts in the BVH2 traversal
+    loop (truetrace_tpu/kernels/traverse_ref.py `_traverse`): the two
+    cross products as cross_fma, the four dot products as dot_fma; the
+    three scalings by 1/det and u + v stay plain (their products have
+    other uses). Returns (hit, t, u, v)."""
+    pvec = cross_fma(rd, e2)
+    det = dot_fma(e1, pvec)
+    inv_det = 1.0 / torch.where(det.abs() < 1e-12, 1e-12, det)
+    tvec = ro - p0
+    u = dot_fma(tvec, pvec) * inv_det
+    qvec = cross_fma(tvec, e1)
+    v = dot_fma(rd, qvec) * inv_det
+    t = dot_fma(e2, qvec) * inv_det
+    hit = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+           & (t > 1e-4) & (t < t_max) & (det.abs() > 1e-12))
+    return hit, t, u, v
+
+
+def ray_aabb(ro, inv_rd, bmin, bmax, t_max):
+    """Slab test against boxes [..., 3]: (hit, t_near). Minima and maxima
+    propagate NaN, as XLA's do."""
+    t0 = (bmin - ro) * inv_rd
+    t1 = (bmax - ro) * inv_rd
+    t_near = torch.minimum(t0, t1).amax(-1)
+    t_far = torch.maximum(t0, t1).amin(-1)
+    hit = (t_far >= torch.clamp_min(t_near, 0.0)) & (t_near < t_max)
+    return hit, t_near
+
+
 def finite_or_zero(x):
     return torch.where(torch.isfinite(x), x, 0.0)
 
@@ -130,6 +169,27 @@ def sqrt_rn(x):
 _LIBM = None
 
 
+def _libm_f32(name: str, x, *args):
+    """The C library's float function `name` of a float32 CPU tensor x
+    (and float arguments), value by value. A tensor on another device
+    raises: it is never moved to the host."""
+    global _LIBM
+    if x.device.type != "cpu":
+        raise ValueError(f"{name}_libm is a host bake's helper: x is on "
+                         f"{x.device}, not the CPU")
+    import ctypes
+    import ctypes.util
+    if _LIBM is None:
+        _LIBM = ctypes.CDLL(ctypes.util.find_library("m"))
+        for fn, n in (("powf", 2), ("sinf", 1), ("cosf", 1)):
+            getattr(_LIBM, fn).restype = ctypes.c_float
+            getattr(_LIBM, fn).argtypes = [ctypes.c_float] * n
+    f = getattr(_LIBM, name)
+    flat = x.detach().reshape(-1).tolist()
+    out = torch.tensor([f(v, *args) for v in flat], dtype=torch.float32)
+    return out.reshape(x.shape)
+
+
 def powf_libm(x, y: float):
     """x ** y for a float32 CPU tensor by the C library's powf, value by
     value: XLA:CPU calls it for jnp.power (not correctly rounded: it
@@ -137,19 +197,20 @@ def powf_libm(x, y: float):
     torch.pow differs on ~2%. For host bakes of a few thousand values
     only: a tensor on another device raises (it is never moved to the
     host)."""
-    global _LIBM
-    if x.device.type != "cpu":
-        raise ValueError(f"powf_libm is a host bake's helper: x is on "
-                         f"{x.device}, not the CPU")
-    import ctypes
-    import ctypes.util
-    if _LIBM is None:
-        _LIBM = ctypes.CDLL(ctypes.util.find_library("m"))
-        _LIBM.powf.restype = ctypes.c_float
-        _LIBM.powf.argtypes = [ctypes.c_float, ctypes.c_float]
-    flat = x.detach().reshape(-1).tolist()
-    out = torch.tensor([_LIBM.powf(v, y) for v in flat], dtype=torch.float32)
-    return out.reshape(x.shape)
+    return _libm_f32("powf", x, y)
+
+
+def sinf_libm(x):
+    """sin of a float32 CPU tensor by the C library's sinf, as XLA:CPU
+    computes jnp.sin (torch.sin, and sin in float64 rounded once, differ
+    from it on ~1% of values). For host bakes only, as powf_libm."""
+    return _libm_f32("sinf", x)
+
+
+def cosf_libm(x):
+    """cos of a float32 CPU tensor by the C library's cosf, as XLA:CPU
+    computes jnp.cos. For host bakes only, as powf_libm."""
+    return _libm_f32("cosf", x)
 
 
 def fma(a, b, c):

@@ -6,18 +6,19 @@ masked dead lanes; NEE with MIS (power heuristic) against the emissive
 triangles, by light-tree cut selection or the power CDF; Disney or
 Lambert BSDF; Russian roulette; primary-hit G-buffer.
 
-What the port covers is the single-BLAS scene (traversal="wavefront")
-and the instanced one (traversal="tlas": the two-level kernels, normals
-and tangents rotated by the hit instance's L2W, NEE over the instances'
-world light rows, the primary hit's instance in the stats), each with or
-without a heightfield terrain (marched after the meshes, the nearer hit
-kept, its layers' Disney parameters blended), under a constant or textured
-environment (env NEE + MIS) and analytic lights (a third NEE group,
-uniform or RIS selection; integrate/lights.py), with atlas textures
-fetched at ray-cone mip levels; a per-frame TAAU subpixel jitter; glass and
-cutout materials (shadow transmittance through the tinted surfaces, the
-stochastic cutout pass-through, and the nested-dielectric medium stack
-with Beer-Lambert absorption), and the
+What the port covers is the single-BLAS scene (traversal="bvh2", the
+default, over the BVH2 of any build; traversal="wavefront" over the
+CWBVH) and the instanced one (traversal="tlas": the two-level kernels,
+normals and tangents rotated by the hit instance's L2W, NEE over the
+instances' world light rows, the primary hit's instance in the stats),
+each with or without a heightfield terrain (marched after the meshes,
+the nearer hit kept, its layers' Disney parameters blended), under a
+constant or textured environment (env NEE + MIS) and analytic lights (a
+third NEE group, uniform or RIS selection; integrate/lights.py), with
+atlas textures fetched at ray-cone mip levels; a per-frame TAAU subpixel
+jitter; glass and cutout materials (shadow transmittance through the
+tinted surfaces, the stochastic cutout pass-through, and the
+nested-dielectric medium stack with Beer-Lambert absorption), and the
 hooks of the composed frame: the ReSTIR GI capture (`restir_capture`),
 the radiance cache's per-bounce records (`cache_capture`) and query
 (`cache_query_bounce`), and the ReSTIR DI light samples that drive the
@@ -51,7 +52,8 @@ from truetrace_tpu_torch.kernels.cwbvh_tlas import (
     any_hit_tlas, closest_hit_tlas, transmit_tlas)
 from truetrace_tpu_torch.kernels.cwbvh_wavefront import (
     any_hit_wavefront, closest_hit_wavefront, transmit_wavefront)
-from truetrace_tpu_torch.kernels.traverse_ref import Hit
+from truetrace_tpu_torch.kernels.traverse_ref import (
+    Hit, any_hit_bvh2, closest_hit_bvh2, transmit_brute)
 from truetrace_tpu_torch.scene.ir import Camera, Scene, camera_rays
 
 T_MAX = 1e30
@@ -63,9 +65,10 @@ MED_STACK = 4
 
 @dataclass(frozen=True)
 class RenderConfig:
-    """The JAX package's RenderConfig fields. The port renders pcg
-    sampling and the wavefront and tlas traversals without fuse_nee; the
-    other values raise in `check_supported`."""
+    """The JAX package's RenderConfig fields and defaults. The port
+    renders pcg sampling and the bvh2 (the default), wavefront and tlas
+    traversals without fuse_nee; the other values raise in
+    `check_supported`."""
     width: int = 256
     height: int = 256
     bounces: int = 4
@@ -94,11 +97,17 @@ def _todo(what: str, item: str):
 
 def check_supported(scene: Scene, cfg: RenderConfig) -> None:
     """Raise for every scene feature and option outside the ported path."""
-    if cfg.traversal not in ("wavefront", "tlas"):
+    if cfg.traversal not in ("bvh2", "wavefront", "tlas"):
         _todo(f"traversal={cfg.traversal!r}", "A.19")
     if cfg.traversal == "tlas" and scene.inst_rows is None:
         raise ValueError("traversal='tlas' needs an instanced scene "
                          "(scene/instances.py compile_scene_instanced)")
+    if cfg.traversal == "bvh2" and scene.bvh2_box.shape[0] == 0:
+        raise ValueError("traversal='bvh2' needs a single-BLAS scene "
+                         "(scene/mesh.py compile_scene)")
+    if cfg.traversal == "wavefront" and scene.cw_nodes.shape[0] == 0:
+        raise ValueError("traversal='wavefront' needs a CWBVH: "
+                         "compile_scene(with_cwbvh=True)")
     if cfg.sampler != "pcg":
         _todo(f"sampler={cfg.sampler!r}", "A.19")
     if cfg.fuse_nee:
@@ -308,6 +317,22 @@ def _tables(scene: Scene):
             scene.cw_leaf_rows.shape[0])
 
 
+def _scene_max_leaf(scene: Scene, cfg: RenderConfig) -> int:
+    """The BVH2 traversal's leaf capacity: a CWBVH build's BVH2 has
+    leaves of up to leaf_k triangles (the packed row width), a plain
+    build's cfg.max_leaf (where its SAH left a leaf larger, the
+    triangles past cfg.max_leaf are skipped, as in the JAX package)."""
+    if scene.cw_leaf_rows.shape[0] > 0:
+        return max(cfg.max_leaf, scene.cw_leaf_rows.shape[1] // 10)
+    return cfg.max_leaf
+
+
+def _bvh2(scene: Scene):
+    """The BVH2 traversal's tables: boxes, left, count, p0, e1, e2."""
+    return (scene.bvh2_box, scene.bvh2_left, scene.bvh2_count, scene.tri_p0,
+            scene.tri_e1, scene.tri_e2)
+
+
 def _trace(scene: Scene, ro, rd, alive, cfg: RenderConfig):
     """Closest hit: (Hit, inst [R] int64, the hit instance on the tlas
     path, else -1). Dead lanes get t_max = 0 (they never hit)."""
@@ -315,8 +340,13 @@ def _trace(scene: Scene, ro, rd, alive, cfg: RenderConfig):
     if cfg.traversal == "tlas":
         hit, inst = closest_hit_tlas(*_tables(scene), ro, rd, t_max)
         return hit, inst.to(torch.int64)
-    hit = closest_hit_wavefront(scene.cw_table(), scene.cw_nodes.shape[0],
-                                ro, rd, t_max, max_stack=scene.cw_stack)
+    if cfg.traversal == "wavefront":
+        hit = closest_hit_wavefront(scene.cw_table(),
+                                    scene.cw_nodes.shape[0], ro, rd, t_max,
+                                    max_stack=scene.cw_stack)
+    else:
+        hit = closest_hit_bvh2(*_bvh2(scene), ro, rd, t_max,
+                               max_leaf=_scene_max_leaf(scene, cfg))
     return hit, torch.full((ro.shape[0],), -1, dtype=torch.int64,
                            device=ro.device)
 
@@ -324,8 +354,11 @@ def _trace(scene: Scene, ro, rd, alive, cfg: RenderConfig):
 def _occluded_mesh(scene: Scene, ro, rd, t_max, cfg: RenderConfig):
     if cfg.traversal == "tlas":
         return any_hit_tlas(*_tables(scene), ro, rd, t_max)
-    return any_hit_wavefront(scene.cw_table(), scene.cw_nodes.shape[0],
-                             ro, rd, t_max, max_stack=scene.cw_stack)
+    if cfg.traversal == "wavefront":
+        return any_hit_wavefront(scene.cw_table(), scene.cw_nodes.shape[0],
+                                 ro, rd, t_max, max_stack=scene.cw_stack)
+    return any_hit_bvh2(*_bvh2(scene), ro, rd, t_max,
+                        max_leaf=_scene_max_leaf(scene, cfg))
 
 
 def _occluded(scene: Scene, ro, rd, t_max, cfg: RenderConfig):
@@ -349,10 +382,14 @@ def _transmission(scene: Scene, ro, rd, t_max, cfg: RenderConfig):
         return torch.where(blocked[..., None], 0.0, 1.0)
     if cfg.traversal == "tlas":
         tp = transmit_tlas(*_tables(scene), scene.tri_shadow, ro, rd, t_max)
-    else:
+    elif cfg.traversal == "wavefront":
         tp = transmit_wavefront(scene.cw_table(), scene.cw_nodes.shape[0],
                                 scene.tri_shadow, ro, rd, t_max,
                                 max_stack=scene.cw_stack)
+    else:
+        # the JAX package's O(R*T) oracle path on the other traversals
+        tp = transmit_brute(scene.tri_p0, scene.tri_e1, scene.tri_e2,
+                            scene.tri_shadow, ro, rd, t_max)
     if scene.terrain is not None:
         from truetrace_tpu_torch.kernels.heightmap import heightmap_any
         tp = torch.where(heightmap_any(scene.terrain, ro, rd, t_max)[

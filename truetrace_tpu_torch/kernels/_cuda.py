@@ -5,10 +5,11 @@ Each `csrc/*.cu` is compiled by its own nvcc process, all started
 together, into `truetrace_tpu_torch/_build/` (git-ignored) at first use,
 for sm_90a with `-O3` and the flags of its own (`NVCC_FLAGS[source]`):
 
-- `traverse.cu`, `step_core.cu`, `traverse_tlas.cu`, `heightmap.cu`:
-  `--fmad=false`. Their contract is bitwise: every mul and add rounds on
-  its own, as in the plain PyTorch versions, and the few mul-adds that
-  XLA contracts are written as explicit `__fmaf_rn` in the sources.
+- `traverse.cu`, `step_core.cu`, `traverse_tlas.cu`, `heightmap.cu`,
+  `traverse_bvh2.cu`: `--fmad=false`. Their contract is bitwise: every
+  mul and add rounds on its own, as in the plain PyTorch versions, and
+  the few mul-adds that XLA contracts are written as explicit
+  `__fmaf_rn` in the sources.
 - `atrous.cu`: no `--fmad=false`. Its contract is a tolerance (rtol 1e-4,
   atol 1e-5 against the plain pass), so nvcc contracts mul-adds; the few
   roundings the tolerance cannot absorb are written `__fmul_rn` /
@@ -41,7 +42,8 @@ BITWISE_FLAGS = _BASE_FLAGS + ["--fmad=false"]
 # source -> its nvcc flags (see the module docstring for why)
 NVCC_FLAGS = {"traverse.cu": BITWISE_FLAGS, "step_core.cu": BITWISE_FLAGS,
               "atrous.cu": _BASE_FLAGS, "traverse_tlas.cu": BITWISE_FLAGS,
-              "heightmap.cu": BITWISE_FLAGS}
+              "heightmap.cu": BITWISE_FLAGS,
+              "traverse_bvh2.cu": BITWISE_FLAGS}
 SOURCES = tuple(NVCC_FLAGS)
 
 _lock = threading.Lock()
@@ -74,6 +76,10 @@ _SIGNATURES = {
     "heightmap.cu": {
         "tt_heightmap": [P, I, I] + [F] * 10 + [P, P, P, I, I, I, I, P, P,
                                                  P, P, P],
+    },
+    "traverse_bvh2.cu": {
+        "tt_bvh2": [P, P, P, I, P, P, P, I, P, P, P, I, I, I, I, P, P, P, P,
+                    P],
     },
 }
 

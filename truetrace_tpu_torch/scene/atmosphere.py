@@ -9,13 +9,13 @@ float32 on the CPU: it runs once per sun position and no frame runs it;
 goes to `device`. The JAX package's terrain scenes light themselves with
 it (scripts/demo.py scene 4).
 
-The transmittance LUT and the sky march of `bake_sky_env` round as the
-JAX package's do on XLA:CPU, bit for bit: the mul-adds XLA contracts in
-that LUT builder are fmas here, exp and pow are XLA's (`core/math.py`
-`exp_xla`, `powf_libm`) and square roots are rounded to nearest. The
-multiple-scattering LUT takes its builder's sites too, within 2.5e-7
-(ROADMAP.md C.3); the irradiance LUT's march keeps the LUT builders'
-densities and plain products elsewhere (within 1.2e-7).
+The three LUTs and the sky of `bake_sky_env` round as the JAX package's
+do on XLA:CPU, bit for bit (ROADMAP.md C.3): the mul-adds XLA contracts
+in each jitted LUT builder are fmas here, at the sites read from its
+optimised IR and machine code; exp is XLA's, pow, sin and cos the C
+library's (`core/math.py` `exp_xla`, `powf_libm`, `sinf_libm`,
+`cosf_libm`), divisions by constants products with their float32
+reciprocals, and square roots rounded to nearest.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from truetrace_tpu_torch.core.math import exp_xla, fma, powf_libm, sqrt_rn
+from truetrace_tpu_torch.core.math import (
+    cosf_libm, dot_fma, exp_xla, fma, powf_libm, sinf_libm, sqrt_rn)
 
 R_GROUND = 6360.0
 R_TOP = 6460.0
@@ -62,6 +63,8 @@ def _c3(v) -> torch.Tensor:
 # reciprocal (x / 1.2 -> x * 0.833333313, x / 15 -> x * 0.0666666701)
 _INV_H_MIE = float(np.float32(1.0 / H_MIE))
 _INV_15 = float(np.float32(1.0 / 15.0))
+_INV_R_GROUND = float(np.float32(1.0 / R_GROUND))
+_ALBEDO_PI = float(np.float32(GROUND_ALBEDO / math.pi))
 
 
 def _densities(h, fused: bool = True):
@@ -101,8 +104,9 @@ def _extinction(h, fused: bool = True):
                s)
 
 
-def _scattering(h, fused: bool = True):
-    rho_r, rho_m, _ = _densities(h, fused)
+def _scattering(h):
+    """[..., 3] scattering, op by op (the eager sky bake's)."""
+    rho_r, rho_m, _ = _densities(h, False)
     return _c3(BETA_R) * rho_r[..., None] + BETA_M_SCAT * rho_m[..., None]
 
 
@@ -250,9 +254,10 @@ def build_multiscatter(tlut) -> torch.Tensor:
     r mu product (both distances live in one fusion), dt = t_end * 0.05,
     the march's radius and local sun cosine as fmas, the optical depth
     and the L2 / f_ms sums as fma(x, dt, sum) after a first fma(x_0, dt,
-    x_1 dt), the mean over directions as two 32-wide windows. Within
-    2.5e-7 of the JAX LUT: the back end leaves two colour channels'
-    ozone products unfused on an AVX-512 host (ROADMAP.md C.3)."""
+    x_1 dt), the mean over directions as two 32-wide windows; in the
+    ground bounce the sun cosine's numerator fused, the division by
+    R_GROUND a product with its reciprocal and the albedo constant moved
+    onto the cosine. The JAX LUT's bits (ROADMAP.md C.3)."""
     g = (torch.arange(MS_N, dtype=F32) + 0.5) / MS_N
     mu_s = 2.0 * g - 1.0
     r0 = R_GROUND + g * (R_TOP - R_GROUND) * 0.99 + 0.05
@@ -305,13 +310,16 @@ def build_multiscatter(tlut) -> torch.Tensor:
             fms, L2 = fma(xf0, dt, xf * dt), fma(xl0, dt, xl * dt)
         else:
             fms, L2 = fma(xf, dt, fms), fma(xl, dt, L2)
+    # the ground bounce: XLA contracts the sun cosine's numerator, turns
+    # the division by R_GROUND into a product with its reciprocal and
+    # moves the albedo constant onto the cosine
     rad_g = torch.full_like(t_end, R_GROUND)
-    mu_sg = torch.clamp((rms + t_end * cos_vs) / rad_g, -1.0, 1.0)
+    mu_sg = torch.clamp(fma(t_end, cos_vs, rms) * _INV_R_GROUND, -1.0, 1.0)
     t_sun_g = sample_transmittance(tlut, rad_g, mu_sg)
     L2 = L2 + torch.where(
         hits_ground[..., None],
-        exp_xla(-od) * (GROUND_ALBEDO / math.pi)
-        * torch.clamp(mu_sg, min=0.0)[..., None] * t_sun_g, 0.0)
+        exp_xla(-od) * (torch.clamp(mu_sg, min=0.0) * _ALBEDO_PI)[..., None]
+        * t_sun_g, 0.0)
     _, L2 = _window_mean64(L2)
     f_sum, _ = _window_mean64(fms)
     psi = L2 / torch.clamp(fma(-f_sum, _k(f_sum, 1.0 / 64.0),
@@ -338,11 +346,15 @@ def sample_multiscatter(ms_lut, r, mu_s):
 def build_irradiance(tlut, ms_lut) -> torch.Tensor:
     """[IR_W, 3] ground irradiance per unit sun irradiance over mu_s: the
     transmitted sun and the cosine-weighted sky (single and multiple
-    scattering) over a 16 x 8 stratified hemisphere."""
+    scattering) over a 16 x 8 stratified hemisphere: the JAX builder's
+    jitted, vmapped march with XLA:CPU's sites (_irradiance_sky); the
+    directions' sin and cos the C library's, as XLA:CPU's; the mean over
+    the 128 directions as four 32-wide sums in order times pi / 128; the
+    direct term's product fused into the sum."""
     mu_s = 2.0 * (torch.arange(IR_W, dtype=F32) + 0.5) / IR_W - 1.0
-    r = torch.full((IR_W,), R_GROUND + 0.01)
-    direct = sample_transmittance(tlut, r, torch.clamp(mu_s, min=0.0)) \
-        * torch.clamp(mu_s, min=0.0)[..., None]
+    mx = torch.clamp(mu_s, min=0.0)
+    t_sun = sample_transmittance(tlut, torch.full((IR_W,), R_GROUND + 0.01),
+                                 mx)
     nth, nph = 8, 16
     u1 = (torch.arange(nth, dtype=F32) + 0.5) / nth
     u2 = (torch.arange(nph, dtype=F32) + 0.5) / nph
@@ -350,16 +362,104 @@ def build_irradiance(tlut, ms_lut) -> torch.Tensor:
     st = sqrt_rn(1.0 - u1)
     phi = 2.0 * math.pi * u2
     dirs = torch.stack(torch.broadcast_tensors(
-        st[:, None] * torch.cos(phi)[None, :],
+        st[:, None] * cosf_libm(phi)[None, :],
         ct[:, None] * torch.ones((1, nph)),
-        st[:, None] * torch.sin(phi)[None, :]), -1).reshape(-1, 3)
-    luts = AtmosphereLUTs(transmittance=tlut, multiscatter=ms_lut)
-    # every sun cosine's march at once (the JAX package vmaps it)
+        st[:, None] * sinf_libm(phi)[None, :]), -1).reshape(-1, 3)
+    L = _irradiance_sky(tlut, ms_lut, dirs, mu_s)
+    total = None
+    for k in range(0, 128, 32):
+        part = torch.zeros_like(L[:, 0])
+        for j in range(k, k + 32):
+            part = part + L[:, j]
+        total = part if total is None else total + part
+    return fma(t_sun, mx[:, None].expand(IR_W, 3),
+               total * float(np.float32(math.pi / 128)))
+
+
+def _irradiance_sky(tlut, ms_lut, dirs, mu_s, n_steps: int = 12):
+    """[IR_W, D, 3] sky radiance per unit sun irradiance for dirs [D,3]
+    and suns (0, mu_s, sqrt(1 - mu_s^2)) from R_GROUND + 0.01, without
+    the ground bounce: _sky_march as XLA:CPU compiles it inside the
+    jitted, vmapped irradiance builder. What depends on the direction
+    alone (the distance, dt = d x float32(1/12), the densities, the
+    optical depth as fma(ext, dt, sum) after fma(ext_0, dt, ext_1 dt))
+    is computed once a direction; XLA's sites besides: cos_vs a dot
+    product reduced with fmas, the phases' 1 + c^2 and the Mie base as
+    fmas, the Rayleigh constant moved onto the density, the local sun
+    cosine's numerator fused, the in-scattering's Rayleigh product and
+    the multiple-scattering lookup's coordinates (v = fma(h, 0.32, -0.5))
+    and bilinear blends fused, the step's multiple-scattering product
+    fused into the single-scattering term, and the running sum as the
+    optical depth's."""
+    r0 = R_GROUND + 0.01
+    W, D = mu_s.shape[0], dirs.shape[0]
+    mu = dirs[:, 1]
     sun = torch.stack([0.0 * mu_s, mu_s,
                        sqrt_rn(torch.clamp(1.0 - mu_s * mu_s, min=0.0))], -1)
-    L = _sky_march(luts, dirs.expand(IR_W, -1, -1), sun[:, None, :],
-                   R_GROUND + 0.01, n_steps=12, ground_albedo=0.0)
-    return direct + math.pi * L.mean(1)
+    cos_vs = dot_fma(dirs[None].expand(W, D, 3),
+                     sun[:, None].expand(W, D, 3))
+    one_c2 = fma(cos_vs, cos_vs, torch.ones_like(cos_vs))
+    g = MIE_G
+    ph_m = (3.0 / (8.0 * math.pi) * (1.0 - g * g)) * one_c2 / (
+        (2.0 + g * g) * powf_libm(fma(_k(cos_vs, -2.0 * g), cos_vs,
+                                      _k(cos_vs, 1.0 + g * g)), 1.5))
+    d_g = _dist_to_ground(r0, mu)
+    d = torch.where(torch.isfinite(d_g), d_g, _dist_to_top(r0, mu))
+    dt = d * float(np.float32(1.0 / n_steps))
+    dt3 = dt[:, None].expand(D, 3)
+    rms = r0 * sun[:, 1][:, None].expand(W, D)
+    beta_r = _c3(BETA_R)
+    k_r = float(np.float32(3.0 / (16.0 * math.pi)))
+    shape = (W, D, 3)
+    for i in range(n_steps):
+        t = (i + 0.5) / n_steps * d
+        rad = sqrt_rn(r0 * r0 + t * t + 2.0 * r0 * mu * t)
+        h = rad - R_GROUND
+        rho_r, rho_m, _ = _densities(h)
+        ext = _extinction(h)
+        if i == 0:
+            od = ext * dt3
+        elif i == 1:
+            od = fma(ext0, dt3, ext * dt3)
+        else:
+            od = fma(ext, dt3, od)
+        t_view = exp_xla(-od)
+        mu_l = torch.clamp(fma(t[None].expand(W, D), cos_vs, rms)
+                           / rad[None], -1.0, 1.0)
+        t_sun = sample_transmittance(tlut, rad[None].expand(W, D), mu_l)
+        lit = _earth_lit(rad[None].expand(W, D), mu_l)
+        scat = fma(beta_r.expand(shape),
+                   (one_c2 * (rho_r * k_r)[None])[..., None].expand(shape),
+                   ((ph_m * rho_m[None]) * BETA_M_SCAT)[..., None].expand(
+                       shape))
+        # the multiple-scattering LUT, bilinear at (altitude, mu_l)
+        u = torch.clamp(fma(fma(mu_l, _k(mu_l, 0.5), _k(mu_l, 0.5)),
+                            _k(mu_l, float(MS_N)), _k(mu_l, -0.5)),
+                        0.0, MS_N - 1.0)
+        v = torch.clamp(fma(h, _k(h, float(np.float32(0.32))), _k(h, -0.5)),
+                        0.0, MS_N - 1.0)[None].expand(W, D)
+        u0 = torch.floor(u).to(torch.int64)
+        v0 = torch.floor(v).to(torch.int64)
+        u1 = torch.clamp(u0 + 1, max=MS_N - 1)
+        v1 = torch.clamp(v0 + 1, max=MS_N - 1)
+        fu = (u - u0)[..., None].expand(shape)
+        fv = (v - v0)[..., None].expand(shape)
+        a = fma(ms_lut[v0, u0], 1 - fu, ms_lut[v0, u1] * fu)
+        b = fma(ms_lut[v1, u0], 1 - fu, ms_lut[v1, u1] * fu)
+        psi = fma(a, 1 - fv, b * fv)
+        scat_ms = fma(beta_r.expand(D, 3), rho_r[:, None].expand(D, 3),
+                      (rho_m * BETA_M_SCAT)[:, None].expand(D, 3))
+        step = fma(scat_ms[None].expand(shape), psi,
+                   scat * lit[..., None] * t_sun)
+        x = t_view[None] * step
+        if i == 0:
+            ext0, x0 = ext, x
+            L = x * dt3[None]
+        elif i == 1:
+            L = fma(x0, dt3[None].expand(shape), x * dt3[None])
+        else:
+            L = fma(x, dt3[None].expand(shape), L)
+    return L
 
 
 def sample_irradiance(ir_lut, mu_s):
@@ -393,16 +493,13 @@ def _sum3(v):
 
 
 def _sky_march(luts: AtmosphereLUTs, view_dir, sun_dir, r0,
-               n_steps: int = 24, ground_albedo: float = GROUND_ALBEDO,
-               fused: bool = True):
+               n_steps: int = 24, ground_albedo: float = GROUND_ALBEDO):
     """Sky radiance per unit sun irradiance for view dirs [R,3] from
     radius r0 (y up): single scattering with the real phases, Psi_ms
     multiple scattering per step, the transmitted ground bounce for rays
-    that hit the planet. fused=False rounds as the JAX package's eager
-    sky bake does, op by op (XLA's exp, the C library's powf, correctly
-    rounded sqrt); fused=True takes the LUT builders' contractions of the
-    densities, which build_irradiance's march runs under jit (its other
-    sites are not matched: ROADMAP.md C.3)."""
+    that hit the planet, rounded as the JAX package's eager sky bake
+    runs it, op by op (XLA's exp, the C library's powf, correctly rounded
+    sqrt)."""
     mu = view_dir[..., 1]
     cos_vs = _sum3(view_dir * sun_dir)
     mu_s0 = sun_dir[..., 1]
@@ -418,8 +515,8 @@ def _sky_march(luts: AtmosphereLUTs, view_dir, sun_dir, r0,
         t = (i + 0.5) / n_steps * d
         rad = sqrt_rn(r0 * r0 + t * t + 2.0 * r0 * mu * t)
         h = rad - R_GROUND
-        rho_r, rho_m, _ = _densities(h, fused)
-        od = od + _extinction(h, fused) * dt[..., None]
+        rho_r, rho_m, _ = _densities(h, False)
+        od = od + _extinction(h, False) * dt[..., None]
         t_view = exp_xla(-od)
         mu_s = torch.clamp((r0 * mu_s0 + t * cos_vs) / rad, -1.0, 1.0)
         t_sun = sample_transmittance(luts.transmittance, rad, mu_s)
@@ -428,7 +525,7 @@ def _sky_march(luts: AtmosphereLUTs, view_dir, sun_dir, r0,
                 + BETA_M_SCAT * (ph_m * rho_m)[..., None])
         step_L = scat * lit[..., None] * t_sun
         if luts.multiscatter is not None:
-            step_L = step_L + _scattering(h, fused) * sample_multiscatter(
+            step_L = step_L + _scattering(h) * sample_multiscatter(
                 luts.multiscatter, rad, mu_s)
         L = L + t_view * step_L * dt[..., None]
     if ground_albedo > 0.0:
@@ -451,8 +548,8 @@ def sky_radiance(luts: AtmosphereLUTs, view_dir, sun_dir,
     """Sky radiance for view directions [R,3] (every scattering order with
     `luts.multiscatter`, else single scattering)."""
     return _sky_march(luts, view_dir, sun_dir, R_GROUND + altitude_km,
-                      n_steps=n_steps, ground_albedo=ground_albedo,
-                      fused=False) * sun_irradiance
+                      n_steps=n_steps,
+                      ground_albedo=ground_albedo) * sun_irradiance
 
 
 def bake_sky_env(sun_dir=(0.3, 0.4, 0.2), h: int = 64, w: int = 128,
@@ -473,12 +570,10 @@ def bake_sky_env(sun_dir=(0.3, 0.4, 0.2), h: int = 64, w: int = 128,
                             indexing="ij")
     theta = math.pi * ys
     phi = 2.0 * math.pi * xs
-    # sin and cos rounded once from float64: closer to XLA's than torch's
-    # float32 kernels (neither is XLA's own, ROADMAP.md C.3)
-    sin, cos = (lambda x: torch.sin(x.double()).float(),
-                lambda x: torch.cos(x.double()).float())
-    d = torch.stack([sin(theta) * cos(phi), cos(theta),
-                     sin(theta) * sin(phi)], -1).reshape(-1, 3)
+    # the C library's sinf and cosf, which XLA:CPU's jnp.sin and jnp.cos
+    # are (torch's float32 kernels are not)
+    d = torch.stack([sinf_libm(theta) * cosf_libm(phi), cosf_libm(theta),
+                     sinf_libm(theta) * sinf_libm(phi)], -1).reshape(-1, 3)
     if luts is None:
         luts = build_luts()
     L = sky_radiance(luts, d, sd_t, sun_irradiance=sun_irradiance)

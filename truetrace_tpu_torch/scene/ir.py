@@ -223,7 +223,8 @@ TEX_SLOTS = ("tex_albedo", "tex_normal", "tex_emission", "tex_rough_metal",
 @dataclass
 class Scene:
     """The render-ready scene (the fields the port's frame reads).
-    Triangles are in CWBVH leaf order; `cw_nodes` are the
+    Triangles are in CWBVH leaf order, or in BVH2 leaf order on a build
+    without the CWBVH (whose CWBVH tables are empty); `cw_nodes` are the
     pack_leaf_rows-patched 20-word nodes (int32 bits), `cw_leaf_rows` the
     [L,10K] leaf rows (f32, id columns hold int32 bits). An instanced
     scene (scene/instances.py) holds local-space triangles of its sources

@@ -34,8 +34,8 @@ relative to the manifest file.
 Port of `truetrace_tpu/scene/manifest.py`, with the same scene tables
 (tests/test_torch_sources.py). `tex_file_*` textures are PNG files read
 by the port's own codec (scene/png.py; other formats raise, ROADMAP.md
-A.27). The port traverses the CWBVH only, so a manifest whose
-`render.traversal` is "bvh2" or "cwbvh" raises (ROADMAP.md A.19).
+A.27). A manifest whose `render.traversal` is "cwbvh" (the one-node-a-
+step oracle) raises (ROADMAP.md A.19); "bvh2" builds without the CWBVH.
 """
 from __future__ import annotations
 
@@ -191,7 +191,7 @@ def load_manifest(path: str, device="cuda"):
         traversal=rc.get("traversal", "wavefront"),
         light_sampling=rc.get("light_sampling", "tree"),
         use_nee=rc.get("use_nee", True))
-    if cfg.traversal in ("bvh2", "cwbvh"):
+    if cfg.traversal == "cwbvh":
         raise NotImplementedError(
             f"manifest traversal {cfg.traversal!r} is not ported yet "
             f"(ROADMAP.md A.19)")

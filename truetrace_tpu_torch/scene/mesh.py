@@ -1,6 +1,7 @@
 """Host-side mesh container + scene compilation into the port's Scene.
 
-Port of `truetrace_tpu/scene/mesh.py` for the single-BLAS CWBVH scene:
+Port of `truetrace_tpu/scene/mesh.py` for the single-BLAS scene (the
+BVH2 alone, the JAX default, or with the CWBVH):
 numpy in, a `Scene` of tensors on `device` out. The tables are bitwise
 equal to the JAX package's (tests/test_torch_scene.py), the texture
 atlas and per-triangle texture LOD included (tests/test_torch_sponza.py).
@@ -256,10 +257,12 @@ def compile_scene(meshes: List[HostMesh], mats: List[HostMaterial],
     means no cache. presplit > 0 bisects triangles whose AABB half-area
     exceeds `presplit` x the scene mean before the build
     (build/presplit.py). hot_order places the leaf-row groups of the
-    hottest nodes first (cwbvh_wavefront.reorder_leaf_rows_hot)."""
-    if not with_cwbvh:
-        raise NotImplementedError("the port traverses the CWBVH only: "
-                                  "pass with_cwbvh=True (ROADMAP.md A.19)")
+    hottest nodes first (cwbvh_wavefront.reorder_leaf_rows_hot).
+
+    with_cwbvh=False (the default, as in the JAX package) builds the BVH2
+    alone, with leaves of `max_leaf` triangles (the SAH may stop at up to
+    24), for traversal="bvh2": the triangles in BVH2 leaf order, empty
+    CWBVH tables, cw_stack 16 and no build cache."""
     tris = flatten_meshes(meshes)
     if presplit > 0.0:
         from truetrace_tpu_torch.build.presplit import presplit_triangles
@@ -273,7 +276,7 @@ def compile_scene(meshes: List[HostMesh], mats: List[HostMaterial],
     if cache_dir is None:
         cache_dir = _bc.default_cache_dir()
     cache_key = cached = new_products = None
-    if cache_dir is not None:
+    if cache_dir is not None and with_cwbvh:
         cache_key = _bc.scene_build_key(tris, mats, leaf_k, with_light_bvh,
                                         hot_order=hot_order)
         cached = _bc.load_build(cache_dir, cache_key)
@@ -289,7 +292,7 @@ def compile_scene(meshes: List[HostMesh], mats: List[HostMaterial],
                                    cached["cw_tri_index"],
                                    cached["cw_leaf_rows"])
         cw_stack = int(cached["cw_stack"])
-    else:
+    elif with_cwbvh:
         # CWBVH collapse needs BVH2 leaves with <= leaf_k prims
         bvh = build_bvh2(tri_box, max_leaf=leaf_k, sah_leaf_cap=leaf_k)
         perm = bvh.order
@@ -319,6 +322,16 @@ def compile_scene(meshes: List[HostMesh], mats: List[HostMaterial],
                 cw_nodes=nodes2, cw_tri_index=cw.tri_index,
                 cw_leaf_rows=rows, cw_stack=np.int32(cw_stack),
                 bvh2_depth=np.int32(bvh.depth))
+    else:
+        bvh = build_bvh2(tri_box, max_leaf=max_leaf)
+        # triangles in BVH2 leaf order (contiguous leaf runs)
+        for key in ("p0", "e1", "e2", "n", "uv", "tan", "mat"):
+            tris[key] = tris[key][bvh.order]
+        bvh_box, bvh_left, bvh_count = bvh.box, bvh.left, bvh.count
+        nodes2 = np.zeros((0, 20), np.uint32)
+        tri_index = np.zeros((0,), np.int32)
+        rows = np.zeros((0, 30), np.float32)
+        cw_stack = 16
 
     light_tris = _emissive_light_tris(tris, mats, device)
     tri_lod = texture_lod(tris, mats, atlas_rects)
