@@ -247,6 +247,33 @@ def log(*a):
     print(f"[{time.perf_counter() - _T0:6.1f} s]", *a, flush=True)
 
 
+PHASE_S = {}    # each top-level phase's seconds, summed over its calls
+_PHASE_DEPTH = [0]
+
+
+def timed_phase(fn):
+    """fn, its seconds added to PHASE_S under its name (with its `label`
+    argument, where it has one) when no other timed phase is running."""
+    import functools
+    import inspect
+    sig = inspect.signature(fn)
+
+    @functools.wraps(fn)
+    def wrap(*a, **kw):
+        _PHASE_DEPTH[0] += 1
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            _PHASE_DEPTH[0] -= 1
+            if _PHASE_DEPTH[0] == 0:
+                label = sig.bind_partial(*a, **kw).arguments.get("label")
+                key = fn.__name__ + (f"[{label}]" if label else "")
+                PHASE_S[key] = PHASE_S.get(key, 0.0) + (
+                    time.perf_counter() - t0)
+    return wrap
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() on the current stream (CUDA events),
     after one warm-up call."""
@@ -5571,16 +5598,18 @@ KERNELS = (
 )
 
 
-def ptxas_of(src: str, want: str) -> dict:
-    """What ptxas reported in this run's build for the kernels of `src`
-    named `want` ("traverse_kernel<6,0>" is one instantiation,
+def ptxas_of(src: str, want: str, log: str | None = None) -> dict:
+    """What ptxas reported in this run's build (or in the nvcc output
+    `log` of another build) for the kernels of `src` named `want`
+    ("traverse_kernel<6,0>" is one instantiation,
     "atrous_staged|atrous_direct" every instantiation of both kernels):
     {name<template args>: registers, spills, stack frame, static shared
     memory}."""
     from truetrace_tpu_torch.kernels import _cuda
     base = want.split("<")[0]
     out = {}
-    for mangled, info in _cuda.ptxas_report(os.path.basename(src)).items():
+    for mangled, info in _cuda.ptxas_report(os.path.basename(src),
+                                            log).items():
         m = re.search(rf"({base})(I(?:L[a-z]\d+E)+E)?", mangled)
         if m:
             args = re.findall(r"L[a-z](\d+)E", m.group(2) or "")
@@ -5882,7 +5911,11 @@ def main() -> int:
         f"{k}: {v:.5f}" for k, v in a["ms_by_step"].items())
         + f"; mean {a['ms']:.5f} = {a['bound_ms'] / a['ms']:.3f} of the "
         f"bound; packing {a['pack_ms']:.5f} ms a frame")
-    log(f"total {time.perf_counter() - t_all:.1f} s")
+    total = time.perf_counter() - t_all
+    log("phase seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_S.items()) + f"; the rest (build, "
+        f"scenes) {total - sum(PHASE_S.values()):.1f}")
+    log(f"total {total:.1f} s")
     print(card, flush=True)
     # library_ms: no single PyTorch call computes any of these functions
     # each kernel's main path: the atrium frame's, the glass frame's for
@@ -5944,8 +5977,8 @@ def main() -> int:
     # the traversal kernel; its own launch is held against its plain
     # version above but is not on the main path ("off_path").
     print(json.dumps({"kernels": [rows[n] for n in PATH_KERNELS],
-                      "off_path": [rows["step_core"]], "frames": frames}),
-          flush=True)
+                      "off_path": [rows["step_core"]], "frames": frames,
+                      "phase_s": PHASE_S}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -5986,6 +6019,11 @@ def sponza_row(name: str, results: dict, launches: dict) -> dict:
                    bound_by=a["bound_by"],
                    share_of_bound=a["bound_ms"] / a["sponza"]["ms"])
     return row
+
+
+for _name, _fn in list(globals().items()):
+    if _name.startswith("phase_") or _name == "run_path":
+        globals()[_name] = timed_phase(_fn)
 
 
 if __name__ == "__main__":

@@ -19,7 +19,9 @@ ReSTIR-ASVGF, ReCur and nested-glass frames, and for the post chain
 with temporal auto exposure, TAAU with partial rendering and analytic
 lights, and the neural_taa denoiser; the two-level traversal's three
 queries bit for bit at every leaf width (a 2-entry stack among them),
-the heightmap march bit for bit, and the two frame checks for the
+on overlapping and nested instances, and built with its iteration cap
+lowered to 12 against the plain version's at 12; the heightmap march
+bit for bit, and the two frame checks for the
 forest (instances on a terrain, the lanterns moved between frames by
 update_instance_transforms and replayed with no recapture); and the
 animated atrium: pose_scene without a host sync and bit for bit the
@@ -1065,42 +1067,195 @@ def tlas_scenes(dev):
     return out, ro, rd, tm
 
 
-@pytest.mark.parametrize("k", [3, 4, 5, 6, 8, 12])
-@pytest.mark.parametrize("query", ["closest", "any", "transmit"])
-@pytest.mark.parametrize("stack", [16, 2])
-def test_tlas_kernel_bitwise(tlas_scenes, k, query, stack):
-    """closest_hit_tlas (t, tri, u, v, inst), any_hit_tlas and
-    transmit_tlas (random tints) bit for bit their plain versions for
-    every compiled leaf width, with the 16-entry ring and a 2-entry one
-    whose pushes drop entries, TLAS ones among them (some rays then lose
-    instances, the same ones); dead lanes miss."""
+def _rotation(r):
+    """A random rotation matrix (from a unit quaternion)."""
+    q = r.normal(size=4)
+    w, x, y, z = q / np.linalg.norm(q)
+    return np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                      2 * (x * z + y * w)],
+                     [2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+                      2 * (y * z - x * w)],
+                     [2 * (x * z - y * w), 2 * (y * z + x * w),
+                      1 - 2 * (x * x + y * y)]], np.float32)
+
+
+@pytest.fixture(scope="module")
+def tlas_mixed(dev):
+    """Overlapping and nested instances at K = 3 and 6: spheres and boxes
+    in four shells about the origin (nested instance boxes) and 48
+    sphere, grid and box instances crowded into a cube of side 3
+    (overlapping boxes), so one warp's lanes enter, leave and test
+    triangles around the same trips; rays from inside the crowd in every
+    direction and from outside towards it, every fifth lane dead, the
+    rest with finite and infinite t_max: ({K: scene}, ro, rd, t_max)."""
+    from truetrace_tpu_torch.scene.instances import compile_scene_instanced
+    from truetrace_tpu_torch.scene.mesh import HostMaterial, HostMesh
+    from truetrace_tpu_torch.scene.primitives import grid, uv_sphere
+    r = np.random.default_rng(1)
+    sv, si, _ = uv_sphere(12, 16, radius=0.5)
+    gv, gi, _ = grid(4, 4, 1.0, 1.0)
+    bv = np.array([[x, y, z] for x in (-.5, .5) for y in (-.5, .5)
+                   for z in (-.5, .5)], np.float32)
+    bf = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5],
+                   [0, 5, 1], [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4],
+                   [1, 5, 7], [1, 7, 3]], np.int32)
+    srcs = [HostMesh(v.astype(np.float32), i.astype(np.int32),
+                     np.full(len(i), m, np.int32))
+            for m, (v, i) in enumerate(((sv, si), (gv, gi), (bv, bf)))]
+    inst = []
+    for s in (0.6, 1.2, 2.4, 4.8):
+        inst.append((0, np.diag([s, s, s, 1]).astype(np.float32)))
+        m = np.diag([0.5 * s, 0.5 * s, 0.5 * s, 1]).astype(np.float32)
+        m[:3, :3] = m[:3, :3] @ _rotation(r)
+        inst.append((2, m))
+    for k in range(48):
+        m = np.eye(4, dtype=np.float32)
+        m[:3, :3] = np.diag(r.uniform(0.4, 1.2, 3)) @ _rotation(r)
+        m[3, :3] = r.uniform(-1.5, 1.5, 3)
+        inst.append((k % 3, m))
+    mats = [HostMaterial(), HostMaterial(), HostMaterial()]
+    out = {k: compile_scene_instanced(srcs, mats, inst, leaf_k=k,
+                                      device=dev)[0] for k in (3, 6)}
+    R, half = 6001, 3000
+    ro = np.concatenate([r.uniform(-1, 1, (half, 3)),
+                         8 * _unit(r, R - half)]).astype(np.float32)
+    to = r.uniform(-1, 1, (R - half, 3)).astype(np.float32) - ro[half:]
+    rd = np.concatenate([_unit(r, half), to / np.linalg.norm(
+        to, axis=1, keepdims=True)]).astype(np.float32)
+    tm = r.uniform(0.3, 12, R).astype(np.float32)
+    tm[r.random(R) < 0.4] = 1e30
+    tm[::5] = 0.0
+    return out, *(torch.from_numpy(x).to(dev) for x in (ro, rd, tm))
+
+
+def _tints(sc, seed: int, dev):
+    """Random shadow tints [T,3] of a scene's triangles."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.rand((sc.n_tris(), 3), generator=g).to(dev)
+
+
+def _hold_tlas(tl, sc, ro, rd, tm, query: str, stack: int, seed: int,
+               lib=None):
+    """One query of a traverse_tlas.cu build (the port's, or `lib`)
+    against the plain version, bit for bit: (kernel result, plain
+    result, the plain version's counts)."""
     import chip_smoke
-    from truetrace_tpu_torch.kernels import cwbvh_tlas as tl
-    out, ro, rd, tm = tlas_scenes
-    sc = out[k]
     a = (sc.cw_table(), sc.cw_nodes.shape[0], sc.cw_leaf_rows.shape[0])
+    counts = {}
     if query == "closest":
-        hk, ik = tl.closest_hit_tlas(*a, ro, rd, tm, stack)
-        hp, ip = tl.closest_hit_tlas_plain(*a, ro, rd, tm, stack)
+        (hk, ik) = got = tl._launch(*a, ro, rd, tm, tl.CLOSEST, stack,
+                                    lib=lib)
+        hp, ip = want = tl.closest_hit_tlas_plain(*a, ro, rd, tm, stack,
+                                                  counts)
         for f in ("t", "tri", "u", "v"):
             assert chip_smoke.torch_equal_bits(getattr(hk, f),
                                                getattr(hp, f)), f
         assert torch.equal(ik, ip.to(ik.dtype))
-        assert bool((hk.tri[:100] == -1).all() and (ik[:100] == -1).all())
+    elif query == "any":
+        got = tl._launch(*a, ro, rd, tm, tl.ANY, stack, lib=lib)[0].tri >= 0
+        want = tl.any_hit_tlas_plain(*a, ro, rd, tm, stack, counts)
+        assert torch.equal(got, want)
+    else:
+        tint = _tints(sc, seed, ro.device)
+        got = tl._launch(*a, ro, rd, tm, tl.TRANSMIT, stack, tint, lib=lib)
+        want = tl.transmit_tlas_plain(*a, tint, ro, rd, tm, stack, counts)
+        assert chip_smoke.torch_equal_bits(got, want)
+    return got, want, counts
+
+
+@pytest.mark.parametrize("scene,k", [("scattered", k)
+                                     for k in (3, 4, 5, 6, 8, 12)]
+                         + [("mixed", 3), ("mixed", 6)],
+                         ids=["3", "4", "5", "6", "8", "12", "mixed3",
+                              "mixed6"])
+@pytest.mark.parametrize("query", ["closest", "any", "transmit"])
+@pytest.mark.parametrize("stack", [16, 2])
+def test_tlas_kernel_bitwise(request, scene, k, query, stack):
+    """closest_hit_tlas (t, tri, u, v, inst), any_hit_tlas and
+    transmit_tlas (random tints) bit for bit their plain versions with
+    the 16-entry ring and a 2-entry one whose pushes drop entries, TLAS
+    ones among them (some rays then lose instances, the same ones), at
+    every compiled leaf width on scattered instances and at K = 3 and 6
+    on overlapping and nested ones (tlas_mixed: over three entries a
+    live ray, so warps mix entering, leaving, node and triangle lanes);
+    dead lanes miss."""
+    from truetrace_tpu_torch.kernels import cwbvh_tlas as tl
+    out, ro, rd, tm = request.getfixturevalue(
+        "tlas_scenes" if scene == "scattered" else "tlas_mixed")
+    sc = out[k]
+    dead, live = tm <= 0, tm > 0
+    assert bool(dead.any())
+    a = (sc.cw_table(), sc.cw_nodes.shape[0], sc.cw_leaf_rows.shape[0])
+    if query == "closest":
+        wrapped = tl.closest_hit_tlas(*a, ro, rd, tm, stack)
+        (hk, ik), _, counts = _hold_tlas(tl, sc, ro, rd, tm, query, stack, k)
+        assert all(torch.equal(getattr(wrapped[0], f), getattr(hk, f))
+                   for f in ("t", "tri", "u", "v"))
+        assert bool((hk.tri[dead] == -1).all() and (ik[dead] == -1).all())
         if stack == 2:
             full, _ = tl.closest_hit_tlas_plain(*a, ro, rd, tm, 16)
             assert bool((hk.tri != full.tri).any())
+        if scene == "mixed":
+            assert float(counts["inst_entries"][live].float().mean()) > 3
     elif query == "any":
-        ok = tl.any_hit_tlas(*a, ro, rd, tm, stack)
-        assert torch.equal(ok, tl.any_hit_tlas_plain(*a, ro, rd, tm, stack))
+        ok, _, _ = _hold_tlas(tl, sc, ro, rd, tm, query, stack, k)
+        assert torch.equal(ok, tl.any_hit_tlas(*a, ro, rd, tm, stack))
         assert 0.05 < float(ok.float().mean()) < 0.95
     else:
-        g = torch.Generator(device="cpu").manual_seed(k)
-        tint = torch.rand((sc.n_tris(), 3), generator=g).to(ro.device)
-        tk = tl.transmit_tlas(*a, tint, ro, rd, tm, stack)
-        tp = tl.transmit_tlas_plain(*a, tint, ro, rd, tm, stack)
-        assert chip_smoke.torch_equal_bits(tk, tp)
-        assert bool((tk[:100] == 1).all())
+        import chip_smoke
+        tk, _, _ = _hold_tlas(tl, sc, ro, rd, tm, query, stack, k)
+        assert chip_smoke.torch_equal_bits(tk, tl.transmit_tlas(
+            *a, _tints(sc, k, ro.device), ro, rd, tm, stack))
+        assert bool((tk[dead] == 1).all())
+
+
+@pytest.fixture(scope="module")
+def tlas_cap_lib(dev):
+    """traverse_tlas.cu built with its iteration cap lowered to 12
+    (TT_ITER_CAP), the port's flags otherwise."""
+    import ctypes
+    src = "traverse_tlas.cu"
+    lib, _ = _cuda.build_file(_cuda.CSRC, src, _cuda.NVCC_FLAGS[src]
+                              + ["-DTT_ITER_CAP=12"])
+    for fn, argtypes in _cuda._SIGNATURES[src].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+@pytest.mark.parametrize("k", [3, 6])
+@pytest.mark.parametrize("query", ["closest", "any", "transmit"])
+def test_tlas_kernel_iteration_cap(tlas_mixed, tlas_cap_lib, monkeypatch,
+                                   k, query):
+    """The two-level kernel stops each ray at the iteration cap where the
+    JAX loop does, the entry whose BLAS root decode the cap cuts off
+    included: built with a cap of 12, bit for bit the plain version
+    with ITER_CAP 12 on tlas_mixed's rays, where over 100 rays take an
+    instance entry as their 12th iteration (their entries counted at
+    caps 11 and 12 differ) and the cap changes over 100 rays' results."""
+    from truetrace_tpu_torch.kernels import cwbvh_tlas as tl
+    out, ro, rd, tm = tlas_mixed
+    sc = out[k]
+    a = (sc.cw_table(), sc.cw_nodes.shape[0], sc.cw_leaf_rows.shape[0])
+    if query == "transmit":
+        a = a + (_tints(sc, k, ro.device),)
+    plain = dict(closest=tl.closest_hit_tlas_plain,
+                 any=tl.any_hit_tlas_plain,
+                 transmit=tl.transmit_tlas_plain)[query]
+    c11 = {}
+    monkeypatch.setattr(tl, "ITER_CAP", 11)
+    plain(*a, ro, rd, tm, 16, c11)
+    monkeypatch.setattr(tl, "ITER_CAP", 12)
+    got, want, c12 = _hold_tlas(tl, sc, ro, rd, tm, query, 16, k,
+                                lib=tlas_cap_lib)
+    assert int((c12["inst_entries"] > c11["inst_entries"]).sum()) > 100
+    monkeypatch.setattr(tl, "ITER_CAP", 65536)
+    uncapped = _hold_tlas(tl, sc, ro, rd, tm, query, 16, k)[0]
+    if query == "closest":
+        got, uncapped = got[0].tri, uncapped[0].tri
+    elif query == "transmit":
+        got, uncapped = got.sum(-1), uncapped.sum(-1)
+    assert int((got != uncapped).sum()) > 100
 
 
 @pytest.mark.parametrize("R", [1, 33, 262145])

@@ -301,6 +301,41 @@ def test_transmit_tlas_plain_matches_jax(built, rays, stack):
     assert partial.mean() > 0.05 and (got[:50] == 1).all()
 
 
+def test_closest_hit_tlas_iteration_cap_matches_jax(built, rays,
+                                                   monkeypatch):
+    """Both loops stop a ray at the iteration cap the same way: with the
+    cap lowered to 5 in the JAX loop (`_ITER_CAP`, traced afresh) and in
+    the plain version (`ITER_CAP`), t, u, v, tri and inst agree bit for
+    bit, where over 50 rays take an instance entry as their 5th
+    iteration (their entries counted at caps 4 and 5 differ; the BLAS
+    root decode is cut off) and the cap changes over 50 rays' hits.
+    The card's kernel is held to the plain version at a lowered cap in
+    tests/test_torch_cuda.py."""
+    from functools import partial
+    js, ts, table = built
+    ro, rd, tm = rays
+    a = (table, ts.cw_nodes.shape[0], ts.leaf_rows.shape[0],
+         torch.from_numpy(ro), torch.from_numpy(rd), torch.from_numpy(tm))
+    full, _ = ttlas.closest_hit_tlas_plain(*a)
+    counts = []
+    for cap in (4, 5):
+        monkeypatch.setattr(ttlas, "ITER_CAP", cap)
+        counts.append({})
+        th, ti = ttlas.closest_hit_tlas_plain(*a, counts=counts[-1])
+    monkeypatch.setattr(jtlas, "_ITER_CAP", 5)
+    jh, ji = jax.jit(partial(jtlas._traverse_tlas, any_hit=False,
+                             tlas_root=0, max_stack=16))(
+        js.cw_nodes, js.leaf_rows, js.inst_rows, jnp.asarray(ro),
+        jnp.asarray(rd), jnp.asarray(tm))
+    for f in ("t", "u", "v"):
+        assert (_bits(getattr(jh, f)) == _bits(getattr(th, f).numpy())).all()
+    assert (np.asarray(jh.tri) == th.tri.numpy()).all()
+    assert (np.asarray(ji) == ti.numpy()).all()
+    assert int((counts[1]["inst_entries"] > counts[0]["inst_entries"]).sum()
+               ) > 50
+    assert int((full.tri != th.tri).sum()) > 50
+
+
 def test_plain_counts_the_work(built, rays):
     """The plain traversal's work counters (chip_smoke.py bounds the
     kernel by them): every live ray decodes the root; entries and

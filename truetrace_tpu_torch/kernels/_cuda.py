@@ -187,12 +187,14 @@ def lib(src: str) -> ctypes.CDLL:
     return build_all()[src]
 
 
-def ptxas_report(src: str) -> dict:
+def ptxas_report(src: str, log: str | None = None) -> dict:
     """Per kernel of `src` (mangled name -> dict), what `ptxas -v` said
-    when the loaded library was built: registers, spill stores/loads and
-    stack frame bytes, static shared memory bytes."""
+    when the loaded library was built (or in the nvcc output `log`):
+    registers, spill stores/loads and stack frame bytes, static shared
+    memory bytes."""
     out, cur = {}, None
-    for line in build_log.get(src, "").splitlines():
+    for line in (build_log.get(src, "") if log is None
+                 else log).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             cur = out.setdefault(m.group(1), dict(

@@ -12,7 +12,12 @@
 namespace tt {
 
 constexpr int kMaxStack = 32;
-constexpr int kIterCap = 65536;   // cwbvh_wavefront._ITER_CAP, cwbvh_tlas's
+// cwbvh_wavefront._ITER_CAP, cwbvh_tlas's; a test build may lower it
+// (tests/test_torch_cuda.py, with the plain version's ITER_CAP)
+#ifndef TT_ITER_CAP
+#define TT_ITER_CAP 65536
+#endif
+constexpr int kIterCap = TT_ITER_CAP;
 constexpr int kBlock = 128;
 constexpr int kRefillMin = 8;     // a warp refills once this many lanes idle
 constexpr unsigned kAll = 0xFFFFFFFFu;

@@ -48,9 +48,45 @@
 //
 // The pop of the next iteration is done at the end of the current one
 // (with its iteration counted then), so each trip of a warp's loop knows
-// which body each lane wants; the warp runs the body most of its lanes
-// want (the design of traverse.cu: persistent warps, the work pull, one
-// body per trip, whole rows in 16- or 8-byte loads).
+// which body each lane wants. Persistent warps pull rays from a shared
+// counter, as in traverse.cu, and read whole rows in 16- or 8-byte loads.
+//
+// The design, element by element, with what each bought against the
+// earlier kernel (three bodies a trip) in scripts/torch_tlas_ab.py's
+// turns on the forest frame's bounce-0 rays (262144 lanes; NVIDIA H100
+// 80GB HBM3, 700 W):
+//
+// * Two bodies a trip. A trip runs the triangle body when more than
+//   half of the busy lanes want it, else the node body, which an
+//   entering lane joins: it enters (its own iteration), then decodes its
+//   BLAS root (the next iteration) in the same trip, unless the entry
+//   used the last iteration below kIterCap. A fresh ray's TLAS root is
+//   the same decode, counted as no iteration. Warp trips fell 27% on
+//   the closest hit; time 1-2% (closest), 4% (any hit): an entering
+//   lane no longer waits for a trip of entries, but the entries now run
+//   in 78% of the node trips, 4.8 lanes at a time where an entry trip
+//   ran 13.1.
+// * The node decode (decode below) takes the first axis's entry and
+//   exit as they are: 16 fewer min/max a row, 1-2% more.
+// * The world ray stays in registers (113 of them, 4 blocks an SM, as
+//   the earlier kernel's 111): reading it again on leaving an instance
+//   (107 registers, still 4 blocks) cost 2% at the closest hit.
+// Together: closest hit 3.7%, any hit 7.7%, transmittance 3.6% faster.
+//
+// Measured and not kept: the triangles' words loaded one triangle at a
+// time (80 registers, 6 blocks; 14% slower at the any hit); a minimum of
+// 5 to 8 blocks (spills from 5 on or slower from 6); other refill
+// thresholds for the any hit; entries deferred until 4 or 8 lanes want
+// one; a count of valid ring entries in place of zeroing popped slots;
+// a block's rays repacked into its first warps every 8 to 64 trips once
+// the pool is dry (trips down by half at the any hit, time not, its
+// 15 KB of staging a block cutting the L1); one warp fetching its lanes'
+// node rows together through shared memory (142 registers, 25% slower);
+// a node lane's row read before the entering lanes enter (139
+// registers, 3 blocks, 16% slower; capped at 128, it spills and is 6%
+// slower). Neither trips nor load instructions bind (8-byte node loads
+// cost 1%); the chain of trips of each ray, each a dependent row read,
+// does.
 //
 // What bounds it on the H100: operations, as for the single-level
 // kernel. chip_smoke.py counts each ray's node decodes (216 operations),
@@ -83,6 +119,60 @@ using tt::xor_permute8;
 constexpr uint32_t kPtr = 0x00FFFFFFu;
 // the body a lane wants next
 constexpr int kNone = 0, kNode = 1, kTri = 2, kEnter = 3;
+
+#ifdef TT_TLAS_COUNT
+// The counting build (scripts/torch_tlas_ab.py alone defines the macro):
+// per body (node; triangles; instance entry, which runs in node trips),
+// the warp trips that ran it, the lanes that ran it and the lanes busy in
+// those trips; then the trips after the pool ran dry and their busy
+// lanes.
+__device__ unsigned long long tt_counts[4][3];
+#define TT_COUNT(b, n, busy)                                           \
+  if (lane == 0 && (n) > 0) {                                          \
+    atomicAdd(&tt_counts[b][0], 1ull);                                 \
+    atomicAdd(&tt_counts[b][1], (unsigned long long)(n));              \
+    atomicAdd(&tt_counts[b][2], (unsigned long long)__popc(busy));     \
+  }
+#else
+#define TT_COUNT(b, n, busy)
+#endif
+
+// A node row's decode: tt::decode_node's arithmetic, with the first
+// axis's entry and exit taken as they are rather than against -inf and
+// +inf (the same bits: max.NaN(-inf, x) is x, or NaN where x is one).
+template <int V>
+__device__ __forceinline__ void decode(const uint32_t* __restrict__ row,
+                                       const tt::Ray& r, float t_best,
+                                       uint32_t& hits, uint32_t& chim,
+                                       uint32_t& bleaf) {
+  uint32_t w[(26 + V - 1) / V * V];
+  tt::load_row<V>(row, w);
+  chim = w[24];
+  bleaf = w[25];
+  const uint32_t imask = chim >> 24;
+  const uint32_t occ = imask | (bleaf >> 24);
+  uint32_t h = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int wi = j >> 1;
+    const int lo_sh = 16 * (j & 1);
+    float tn = 0.0f, tf = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float lo = tt::bits_f(((w[8 * a + wi] >> lo_sh) & 0xFFFFu) << 16);
+      const float hi =
+          tt::bits_f(((w[8 * a + 4 + wi] >> lo_sh) & 0xFFFFu) << 16);
+      const float t0 = (lo - r.o[a]) * r.inv[a];
+      const float t1 = (hi - r.o[a]) * r.inv[a];
+      tn = a == 0 ? tt::nmin(t0, t1) : tt::nmax(tn, tt::nmin(t0, t1));
+      tf = a == 0 ? tt::nmax(t0, t1) : tt::nmin(tf, tt::nmax(t0, t1));
+    }
+    const bool hit = (tf >= tt::nmax(tn, 0.0f)) && (tn < t_best) &&
+                     ((occ >> j) & 1u);
+    if (hit) h |= ((imask >> j) & 1u) ? (1u << (24 + j)) : (1u << j);
+  }
+  hits = h;
+}
 
 __device__ __forceinline__ uint32_t octant(const float* d) {
   return (d[0] < 0.0f ? 1u : 0u) | (d[1] < 0.0f ? 2u : 0u) |
@@ -171,7 +261,8 @@ tlas_kernel(const uint32_t* __restrict__ table, int C, int L, int I, int S,
       continue;
     }
 
-    // the body each lane wants; the warp runs the most wanted one
+    // the body each lane wants; a trip runs the triangles or else the
+    // nodes, an entering lane's entry included
     int want = kNone;
     if (ray >= 0) {
       if (root || (hits & 0xFFu) == 0u)
@@ -179,36 +270,115 @@ tlas_kernel(const uint32_t* __restrict__ table, int C, int L, int I, int S,
       else
         want = ret_sp >= 0 ? kTri : kEnter;
     }
-    const int n_node = __popc(__ballot_sync(kAll, want == kNode));
     const int n_tri = __popc(__ballot_sync(kAll, want == kTri));
     const int n_ent = __popc(__ballot_sync(kAll, want == kEnter));
-    const int run = n_node >= n_tri && n_node >= n_ent
-                        ? kNode
-                        : (n_tri >= n_ent ? kTri : kEnter);
-    if (want != run) continue;
+    const bool tri_trip = 2 * n_tri > __popc(busy);
+    TT_COUNT(0, tri_trip ? 0 : __popc(busy) - n_tri, busy);
+    TT_COUNT(1, tri_trip ? n_tri : 0, busy);
+    TT_COUNT(2, tri_trip ? 0 : n_ent, busy);
+    TT_COUNT(3, pool_open ? 0 : __popc(busy), busy);
+    if (want == kNone || (want == kTri) != tri_trip) continue;
 
-    if (root) {                // entering the root is no iteration
-      root = false;
-      uint32_t c_hits, c_chim, c_bleaf;
-      tt::decode_node<V>(table, r, t, c_hits, c_chim, c_bleaf);
-      hits = c_hits;
-      chim = c_chim;
-      bleaf = c_bleaf;
-    } else {
+    if (!root) {               // entering the root is no iteration
       if (!popped) ++it;       // else the pop began this iteration
       popped = false;
-      if (run == kNode) {
-        const uint32_t node_bits = hits >> 24;
-        const uint32_t pm = xor_permute8(node_bits, oct);
-        const uint32_t lsb = pm & (~pm + 1u);
-        const int slot = (__popc(lsb - 1u) ^ (int)oct) & 7;
-        const uint32_t rest = node_bits & ~(1u << slot);
-        const uint32_t below = (chim >> 24) & ((1u << slot) - 1u);
-        const int row =
-            min(max((int)(chim & kPtr) + __popc(below), 0), C - 1);
+    }
+    if (want == kTri) {
+      const uint32_t leaf_bits = hits & 0xFFu;
+      const uint32_t lsb = leaf_bits & (~leaf_bits + 1u);
+      const int lbase =
+          (int)(bleaf & kPtr) + __popc((bleaf >> 24) & (lsb - 1u));
+      const int row = C + min(max(lbase, 0), L - 1);
+      hits &= ~lsb;
+      uint32_t w[W];
+      tt::load_row<V>(table + (size_t)row * W, w);
+      float t_loc = t * scale;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int id = (int)w[9 * K + j];
+        float th, uu, vv;
+        if (id >= 0 && tt::moller(w + 9 * j, 1, r, t_loc, th, uu, vv)) {
+          if (Q == kTransmit) {
+            const float* c = tint + 3 * (size_t)min(id, T - 1);
+            tp[0] = tp[0] * __ldg(c);
+            tp[1] = tp[1] * __ldg(c + 1);
+            tp[2] = tp[2] * __ldg(c + 2);
+          } else {
+            t_loc = th;
+            t = __fdiv_rn(th, tt::nmax(scale, 1e-20f));
+            tri = id;
+            inst = inst_cur;
+            u = uu;
+            v = vv;
+          }
+        }
+      }
+    } else {
+      if (want == kEnter) {    // enter the instance
+        const uint32_t leaf_bits = hits & 0xFFu;
+        const uint32_t lsb = leaf_bits & (~leaf_bits + 1u);
+        const int lbase =
+            (int)(bleaf & kPtr) + __popc((bleaf >> 24) & (lsb - 1u));
+        const uint32_t rest = hits & ~lsb;
+        const int row = C + L + min(max(lbase, 0), I - 1);
+        uint32_t w[16];
+        tt::load_row<V>(table + (size_t)row * W, w);
+        float m[12];
+#pragma unroll
+        for (int k = 0; k < 12; ++k) m[k] = tt::bits_f(w[k]);
+        float lo[3], ld[3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const float* q = m + 4 * a;
+          lo[a] = __fmaf_rn(q[2], r.o[2], __fmaf_rn(q[0], r.o[0],
+                                                    q[1] * r.o[1])) +
+                  q[3];
+          ld[a] = __fmaf_rn(q[2], r.d[2], __fmaf_rn(q[0], r.d[0],
+                                                    q[1] * r.d[1]));
+        }
+        const float lscale = __fsqrt_rn(tt::nmax(
+            __fmaf_rn(ld[2], ld[2], __fmaf_rn(ld[0], ld[0], ld[1] * ld[1])),
+            1e-20f));
+#pragma unroll
+        for (int a = 0; a < 3; ++a) ld[a] = __fdiv_rn(ld[a], lscale);
+        if (rest != 0u) {      // push the TLAS remainder
+          head = head == 0 ? S - 1 : head - 1;
+          stk.h[head * kBlock] = rest;
+          stk.c[head * kBlock] = chim;
+          stk.b[head * kBlock] = bleaf;
+          ++sp;
+        }
+        r = tt::make_ray(lo, ld);
+        oct = octant(ld);
+        scale = lscale;
+        ret_sp = sp;
+        inst_cur = (int)w[13];
+        hits = 1u << 24;
+        chim = (w[12] & kPtr) | (1u << 24);
+        bleaf = 0u;
+        // the BLAS root's decode is the next iteration: it runs in this
+        // trip, unless the entry used the last one
+        if (it < kIterCap) {
+          ++it;
+          want = kNode;
+        }
+      }
+      if (want == kNode) {     // a node row: the next slot's, or a root
+        int row = 0;
+        uint32_t rest = 0u;
+        if (!root) {
+          const uint32_t node_bits = hits >> 24;
+          const uint32_t pm = xor_permute8(node_bits, oct);
+          const uint32_t lsb = pm & (~pm + 1u);
+          const int slot = (__popc(lsb - 1u) ^ (int)oct) & 7;
+          rest = node_bits & ~(1u << slot);
+          const uint32_t below = (chim >> 24) & ((1u << slot) - 1u);
+          row = min(max((int)(chim & kPtr) + __popc(below), 0), C - 1);
+        }
+        root = false;
         uint32_t c_hits, c_chim, c_bleaf;
-        tt::decode_node<V>(table + (size_t)row * W, r, t * scale, c_hits,
-                           c_chim, c_bleaf);
+        decode<V>(table + (size_t)row * W, r, t * scale, c_hits, c_chim,
+                  c_bleaf);
         if (rest != 0u) {      // push; a full ring drops its deepest entry
           head = head == 0 ? S - 1 : head - 1;
           stk.h[head * kBlock] = rest << 24;
@@ -219,76 +389,6 @@ tlas_kernel(const uint32_t* __restrict__ table, int C, int L, int I, int S,
         hits = c_hits;
         chim = c_chim;
         bleaf = c_bleaf;
-      } else {
-        const uint32_t leaf_bits = hits & 0xFFu;
-        const uint32_t lsb = leaf_bits & (~leaf_bits + 1u);
-        const int lbase =
-            (int)(bleaf & kPtr) + __popc((bleaf >> 24) & (lsb - 1u));
-        const uint32_t rest = hits & ~lsb;
-        if (run == kTri) {
-          const int row = C + min(max(lbase, 0), L - 1);
-          hits = rest;
-          uint32_t w[10 * K];
-          tt::load_row<V>(table + (size_t)row * W, w);
-          float t_loc = t * scale;
-#pragma unroll
-          for (int j = 0; j < K; ++j) {
-            const int id = (int)w[9 * K + j];
-            float th, uu, vv;
-            if (id >= 0 && tt::moller(w + 9 * j, 1, r, t_loc, th, uu, vv)) {
-              if (Q == kTransmit) {
-                const float* c = tint + 3 * (size_t)min(id, T - 1);
-                tp[0] = tp[0] * __ldg(c);
-                tp[1] = tp[1] * __ldg(c + 1);
-                tp[2] = tp[2] * __ldg(c + 2);
-              } else {
-                t_loc = th;
-                t = __fdiv_rn(th, tt::nmax(scale, 1e-20f));
-                tri = id;
-                inst = inst_cur;
-                u = uu;
-                v = vv;
-              }
-            }
-          }
-        } else {               // enter the instance
-          const int row = C + L + min(max(lbase, 0), I - 1);
-          uint32_t w[16];
-          tt::load_row<V>(table + (size_t)row * W, w);
-          float m[12];
-#pragma unroll
-          for (int k = 0; k < 12; ++k) m[k] = tt::bits_f(w[k]);
-          float lo[3], ld[3];
-#pragma unroll
-          for (int a = 0; a < 3; ++a) {
-            const float* q = m + 4 * a;
-            lo[a] = __fmaf_rn(q[2], r.o[2], __fmaf_rn(q[0], r.o[0],
-                                                      q[1] * r.o[1])) +
-                    q[3];
-            ld[a] = __fmaf_rn(q[2], r.d[2], __fmaf_rn(q[0], r.d[0],
-                                                      q[1] * r.d[1]));
-          }
-          const float lscale = __fsqrt_rn(tt::nmax(
-              __fmaf_rn(ld[2], ld[2], __fmaf_rn(ld[0], ld[0], ld[1] * ld[1])),
-              1e-20f));
-#pragma unroll
-          for (int a = 0; a < 3; ++a) ld[a] = __fdiv_rn(ld[a], lscale);
-          if (rest != 0u) {    // push the TLAS remainder
-            head = head == 0 ? S - 1 : head - 1;
-            stk.h[head * kBlock] = rest;
-            stk.c[head * kBlock] = chim;
-            stk.b[head * kBlock] = bleaf;
-            ++sp;
-          }
-          r = tt::make_ray(lo, ld);
-          oct = octant(ld);
-          scale = lscale;
-          ret_sp = sp;
-          inst_cur = (int)w[13];
-          hits = 1u << 24;
-          chim = (w[12] & kPtr) | (1u << 24);
-          bleaf = 0u;
-        }
       }
     }
     if ((Q == kAny && tri >= 0) ||
@@ -413,6 +513,16 @@ extern "C" int tt_tlas_transmit(const void* table, int W, int C, int L, int I,
   }
 #undef TT_CASE
 }
+
+#ifdef TT_TLAS_COUNT
+// Copies the counts [4][3] to host memory `out` and clears them.
+extern "C" int tt_tlas_counts(void* out) {
+  unsigned long long zero[12] = {};
+  cudaError_t e = cudaMemcpyFromSymbol(out, tt_counts, sizeof zero);
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(tt_counts, zero, sizeof zero);
+  return (int)e;
+}
+#endif
 
 // Dynamic shared memory of a launch with S stack entries, in bytes.
 extern "C" int tt_tlas_smem(int S) {

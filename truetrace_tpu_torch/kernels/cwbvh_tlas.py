@@ -294,10 +294,11 @@ def transmit_tlas_plain(table, C: int, L: int, tint, ro, rd, t_max,
 # ---------------------------------------------------------------------------
 
 def _launch(table, C: int, L: int, ro, rd, t_max, query: int,
-            max_stack: int, tint=None):
+            max_stack: int, tint=None, lib=None):
     """Check the arguments, allocate the outputs and the ray counter,
-    launch traverse_tlas.cu: (Hit, inst) for CLOSEST / ANY, the
-    transmittance [R,3] for TRANSMIT."""
+    launch traverse_tlas.cu (or another build of it, `lib`, with the same
+    entry points): (Hit, inst) for CLOSEST / ANY, the transmittance [R,3]
+    for TRANSMIT."""
     dev = ro.device
     R = ro.shape[0]
     tm = _launch_args(table, ro, rd, t_max, max_stack,
@@ -309,7 +310,8 @@ def _launch(table, C: int, L: int, ro, rd, t_max, query: int,
         raise ValueError(f"bad table {tuple(table.shape)} for {C} nodes "
                          f"and {L} leaf rows")
     next_ray = torch.zeros((1,), dtype=torch.int32, device=dev)
-    lib = _cuda.lib("traverse_tlas.cu")
+    if lib is None:
+        lib = _cuda.lib("traverse_tlas.cu")
     if query == TRANSMIT:
         T = tint.shape[0]
         tp = torch.empty((R, 3), dtype=torch.float32, device=dev)
