@@ -5410,10 +5410,12 @@ def bvh2_work(counts: dict, R: int, closest: bool) -> dict:
 
 def hold_bvh2(scene, ro, rd, tm, label: str, closest: bool, max_leaf: int,
               time_it: bool = False) -> dict:
-    """closest_hit_bvh2 / any_hit_bvh2 against its plain version on one
-    ray set, bit for bit (t, tri, u, v; occlusion); the plain run (once,
-    timed by CUDA events) counts the work, which sets the bound. With
-    `time_it` the kernel's device time is measured (device_ms)."""
+    """closest_hit_bvh2 / any_hit_bvh2 over the scene's packed table
+    (Scene.bvh2_table, as the integrator calls it) against its plain
+    version on one ray set, bit for bit (t, tri, u, v; occlusion); the
+    plain run (once, timed by CUDA events) counts the work, which sets
+    the bound. With `time_it` the kernel's device time is measured
+    (device_ms)."""
     import torch
     from truetrace_tpu_torch.integrate.pathtrace import _bvh2
     from truetrace_tpu_torch.kernels import traverse_ref as K
@@ -5422,7 +5424,8 @@ def hold_bvh2(scene, ro, rd, tm, label: str, closest: bool, max_leaf: int,
     name = "closest_hit_bvh2" if closest else "any_hit_bvh2"
     kernel, plain = ((K.closest_hit_bvh2, K.closest_hit_bvh2_plain)
                      if closest else (K.any_hit_bvh2, K.any_hit_bvh2_plain))
-    run = lambda: kernel(*a, ro, rd, tm, max_leaf=max_leaf)
+    table = scene.bvh2_table()
+    run = lambda: kernel(*a, ro, rd, tm, max_leaf=max_leaf, table=table)
     got = run()
     counts = {}
     want, plain_ms = timed_once(lambda: plain(
@@ -5542,16 +5545,14 @@ def phase_bvh2(results, meshes, mats, env, cw_scene, cam):
     phase_bvh2_kernels(results, scene, cw_scene, cam)
 
     a = _bvh2(scene)
+    kw = dict(max_leaf=ml, table=scene.bvh2_table())
     R = FRAME["width"] * FRAME["height"]
     ro_p, rd_p, ro_b, rd_b, tm_b = bench_rays(
         scene, cam, R, closest=lambda ro, rd: closest_hit_bvh2(
-            *a, ro, rd, 1e30, max_leaf=ml))
-    t_cp = cuda_ms(lambda: closest_hit_bvh2(*a, ro_p, rd_p, 1e30,
-                                            max_leaf=ml), 20)
-    t_cb = cuda_ms(lambda: closest_hit_bvh2(*a, ro_b, rd_b, 1e30,
-                                            max_leaf=ml), 20)
-    t_an = cuda_ms(lambda: any_hit_bvh2(*a, ro_b, rd_b, tm_b,
-                                        max_leaf=ml), 20)
+            *a, ro, rd, 1e30, **kw))
+    t_cp = cuda_ms(lambda: closest_hit_bvh2(*a, ro_p, rd_p, 1e30, **kw), 20)
+    t_cb = cuda_ms(lambda: closest_hit_bvh2(*a, ro_b, rd_b, 1e30, **kw), 20)
+    t_an = cuda_ms(lambda: any_hit_bvh2(*a, ro_b, rd_b, tm_b, **kw), 20)
     mrays = 3 * R / ((t_cp + t_cb + t_an) * 1e-3) / 1e6
     cw_mrays = results[f"traversal_k6_{R}"]["mrays"]
     log(f"bvh2 traversal (bench mix, {R} rays per class): closest primary "

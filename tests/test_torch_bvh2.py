@@ -7,10 +7,14 @@ kernel's reference on the card) against the JAX `closest_hit_bvh2` /
 cosine-bounce and shadow rays with per-ray t_max, dead lanes, rays with
 +-0.0 components), with the default stack and a 2-entry one that
 overflows, on the default build (leaves of max_leaf = 4) and on a CWBVH
-build's BVH2 (max_leaf = 6); one Cornell frame with RenderConfig()'s
-defaults against the JAX one, and one of a tinted Cornell box (glass,
-metal and a cut-out pane: its shadow rays take transmit_brute), whose
-chunks keep each ray's bits; and the options the port renders."""
+build's BVH2 (max_leaf = 6); lanes whose t_max admits no hit miss as in
+the JAX loop (the rule by which the kernel retires them unwalked); the
+kernel's packed table (pack_bvh2_table, Scene.bvh2_table) word for word
+what the JAX build's tables and the loop's clamps give; one Cornell frame
+with RenderConfig()'s defaults against the JAX one, and one of a tinted
+Cornell box (glass, metal and a cut-out pane: its shadow rays take
+transmit_brute), whose chunks keep each ray's bits; and the options the
+port renders."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -31,7 +35,8 @@ from truetrace_tpu.scene.mesh import compile_scene as jcompile
 from truetrace_tpu_torch.core.math import ray_tri
 from truetrace_tpu_torch.integrate import pathtrace as tpt
 from truetrace_tpu_torch.kernels import traverse_ref as tr
-from truetrace_tpu_torch.renderer import Renderer, RendererConfig
+from truetrace_tpu_torch.renderer import (Renderer, RendererConfig,
+                                          _scene_parts)
 from truetrace_tpu_torch.scene import atrium as tatrium
 from truetrace_tpu_torch.scene import cornell as tcornell
 from truetrace_tpu_torch.scene import primitives as tprim
@@ -308,6 +313,140 @@ def test_bvh2_wrappers_on_the_cpu():
     for fn in (tr.closest_hit_bvh2, tr.any_hit_bvh2):
         with pytest.raises(ValueError, match="requires grad"):
             fn(*args[:6], ro.clone().requires_grad_(), rd, 1e30)
+
+
+# t_max values that admit no hit (ray_tri takes t > 1e-4 and t < t_max):
+# zero, minus zero, negative, 1e-4 itself, the float just below it, NaN
+# and minus infinity
+NO_HIT_T_MAX = np.array([0.0, -0.0, -1.0, 1e-4,
+                         np.nextafter(np.float32(1e-4), np.float32(0)),
+                         np.nan, -np.inf], np.float32)
+
+
+def test_dead_lanes_miss_as_in_jax():
+    """Rays that hit the Cornell box with t_max = 1e30 miss with every
+    t_max in NO_HIT_T_MAX, through the JAX closest_hit_bvh2 /
+    any_hit_bvh2 and the port's plain version: t keeps t_max's bits (NaN
+    and -0.0 included), tri is -1, u = v = +0.0, nothing is blocked. The
+    kernel writes this answer for such a lane without walking it."""
+    js, _, _ = _build("cornell")
+    tabs = tuple(np.asarray(getattr(js, f)) for f in (
+        "bvh2_box", "bvh2_left", "bvh2_count", "tri_p0", "tri_e1",
+        "tri_e2"))
+    r = np.random.default_rng(13)
+    n = 48
+    ro = np.tile(r.uniform(0.1, 0.4, (n, 3)).astype(np.float32),
+                 (len(NO_HIT_T_MAX), 1))
+    rd = np.tile(_unit(r, n), (len(NO_HIT_T_MAX), 1))
+    tm = np.repeat(NO_HIT_T_MAX, n)
+    far = np.full_like(tm, 1e30)
+    assert (tr.closest_hit_bvh2_plain(*_port_args(tabs, ro, rd, far)).tri
+            >= 0).float().mean() > 0.7
+    ja = [jnp.asarray(x) for x in tabs]
+    jargs = (jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(tm))
+    for h in (jclosest(*ja, *jargs),
+              tr.closest_hit_bvh2_plain(*_port_args(tabs, ro, rd, tm))):
+        np.testing.assert_array_equal(_bits(h.t), _bits(tm))
+        assert (np.asarray(h.tri) == -1).all()
+        assert (_bits(h.u) == 0).all() and (_bits(h.v) == 0).all()
+    assert not np.asarray(jany(*ja, *jargs)).any()
+    assert not tr.any_hit_bvh2_plain(*_port_args(tabs, ro, rd, tm)).any()
+
+
+def _check_table(table, box, left, count, p0, e1, e2, max_leaf):
+    """The packed table against the BVH2 (numpy arrays): the triangle
+    rows hold p0, e1, e2 and zeros; row i < N starts with node i's box
+    and its entry; a leaf's entry gives every triangle id the loop takes
+    (clamp(left + j, 0, T - 1), j < min(max_leaf, count)); an internal
+    node's names the row that holds the boxes and entries of the
+    children the loop slab-tests, clamp(left) and clamp(left + 1) into
+    0..N - 1; row 0's first entry is the root's."""
+    N, T = box.shape[0], p0.shape[0]
+    w = table.numpy()
+    assert table.dtype == torch.int32 and w.shape == (16 * (N + 1)
+                                                       + 12 * T,)
+    pairs = w[:16 * (N + 1)].reshape(N + 1, 16)
+    tris = w[16 * (N + 1):].reshape(T, 12)
+    np.testing.assert_array_equal(tris[:, :9], _bits(np.concatenate(
+        [p0, e1, e2], 1)))
+    assert (tris[:, 9:] == 0).all()
+    bx = _bits(box.reshape(N, 6))
+    np.testing.assert_array_equal(pairs[:N, :6], bx)
+    ent = pairs[:N, 12:14].astype(np.int64)
+    left, count = left.astype(np.int64), count.astype(np.int64)
+    leaf = count > 0
+    np.testing.assert_array_equal(ent[leaf, 1], np.minimum(count[leaf],
+                                                           2 ** 31 - 1))
+    js = np.arange(max_leaf)
+    np.testing.assert_array_equal(
+        np.clip(ent[leaf, :1] + js, 0, T - 1),
+        np.clip(left[leaf, None] + js, 0, T - 1))
+    assert (ent[~leaf, 1] == 0).all()
+    rows = pairs[ent[~leaf, 0]]
+    c0 = np.clip(left[~leaf], 0, N - 1)
+    c1 = np.clip(left[~leaf] + 1, 0, N - 1)
+    np.testing.assert_array_equal(rows[:, :6], bx[c0])
+    np.testing.assert_array_equal(rows[:, 6:12], bx[c1])
+    np.testing.assert_array_equal(rows[:, 12:14], ent[c0])
+    np.testing.assert_array_equal(rows[:, 14:16], ent[c1])
+
+
+@pytest.mark.parametrize("build", ["default", "cwbvh"])
+def test_bvh2_table_matches_jax_build(build):
+    """pack_bvh2_table of the JAX build's BVH2 (the default build, and a
+    CWBVH build's, whose leaves start at the CWBVH leaf rows): every word
+    the kernel reads, against the JAX tables (_check_table)."""
+    tabs, ml = _tables(build)
+    table = tr.pack_bvh2_table(*(torch.from_numpy(np.array(x))
+                                 for x in tabs))
+    _check_table(table, *tabs, ml)
+
+
+def test_bvh2_table_clamps():
+    """A hand-made BVH2 whose lefts leave the table: internal nodes
+    pointing before node 0, at the last node and past it; leaves starting
+    before triangle 0 and past the last one, and a count beyond int32
+    (and a negative count: an internal node). Every word the kernel
+    reads gives what the loop's clamps give (_check_table), at leaves of
+    1 to 6."""
+    r = np.random.default_rng(3)
+    N, T = 10, 5
+    lo = r.normal(size=(N, 3)).astype(np.float32)
+    box = np.stack([lo, lo + r.uniform(0.1, 1, (N, 3))], 1).astype(
+        np.float32)
+    left = np.array([1, -1, -7, 9, 12, -3, 2 ** 40, 3, 4, 2], np.int64)
+    count = np.array([0, 0, 0, 0, 0, 2, 3, 2 ** 35, -2, 4], np.int64)
+    p0, e1, e2 = (r.normal(size=(T, 3)).astype(np.float32)
+                  for _ in range(3))
+    tabs = (box, left, count, p0, e1, e2)
+    table = tr.pack_bvh2_table(*(torch.from_numpy(x) for x in tabs))
+    for ml in range(1, 7):
+        _check_table(table, *tabs, ml)
+    pairs = table[:16 * (N + 1)].view(N + 1, 16)
+    assert pairs[N, :6].equal(pairs[N, 6:12]) and int(pairs[1, 12]) == N
+    assert tr.pack_bvh2_table(*(torch.from_numpy(x[:0]) for x in tabs)
+                              ).shape == (0,)
+
+
+def test_scene_caches_bvh2_table():
+    """Scene.bvh2_table packs once and keeps it (the graph's scene copy
+    carries it: it is among _scene_parts' tensors); the CPU wrappers take
+    it and still run the plain version."""
+    _, ts, _ = _build("cornell")
+    ts = dataclasses.replace(ts, _bvh2_table=None)
+    table = ts.bvh2_table()
+    assert ts.bvh2_table() is table
+    assert torch.equal(table, tr.pack_bvh2_table(*tpt._bvh2(ts)))
+    assert "_bvh2_table" in [n for n, _ in _scene_parts(ts)[0]]
+    r = np.random.default_rng(5)
+    ro = torch.from_numpy(r.uniform(0.1, 0.4, (64, 3)).astype(np.float32))
+    rd = torch.from_numpy(_unit(r, 64))
+    args = (*tpt._bvh2(ts), ro, rd, 1e30)
+    a = tr.closest_hit_bvh2(*args, table=table)
+    assert all(torch.equal(x, y) for x, y in zip(
+        a, tr.closest_hit_bvh2_plain(*args)))
+    assert torch.equal(tr.any_hit_bvh2(*args, table=table),
+                       tr.any_hit_bvh2_plain(*args))
 
 
 # ---------------------------------------------------------------------------

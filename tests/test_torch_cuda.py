@@ -1128,7 +1128,7 @@ def tlas_mixed(dev):
     return out, *(torch.from_numpy(x).to(dev) for x in (ro, rd, tm))
 
 
-def _tints(sc, seed: int, dev):
+def _tlas_tints(sc, seed: int, dev):
     """Random shadow tints [T,3] of a scene's triangles."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     return torch.rand((sc.n_tris(), 3), generator=g).to(dev)
@@ -1156,7 +1156,7 @@ def _hold_tlas(tl, sc, ro, rd, tm, query: str, stack: int, seed: int,
         want = tl.any_hit_tlas_plain(*a, ro, rd, tm, stack, counts)
         assert torch.equal(got, want)
     else:
-        tint = _tints(sc, seed, ro.device)
+        tint = _tlas_tints(sc, seed, ro.device)
         got = tl._launch(*a, ro, rd, tm, tl.TRANSMIT, stack, tint, lib=lib)
         want = tl.transmit_tlas_plain(*a, tint, ro, rd, tm, stack, counts)
         assert chip_smoke.torch_equal_bits(got, want)
@@ -1205,7 +1205,7 @@ def test_tlas_kernel_bitwise(request, scene, k, query, stack):
         import chip_smoke
         tk, _, _ = _hold_tlas(tl, sc, ro, rd, tm, query, stack, k)
         assert chip_smoke.torch_equal_bits(tk, tl.transmit_tlas(
-            *a, _tints(sc, k, ro.device), ro, rd, tm, stack))
+            *a, _tlas_tints(sc, k, ro.device), ro, rd, tm, stack))
         assert bool((tk[dead] == 1).all())
 
 
@@ -1238,7 +1238,7 @@ def test_tlas_kernel_iteration_cap(tlas_mixed, tlas_cap_lib, monkeypatch,
     sc = out[k]
     a = (sc.cw_table(), sc.cw_nodes.shape[0], sc.cw_leaf_rows.shape[0])
     if query == "transmit":
-        a = a + (_tints(sc, k, ro.device),)
+        a = a + (_tlas_tints(sc, k, ro.device),)
     plain = dict(closest=tl.closest_hit_tlas_plain,
                  any=tl.any_hit_tlas_plain,
                  transmit=tl.transmit_tlas_plain)[query]
@@ -1463,10 +1463,19 @@ def _bvh2_scene(dev, build):
     return _BVH2[build]
 
 
+# t_max values that admit no hit besides 0 (the kernel retires such a
+# lane at fetch): NaN, negative, -0.0, -inf, exactly 1e-4 and the float
+# just below
+_NO_HIT = np.array([np.nan, -1.0, -0.0, -np.inf, 1e-4,
+                    np.nextafter(np.float32(1e-4), np.float32(0))],
+                   np.float32)
+
+
 def _bvh2_rays(sc, R, seed, dev):
     """R random rays inside the scene's bounds with t_max of 0 (dead), a
-    finite distance or 1e30, the last 96 axis-parallel with +-0.0 in
-    their other components."""
+    finite distance or 1e30, every 40th of the first half one of _NO_HIT
+    (where R > 100), the last 96 axis-parallel with +-0.0 in their other
+    components."""
     r = np.random.default_rng(seed)
     lo = sc.tri_p0.amin(0).cpu().numpy()
     hi = sc.tri_p0.amax(0).cpu().numpy()
@@ -1475,6 +1484,9 @@ def _bvh2_rays(sc, R, seed, dev):
     tm = r.uniform(0.05, 8.0, R).astype(np.float32)
     tm[: R // 30] = 0.0
     tm[R // 30: R // 2] = 1e30
+    if R > 100:
+        spots = np.arange(R // 30, R // 2, 40)
+        tm[spots] = _NO_HIT[np.arange(spots.shape[0]) % _NO_HIT.shape[0]]
     k = min(96, R // 2)
     if k:
         ax = np.zeros((k, 3), np.float32)
@@ -1485,18 +1497,20 @@ def _bvh2_rays(sc, R, seed, dev):
     return tuple(torch.from_numpy(x).to(dev) for x in (ro, rd, tm))
 
 
-def _bvh2_check(sc, ml, ro, rd, tm, S=64):
+def _bvh2_check(sc, ml, ro, rd, tm, S=64, table=None):
     """Kernel against plain: closest hit bitwise (t, tri, u, v),
-    occlusion equal. Returns the kernel's closest hit."""
+    occlusion equal. The kernel reads `table` (the scene's packed one),
+    or packs one for the call. Returns the kernel's closest hit."""
     args = (sc.bvh2_box, sc.bvh2_left, sc.bvh2_count, sc.tri_p0, sc.tri_e1,
             sc.tri_e2, ro, rd, tm)
-    hk = bvh2.closest_hit_bvh2(*args, max_leaf=ml, max_stack=S)
+    hk = bvh2.closest_hit_bvh2(*args, max_leaf=ml, max_stack=S, table=table)
     hp = bvh2.closest_hit_bvh2_plain(*args, max_leaf=ml, max_stack=S)
     for f in ("t", "tri", "u", "v"):
         a, b = getattr(hk, f), getattr(hp, f)
         assert torch.equal(a.view(torch.int32), b.to(a.dtype).view(
             torch.int32)), f
-    assert torch.equal(bvh2.any_hit_bvh2(*args, max_leaf=ml, max_stack=S),
+    assert torch.equal(bvh2.any_hit_bvh2(*args, max_leaf=ml, max_stack=S,
+                                         table=table),
                        bvh2.any_hit_bvh2_plain(*args, max_leaf=ml,
                                                max_stack=S))
     return hk
@@ -1510,8 +1524,9 @@ def test_bvh2_kernel_bitwise(dev, build, stack, R):
     versions: t, tri, u and v bit for bit and occlusion equal, on the
     default build (leaves of 4) and a CWBVH build's BVH2 (leaves of 6),
     with the JAX default stack and a 2-entry one that overflows (the
-    clamped push and pop slots), dead lanes, signed-zero directions, one
-    ray and a warp and a lane over."""
+    clamped push and pop slots), dead lanes (t_max 0, NaN, negative,
+    -0.0, -inf, 1e-4 and just below: t keeps their bits), signed-zero
+    directions, one ray and a warp and a lane over."""
     sc, ml = _bvh2_scene(dev, build)
     ro, rd, tm = _bvh2_rays(sc, R, R + stack, dev)
     n0 = bvh2.closest_hit_bvh2.launches
@@ -1520,6 +1535,11 @@ def test_bvh2_kernel_bitwise(dev, build, stack, R):
     if R > 100:
         assert bool((hk.tri[: R // 30] == -1).all())
         assert 0 < int((hk.tri >= 0).sum()) < R
+        dead = ~(tm > 1e-4)
+        assert int(torch.isnan(tm).sum()) > 0 and bool(
+            (hk.tri[dead] == -1).all())
+        assert torch.equal(hk.t[dead].view(torch.int32),
+                           tm[dead].view(torch.int32))
     if R == 5000 and stack == 2:
         full = bvh2.closest_hit_bvh2(sc.bvh2_box, sc.bvh2_left,
                                      sc.bvh2_count, sc.tri_p0, sc.tri_e1,
@@ -1544,6 +1564,60 @@ def test_bvh2_kernel_bitwise_at_full_size(dev):
     _bvh2_check(sc, ml, *_bvh2_rays(sc, 20000, 7, dev))
 
 
+@pytest.mark.parametrize("ml", [1, 3, 4, 6])
+def test_bvh2_kernel_bitwise_max_leaf(dev, ml):
+    """The default build (leaves of up to 24 triangles from the SAH) at
+    leaf capacities other than the path's: 1 and 3 besides 4 and 6, every
+    one through the same kernel, bit for bit the plain version, with the
+    JAX default stack and a 2-entry one."""
+    sc, _ = _bvh2_scene(dev, "default")
+    assert int(sc.bvh2_count.max()) > 4
+    for S in (64, 2):
+        ro, rd, tm = _bvh2_rays(sc, 5000, 10 * ml + S, dev)
+        _bvh2_check(sc, ml, ro, rd, tm, S, table=sc.bvh2_table())
+
+
+def test_bvh2_kernel_pulls_rays_at_full_size(dev):
+    """More rays than a persistent grid of the card has lanes (2048
+    threads an SM at most), so warps refill and the pool runs dry on the
+    full-size default build: 300,000 random rays (dead lanes included),
+    and the 512x512 frame's camera rays, kernel against plain bit for
+    bit over the scene's table."""
+    from truetrace_tpu_torch.core import rng
+    from truetrace_tpu_torch.scene.ir import camera_rays
+    sc, ml = _bvh2_scene(dev, "full")
+    lanes = 2048 * torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    R = 300000
+    assert R > lanes
+    _bvh2_check(sc, ml, *_bvh2_rays(sc, R, 17, dev), table=sc.bvh2_table())
+    _, _, cam, _ = atrium.make(detail=0.2, device=dev)
+    pix = torch.arange(512 * 512, device=dev)
+    ro, rd = camera_rays(cam, 512, 512, pix, rng.uniform2(pix, 0, 0))
+    hk = _bvh2_check(sc, ml, ro.contiguous(), rd.contiguous(), 1e30,
+                     table=sc.bvh2_table())
+    assert float((hk.tri >= 0).float().mean()) > 0.5
+
+
+def test_bvh2_scene_table_same_bits(dev):
+    """The wrappers over the scene's cached table (as the integrator
+    calls them) and over the raw tables alone (a table packed for the
+    call) give the same bits; the scene keeps one table."""
+    sc, ml = _bvh2_scene(dev, "default")
+    table = sc.bvh2_table()
+    assert sc.bvh2_table() is table
+    ro, rd, tm = _bvh2_rays(sc, 5000, 23, dev)
+    args = (*(sc.bvh2_box, sc.bvh2_left, sc.bvh2_count, sc.tri_p0,
+              sc.tri_e1, sc.tri_e2), ro, rd, tm)
+    a = bvh2.closest_hit_bvh2(*args, max_leaf=ml, table=table)
+    b = bvh2.closest_hit_bvh2(*args, max_leaf=ml)
+    for f in ("t", "tri", "u", "v"):
+        assert torch.equal(getattr(a, f).view(torch.int32),
+                           getattr(b, f).view(torch.int32)), f
+    assert torch.equal(bvh2.any_hit_bvh2(*args, max_leaf=ml, table=table),
+                       bvh2.any_hit_bvh2(*args, max_leaf=ml))
+
+
 def test_bvh2_wrappers_reject_bad_arguments(dev):
     sc, ml = _bvh2_scene(dev, "default")
     ro, rd, tm = _bvh2_rays(sc, 64, 1, dev)
@@ -1557,6 +1631,10 @@ def test_bvh2_wrappers_reject_bad_arguments(dev):
             bvh2.closest_hit_bvh2(*a)
     with pytest.raises(ValueError, match="max_stack"):
         bvh2.any_hit_bvh2(*args, max_stack=65)
+    table = sc.bvh2_table()
+    for bad in (table[:-1], table.float(), table.cpu(), table[4:]):
+        with pytest.raises(ValueError, match="table"):
+            bvh2.closest_hit_bvh2(*args, table=bad)
     with pytest.raises(ValueError, match="requires grad"):
         bvh2.closest_hit_bvh2(*args[:6], ro.clone().requires_grad_(), rd, tm)
 

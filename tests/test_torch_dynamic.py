@@ -269,8 +269,8 @@ def test_refit_cwbvh_matches_jax(dyns, pose):
 def test_pose_scene_tables_match_jax(dyns):
     """Every table pose_scene writes (nodes, leaf rows, tri_p0/e1/e2,
     tri_n, the light rows) bit for bit over three poses; the result is a
-    new scene of the same shapes with its traversal table unpacked, and
-    the rest scene is unchanged."""
+    new scene of the same shapes with its traversal tables unpacked (the
+    CWBVH's and the BVH2's), and the rest scene is unchanged."""
     (jd, _), (td, _) = dyns
     rest = {k: v.clone() for k, v in _scene_parts(td.scene)[0]}
     td.scene.cw_table()
@@ -278,6 +278,7 @@ def test_pose_scene_tables_match_jax(dyns):
         js = _jpose(jd, p)
         ts = tdyn.pose_scene(td, _bones("torch", p))
         assert ts is not td.scene and ts._cw_table is None
+        assert td.scene._bvh2_table is not None and ts._bvh2_table is None
         for f in ("cw_nodes", "cw_leaf_rows", "tri_p0", "tri_e1", "tri_e2",
                   "tri_n"):
             _same(getattr(js, f), getattr(ts, f), f)

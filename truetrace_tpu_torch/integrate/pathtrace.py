@@ -346,7 +346,8 @@ def _trace(scene: Scene, ro, rd, alive, cfg: RenderConfig):
                                     max_stack=scene.cw_stack)
     else:
         hit = closest_hit_bvh2(*_bvh2(scene), ro, rd, t_max,
-                               max_leaf=_scene_max_leaf(scene, cfg))
+                               max_leaf=_scene_max_leaf(scene, cfg),
+                               table=scene.bvh2_table())
     return hit, torch.full((ro.shape[0],), -1, dtype=torch.int64,
                            device=ro.device)
 
@@ -358,7 +359,8 @@ def _occluded_mesh(scene: Scene, ro, rd, t_max, cfg: RenderConfig):
         return any_hit_wavefront(scene.cw_table(), scene.cw_nodes.shape[0],
                                  ro, rd, t_max, max_stack=scene.cw_stack)
     return any_hit_bvh2(*_bvh2(scene), ro, rd, t_max,
-                        max_leaf=_scene_max_leaf(scene, cfg))
+                        max_leaf=_scene_max_leaf(scene, cfg),
+                        table=scene.bvh2_table())
 
 
 def _occluded(scene: Scene, ro, rd, t_max, cfg: RenderConfig):

@@ -78,8 +78,7 @@ _SIGNATURES = {
                                                  P, P, P],
     },
     "traverse_bvh2.cu": {
-        "tt_bvh2": [P, P, P, I, P, P, P, I, P, P, P, I, I, I, I, P, P, P, P,
-                    P],
+        "tt_bvh2": [P, I, I, P, P, P, I, I, I, I, P, P, P, P, P, P],
     },
 }
 

@@ -8,9 +8,11 @@ default build and `RenderConfig()`'s default `traversal="bvh2"`),
 The BVH2 traversal has two implementations of one loop:
 
 * `closest_hit_bvh2` / `any_hit_bvh2` launch the CUDA kernel
-  `csrc/traverse_bvh2.cu` (one ray a thread, its stack in local memory)
-  on CUDA tensors; on CPU tensors they run the plain version. Each
-  counts its launches in its `launches` attribute.
+  `csrc/traverse_bvh2.cu` (persistent warps pulling rays, a lane's stack
+  in local memory) on CUDA tensors, over the packed table of
+  `pack_bvh2_table` (the scene's cached one where the caller passes it,
+  else one packed for the call); on CPU tensors they run the plain
+  version. Each counts its launches in its `launches` attribute.
 * `closest_hit_bvh2_plain` / `any_hit_bvh2_plain`: plain PyTorch, a
   Python loop of lock-step iterations over all lanes with active masks,
   mirroring the JAX `_traverse` op for op: the root pre-pushed, one pop
@@ -182,10 +184,53 @@ def any_hit_bvh2_plain(box, left, count, p0, e1, e2, ro, rd, t_max,
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
+# words of a pair row and of a triangle row of the packed table
+PAIR_WORDS, TRI_WORDS = 16, 12
+
+
+def pack_bvh2_table(box, left, count, p0, e1, e2) -> torch.Tensor:
+    """The kernel's table of a BVH2, int32 words [16 (N + 1) + 12 T]
+    (empty for N = 0): N + 1 pair rows, then T triangle rows.
+
+    Pair row r holds the boxes of nodes c0 = min(r, N - 1) and c1 =
+    min(r + 1, N - 1) (min then max, 12 float words), then each one's
+    stack entry (left, count); row N holds node 0 twice, the pair a
+    negative `left` clamps to. A node's entry is (left, count) for a
+    leaf (count > 0), its left clamped to [-2^30, T - 1] and its count to
+    the int32 range, which leaves every triangle id the traversal takes
+    (clamp(left + j, 0, T - 1), j < max_leaf) as it was; and (the pair
+    row of its children, 0) for an internal node: clamp(left, 0, N - 1),
+    or N where left < 0, so the row's two boxes are the ones the loop
+    slab-tests, clamps included. A triangle row is p0, e1, e2 and three
+    zero words. Device work only (no host sync): the scene caches it
+    (Scene.bvh2_table)."""
+    N, T = box.shape[0], p0.shape[0]
+    dev = box.device
+    if N == 0:
+        return torch.zeros((0,), dtype=torch.int32, device=dev)
+    left, count = left.long(), count.long()
+    leaf = count > 0
+    kids = torch.where(left < 0, N, torch.clamp(left, max=N - 1))
+    entry = torch.stack([
+        torch.where(leaf, torch.clamp(left, -(1 << 30), T - 1), kids),
+        torch.where(leaf, torch.clamp(count, max=(1 << 31) - 1), 0)],
+        1).to(torch.int32)
+    r = torch.arange(N + 1, device=dev)
+    c0 = torch.where(r < N, r, 0)
+    c1 = torch.where(r < N, torch.clamp(r + 1, max=N - 1), 0)
+    bx = box.detach().reshape(N, 6).contiguous().view(torch.int32)
+    pairs = torch.cat([bx[c0], bx[c1], entry[c0], entry[c1]], 1)
+    tris = torch.cat([p0.detach(), e1.detach(), e2.detach(),
+                      torch.zeros((T, 3), dtype=torch.float32,
+                                  device=dev)], 1).view(torch.int32)
+    return torch.cat([pairs.reshape(-1), tris.reshape(-1)])
+
+
 def _launch(box, left, count, p0, e1, e2, ro, rd, t_max, any_hit: bool,
-            max_leaf: int, max_stack: int) -> Hit:
-    """Check the arguments, allocate the outputs, launch traverse_bvh2.cu
-    (the any hit writes tri alone)."""
+            max_leaf: int, max_stack: int, table=None, lib=None) -> Hit:
+    """Check the arguments, allocate the outputs and the ray counter,
+    launch traverse_bvh2.cu (or `lib`, another build of it) over `table`
+    (packed here when None; the any hit writes tri alone)."""
     dev = ro.device
     R = ro.shape[0]
     N, T = box.shape[0], p0.shape[0]
@@ -210,6 +255,16 @@ def _launch(box, left, count, p0, e1, e2, ro, rd, t_max, any_hit: bool,
         raise ValueError(f"max_stack {max_stack} outside 1..{MAX_STACK}")
     if max_leaf < 1:
         raise ValueError(f"max_leaf {max_leaf} < 1")
+    if table is None:
+        table = pack_bvh2_table(box, left, count, p0, e1, e2)
+    words = PAIR_WORDS * (N + 1) + TRI_WORDS * T
+    if (table.device != dev or table.dtype != torch.int32
+            or tuple(table.shape) != (words,) or not table.is_contiguous()
+            or table.data_ptr() % 16):
+        raise ValueError(f"table: need pack_bvh2_table's contiguous, "
+                         f"16-byte aligned int32 [{words}] on {dev}, got "
+                         f"{table.dtype} {tuple(table.shape)} on "
+                         f"{table.device}")
     if isinstance(t_max, torch.Tensor):
         tm = t_max.to(device=dev, dtype=torch.float32).expand(R).contiguous()
     else:
@@ -220,12 +275,13 @@ def _launch(box, left, count, p0, e1, e2, ro, rd, t_max, any_hit: bool,
     else:
         t, u, v = (torch.empty((R,), dtype=torch.float32, device=dev)
                    for _ in range(3))
+    next_ray = torch.zeros((1,), dtype=torch.int32, device=dev)
     ptr = (lambda x: 0 if x is None else x.data_ptr())
-    err = _cuda.lib("traverse_bvh2.cu").tt_bvh2(
-        box.data_ptr(), left.data_ptr(), count.data_ptr(), N,
-        p0.data_ptr(), e1.data_ptr(), e2.data_ptr(), T, ro.data_ptr(),
-        rd.data_ptr(), tm.data_ptr(), R, max_leaf, max_stack, int(any_hit),
-        ptr(t), tri.data_ptr(), ptr(u), ptr(v), _cuda.stream_ptr(ro))
+    lib = _cuda.lib("traverse_bvh2.cu") if lib is None else lib
+    err = lib.tt_bvh2(
+        table.data_ptr(), N, T, ro.data_ptr(), rd.data_ptr(), tm.data_ptr(),
+        R, max_leaf, max_stack, int(any_hit), next_ray.data_ptr(), ptr(t),
+        tri.data_ptr(), ptr(u), ptr(v), _cuda.stream_ptr(ro))
     _cuda.check(err, "tt_bvh2")
     return Hit(t=t, tri=tri, u=u, v=v)
 
@@ -237,26 +293,29 @@ _DETACH_SITE = ("integrate/pathtrace.py detaches the hit record after "
 
 
 def closest_hit_bvh2(box, left, count, p0, e1, e2, ro, rd, t_max,
-                     max_leaf: int = 4, max_stack: int = MAX_STACK) -> Hit:
+                     max_leaf: int = 4, max_stack: int = MAX_STACK,
+                     table=None) -> Hit:
     """Closest hit of rays ro/rd [R,3] before t_max (scalar or [R]) over
     the BVH2 box [N,2,3], left / count [N] (int64) and the triangles
     p0/e1/e2 [T,3] in leaf order, leaves of at most `max_leaf` triangles.
-    CUDA tensors launch csrc/traverse_bvh2.cu; CPU tensors take
-    closest_hit_bvh2_plain. A tensor that requires grad raises ValueError
-    (the traversal is not differentiated)."""
+    CUDA tensors launch csrc/traverse_bvh2.cu over `table` (these
+    tables' pack_bvh2_table, as Scene.bvh2_table caches it; packed for
+    the call when None); CPU tensors take closest_hit_bvh2_plain, which
+    needs no table. A tensor that requires grad raises ValueError (the
+    traversal is not differentiated)."""
     _cuda.refuse_grad("closest_hit_bvh2", _DETACH_SITE, box, p0, e1, e2,
                       ro, rd, t_max)
     if ro.device.type == "cpu":
         return closest_hit_bvh2_plain(box, left, count, p0, e1, e2, ro, rd,
                                       t_max, max_leaf, max_stack)
     hit = _launch(box, left, count, p0, e1, e2, ro, rd, t_max, False,
-                  max_leaf, max_stack)
+                  max_leaf, max_stack, table)
     closest_hit_bvh2.launches += 1
     return hit
 
 
 def any_hit_bvh2(box, left, count, p0, e1, e2, ro, rd, t_max,
-                 max_leaf: int = 4, max_stack: int = MAX_STACK):
+                 max_leaf: int = 4, max_stack: int = MAX_STACK, table=None):
     """Occlusion bool [R] (True = blocked before t_max); dispatch as
     closest_hit_bvh2."""
     _cuda.refuse_grad("any_hit_bvh2", _DETACH_SITE, box, p0, e1, e2, ro, rd,
@@ -265,7 +324,7 @@ def any_hit_bvh2(box, left, count, p0, e1, e2, ro, rd, t_max,
         return any_hit_bvh2_plain(box, left, count, p0, e1, e2, ro, rd,
                                   t_max, max_leaf, max_stack)
     hit = _launch(box, left, count, p0, e1, e2, ro, rd, t_max, True,
-                  max_leaf, max_stack)
+                  max_leaf, max_stack, table)
     any_hit_bvh2.launches += 1
     return hit.tri >= 0
 

@@ -583,6 +583,7 @@ def _scene_parts(scene: Scene) -> tuple:
                 fixed.append((name, v))
 
     scene.cw_table()
+    scene.bvh2_table()
     walk("", scene)
     return tensors, tuple(fixed)
 
@@ -606,6 +607,7 @@ class _Captured:
     def __init__(self, r: Renderer, state: FrameState, cam_moved: bool):
         self.src = r.scene
         r.scene.cw_table()
+        r.scene.bvh2_table()
         self.scene = _clone_scene(r.scene)
         self.tensors, self.fixed = _scene_parts(self.scene)
         self.sid = torch.zeros((), dtype=torch.int64, device=r.scene.device)

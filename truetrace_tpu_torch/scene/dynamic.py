@@ -137,4 +137,5 @@ def pose_scene(dyn: DynamicScene, bones: torch.Tensor) -> Scene:
             p0[ids], e1[ids], e2[ids], lt.rows[:, 14], lt.pmf))
     return dataclasses.replace(sc, cw_nodes=nodes, cw_leaf_rows=rows,
                                tri_p0=p0, tri_e1=e1, tri_e2=e2, tri_n=tri_n,
-                               light_tris=lt, _cw_table=None)
+                               light_tris=lt, _cw_table=None,
+                               _bvh2_table=None)

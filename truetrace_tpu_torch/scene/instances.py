@@ -408,7 +408,8 @@ def update_instance_transforms(scene, isc: InstancedScene, mats,
     t = lambda a: _t(a, dev)
     upd = dict(cw_nodes=_t(nodes, dev, torch.int32),
                inst_rows=t(inst_rows), inst_l2w=t(l2w_rows),
-               inst_light_offset=t(light_offset), _cw_table=None)
+               inst_light_offset=t(light_offset), _cw_table=None,
+               _bvh2_table=None)
     if app["mat"].shape[0] > 0:
         # the appended world light rows in place (the emissive topology
         # is fixed; only the transforms move)

@@ -290,6 +290,9 @@ class Scene:
     # row) table, built at first use (kernels/cwbvh_wavefront.py
     # pack_table)
     _cw_table: Optional[torch.Tensor] = field(default=None, repr=False)
+    # the BVH2 traversal's packed pair and triangle rows, built at first
+    # use (kernels/traverse_ref.py pack_bvh2_table)
+    _bvh2_table: Optional[torch.Tensor] = field(default=None, repr=False)
 
     def n_tris(self) -> int:
         return self.tri_p0.shape[0]
@@ -305,6 +308,15 @@ class Scene:
             self._cw_table = pack_table(self.cw_nodes, self.cw_leaf_rows,
                                         self.inst_rows)
         return self._cw_table
+
+    def bvh2_table(self) -> torch.Tensor:
+        if self._bvh2_table is None:
+            from truetrace_tpu_torch.kernels.traverse_ref import (
+                pack_bvh2_table)
+            self._bvh2_table = pack_bvh2_table(
+                self.bvh2_box, self.bvh2_left, self.bvh2_count, self.tri_p0,
+                self.tri_e1, self.tri_e2)
+        return self._bvh2_table
 
     @staticmethod
     def from_numpy(d: dict, device) -> "Scene":
