@@ -174,6 +174,8 @@ missing.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import functools
 import json
 import math
 import os
@@ -254,7 +256,6 @@ _PHASE_DEPTH = [0]
 def timed_phase(fn):
     """fn, its seconds added to PHASE_S under its name (with its `label`
     argument, where it has one) when no other timed phase is running."""
-    import functools
     import inspect
     sig = inspect.signature(fn)
 
@@ -2555,15 +2556,64 @@ def tlas_work(counts: dict, R: int, W: int) -> dict:
     return dict(out, **bound(ops, nbytes + 48 * live + 24 * (R - live)))
 
 
-def hm_work(counts: dict, R: int, grid: int, closest: bool) -> dict:
-    """Per-ray work of the march (the plain version's sample counts) and
-    its bound: OPS_HM_SAMPLE a sample, the height grid read once, 28
-    bytes a ray in and 25 (closest: t, valid, normal, uv) or 1 out."""
+def hm_work(counts: dict, R: int, grid: int, closest: bool,
+            kernel_samples: int | None = None) -> dict:
+    """Per-ray work of the march and its bound: OPS_HM_SAMPLE a sample,
+    the height grid read once, 28 bytes a ray in and 25 (closest: t,
+    valid, normal, uv) or 1 out. The samples are those the kernel takes
+    on these rays (`kernel_samples`, from its counting build; its table
+    tests are not counted) where given, else the plain version's
+    (`counts`). plain_bound_ms keeps the bound of the plain version's
+    samples, the one the kernel was held to before it skipped steps."""
     n = float(counts["samples"].sum())
-    return dict(samples_per_ray=n / R,
+    k = n if kernel_samples is None else float(kernel_samples)
+    nbytes = 4 * grid + R * (28 + (25 if closest else 1))
+    plain = bound(OPS_HM_SAMPLE * n, nbytes)
+    return dict(samples_per_ray=n / R, kernel_samples_per_ray=k / R,
                 march_steps_per_ray=float(counts["march_steps"].sum()) / R,
-                **bound(OPS_HM_SAMPLE * n,
-                        4 * grid + R * (28 + (25 if closest else 1))))
+                plain_bound_ms=plain["bound_ms"],
+                plain_bound_by=plain["bound_by"],
+                **bound(OPS_HM_SAMPLE * k, nbytes))
+
+
+HM_COUNT_KEYS = ("trips", "busy", "samples", "tests", "passed", "skipped")
+
+
+@functools.cache
+def hm_counting_lib():
+    """csrc/heightmap.cu built with its counting lines (-DTT_HM_COUNT):
+    its tt_hm_counts_read copies out the counts HM_COUNT_KEYS names and
+    clears them."""
+    import ctypes
+    from truetrace_tpu_torch.kernels import _cuda
+    src = "heightmap.cu"
+    lib, _ = _cuda.build_file(_cuda.CSRC, src,
+                              _cuda.NVCC_FLAGS[src] + ["-DTT_HM_COUNT"])
+    lib.tt_heightmap.argtypes = _cuda._SIGNATURES[src]["tt_heightmap"]
+    lib.tt_hm_counts_read.argtypes = [ctypes.c_void_p]
+    lib.tt_heightmap.restype = lib.tt_hm_counts_read.restype = ctypes.c_int
+    return lib
+
+
+def hm_read_counts(lib) -> dict:
+    """A counting build's counts (HM_COUNT_KEYS), read and cleared."""
+    import torch
+    torch.cuda.synchronize()
+    out = np.zeros(len(HM_COUNT_KEYS), np.uint64)
+    check(lib.tt_hm_counts_read(out.ctypes.data) == 0, "tt_hm_counts_read")
+    return dict(zip(HM_COUNT_KEYS, (int(x) for x in out)))
+
+
+def hm_kernel_samples(ter, ro, rd, tm, closest: bool) -> int:
+    """The samples the march kernel takes on these rays: one launch of
+    its counting build (not through the wrappers, so no launch is
+    counted)."""
+    from truetrace_tpu_torch.kernels import heightmap as K
+    lib = hm_counting_lib()
+    hm_read_counts(lib)
+    K._launch(ter, ro, rd, tm, closest, K.MARCH_STEPS,
+              K.BISECT_STEPS if closest else 0, lib=lib)
+    return hm_read_counts(lib)["samples"]
 
 
 def hold_tlas(scene, ro, rd, tm, label: str, query: str, tint=None,
@@ -2630,7 +2680,9 @@ def hold_heightmap(ter, ro, rd, tm, label: str, closest: bool,
                    time_it=False):
     """heightmap_closest / heightmap_any against the plain march, bit for
     bit (t, valid, normal, uv / valid); the plain run counts the samples
-    and, with `time_it`, is timed once beside the kernel's device time."""
+    and, with `time_it`, is timed once beside the kernel's device time,
+    which is bounded by the samples the kernel takes (hm_kernel_samples)
+    and by the plain version's (plain_bound_ms)."""
     import torch
     from truetrace_tpu_torch.kernels import heightmap as K
     R = ro.shape[0]
@@ -2654,18 +2706,25 @@ def hold_heightmap(ter, ro, rd, tm, label: str, closest: bool,
         check(torch.equal(got, want), f"heightmap_any {label}: differs on "
               f"{int((got != want).sum())} rays")
         err, share = 0.0, float(got.float().mean())
-    work = hm_work(counts, R, ter.hm_shape[0] * ter.hm_shape[1], closest)
+    work = hm_work(counts, R, ter.hm_shape[0] * ter.hm_shape[1], closest,
+                   hm_kernel_samples(ter, ro, rd, tm, closest)
+                   if time_it else None)
     out = dict(rays=R, max_abs_err=err, share=share, work=work)
     if time_it:
         out.update(ms=device_ms(run, 20), plain_ms=plain_ms,
                    bound_ms=work["bound_ms"], bound_by=work["bound_by"])
         out["share_of_bound"] = work["bound_ms"] / out["ms"]
+        out["share_of_plain_bound"] = work["plain_bound_ms"] / out["ms"]
     log(f"heightmap {'closest' if closest else 'any'} {label}: bit for bit "
         f"equal to plain on {R} rays ({share:.3f} hit); "
-        f"{work['samples_per_ray']:.1f} samples a ray"
-        + (f"; kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.1f} ms, "
-           f"bound {out['bound_ms']:.5f} ms ({out['bound_by']}) = "
-           f"{out['share_of_bound']:.3f} of the kernel's time"
+        f"{work['samples_per_ray']:.2f} samples a ray"
+        + (f" (the kernel {work['kernel_samples_per_ray']:.2f}); kernel "
+           f"{out['ms']:.4f} ms, plain {out['plain_ms']:.1f} ms, bound "
+           f"{out['bound_ms']:.5f} ms ({out['bound_by']}) = "
+           f"{out['share_of_bound']:.3f} of the kernel's time; the plain "
+           f"samples' bound {work['plain_bound_ms']:.5f} ms "
+           f"({work['plain_bound_by']}) = "
+           f"{out['share_of_plain_bound']:.3f}"
            if time_it else ""))
     return out
 
@@ -5678,8 +5737,12 @@ def main() -> int:
 
     from truetrace_tpu_torch.kernels import _cuda
     t0 = time.perf_counter()
-    _cuda.build_all()
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        counting = pool.submit(hm_counting_lib)
+        _cuda.build_all()
+        counting.result()
+    log(f"kernel build (and the march's counting build): "
+        f"{time.perf_counter() - t0:.1f} s")
     for src, flags in _cuda.NVCC_FLAGS.items():
         log(f"  nvcc {src}: {' '.join(flags)}")
     ptxas = {name: ptxas_of(src, want) for name, src, _, want in KERNELS}

@@ -21,7 +21,9 @@ lights, and the neural_taa denoiser; the two-level traversal's three
 queries bit for bit at every leaf width (a 2-entry stack among them),
 on overlapping and nested instances, and built with its iteration cap
 lowered to 12 against the plain version's at 12; the heightmap march
-bit for bit, and the two frame checks for the
+bit for bit on the edges of its skipped spans (rays below the surface,
+on a plateau, along the axes, t_max 0 and +inf, shadow rays, a NaN
+height and a spike in the grid), and the two frame checks for the
 forest (instances on a terrain, the lanterns moved between frames by
 update_instance_transforms and replayed with no recapture); and the
 animated atrium: pose_scene without a host sync and bit for bit the
@@ -1258,18 +1260,43 @@ def test_tlas_kernel_iteration_cap(tlas_mixed, tlas_cap_lib, monkeypatch,
     assert int((got != uncapped).sum()) > 100
 
 
-@pytest.mark.parametrize("R", [1, 33, 262145])
-def test_heightmap_kernel_bitwise(dev, R):
-    """heightmap_closest (t, valid, normal, uv) and heightmap_any bit for
-    bit the plain march: rays from above and below the surface, outside
-    its box, dead lanes; ray counts that leave blocks part empty."""
-    import chip_smoke
-    from truetrace_tpu_torch.kernels import heightmap as hm
-    from truetrace_tpu_torch.scene.terrain import demo_hills, make_terrain
-    ter = make_terrain(demo_hills(129, seed=4), origin=(-8, 0, -8),
-                       size_xz=(16, 16), mat_ids=[0, 1], height_scale=2.2,
-                       device=dev)
-    r = np.random.default_rng(R)
+def _hm_terrain(kind: str, dev):
+    """The card tests' terrain: demo hills, one with a plateau at
+    height 1.1, one with a spike, one with a NaN height (its box top
+    stays the hills' own, so rays still enter it); and the world point
+    the rays aim at (the spike, the NaN), or None."""
+    from truetrace_tpu_torch.scene.terrain import (Terrain, demo_hills,
+                                                   make_terrain)
+    hills = demo_hills(129, seed=4)
+    kw = dict(origin=(-8, 0, -8), size_xz=(16, 16), mat_ids=[0, 1],
+              height_scale=2.2)
+    if kind == "plateau":
+        hills[40:90, 30:100] = 0.5
+    elif kind == "spike":
+        hills[61, 70] = 9.0
+    ter = make_terrain(hills, device=dev, **kw)
+    if kind == "spike":
+        return ter, (0.75, 0.0, -0.375)
+    if kind != "nan":
+        return ter, None
+    h = ter.height.cpu().numpy().copy()
+    h[64 * 129 + 57] = np.nan
+    return Terrain.from_numpy(dict(
+        height=h, hm_shape=ter.hm_shape, origin=ter.origin.cpu().numpy(),
+        size=ter.size.cpu().numpy(), h_max=ter.h_max.cpu().numpy(),
+        alphamap=ter.alphamap.cpu().numpy(),
+        mat_ids=ter.mat_ids.cpu().numpy()), dev), (-0.875, 0.5, 0.0)
+
+
+def _hm_rays(kind: str, R: int, ter, aim=None):
+    """One ray set of the march's edges (numpy, float32): `mixed` rays
+    from above and below the surface, outside its box, a tenth dead (t_max
+    0); `below` from under the surface; `plateau` horizontal at exactly
+    the plateau's height (f = 0 there, sign 0); `axis` along +-x, +-y,
+    +-z (the 1e-12 floor); `tmax0` / `tmaxinf` the mixed rays at t_max 0
+    and +inf; `shadow` from just above the surface upward, as NEE rays
+    leave it. With `aim` (world x, y, z), every fourth ray heads there."""
+    r = np.random.default_rng(R if kind == "mixed" else (R, len(kind)))
     ro = np.stack([r.uniform(-10, 10, R), r.uniform(-0.5, 5, R),
                    r.uniform(-10, 10, R)], -1).astype(np.float32)
     d = r.normal(size=(R, 3))
@@ -1277,7 +1304,64 @@ def test_heightmap_kernel_bitwise(dev, R):
     rd = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
     tm = r.uniform(0, 30, R).astype(np.float32)
     tm[: R // 10] = 0.0
-    ro, rd, tm = (torch.from_numpy(x).to(dev) for x in (ro, rd, tm))
+    if kind == "below":
+        ro[:, 1] = -0.3
+    elif kind == "plateau":
+        ro[:, 0] = r.uniform(-5, 5, R)
+        ro[:, 1] = np.float32(0.5) * np.float32(2.2)
+        rd[:, 1] = 0.0
+        rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    elif kind == "axis":
+        rd = np.zeros((R, 3), np.float32)
+        rd[np.arange(R), r.integers(0, 3, R)] = r.choice([-1.0, 1.0], R)
+    elif kind == "tmax0":
+        tm[:] = 0.0
+    elif kind == "tmaxinf":
+        tm[:] = np.inf
+    elif kind == "shadow":
+        from truetrace_tpu_torch.kernels.heightmap import _sample_height
+        xz = torch.from_numpy(r.uniform(-7.9, 7.9, (R, 2)).astype(
+            np.float32)).to(ter.device)
+        ro[:, 0], ro[:, 2] = (xz[:, 0].cpu().numpy(),
+                              xz[:, 1].cpu().numpy())
+        ro[:, 1] = (_sample_height(ter, xz[:, 0], xz[:, 1]).cpu().numpy()
+                    + np.float32(1e-3))
+        rd[:, 1] = np.abs(rd[:, 1]) + 0.05
+        rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+        tm[:] = 30.0
+    if aim is not None:
+        d = np.asarray(aim, np.float32) - ro[::4]
+        rd[::4] = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        tm[::4] = np.maximum(tm[::4], 30.0)
+    return ro, rd.astype(np.float32), tm
+
+
+# (terrain, ray set, R): the first three are the first cases' ids
+_HM_CASES = [pytest.param("hills", "mixed", R, id=str(R))
+             for R in (1, 33, 262145)] + [
+    pytest.param(t, k, R, id=f"{t}-{k}-{R}") for t, k, R in (
+        ("hills", "mixed", 200), ("hills", "below", 4096),
+        ("plateau", "plateau", 4096), ("hills", "axis", 4096),
+        ("hills", "tmax0", 4096), ("hills", "tmaxinf", 4096),
+        ("hills", "shadow", 4096), ("nan", "mixed", 4096),
+        ("nan", "shadow", 4096), ("spike", "mixed", 4096),
+        ("spike", "shadow", 262145), ("plateau", "mixed", 262145))]
+
+
+@pytest.mark.parametrize("terrain,kind,R", _HM_CASES)
+def test_heightmap_kernel_bitwise(dev, terrain, kind, R):
+    """heightmap_closest (t, valid, normal, uv) and heightmap_any bit for
+    bit the plain march on the edges of the kernel's design: rays from
+    above and below the surface, outside its box, dead lanes, horizontal
+    rays on a plateau, axis-aligned directions, t_max 0 and +inf, shadow
+    rays leaving the surface; a NaN height and a spike in the grid (the
+    skip test's table); ray counts that leave warps and blocks part
+    empty and outnumber the resident lanes."""
+    import chip_smoke
+    from truetrace_tpu_torch.kernels import heightmap as hm
+    ter, aim = _hm_terrain(terrain, dev)
+    ro, rd, tm = (torch.from_numpy(x).to(dev) for x in _hm_rays(
+        kind, R, ter, aim))
     hk = hm.heightmap_closest(ter, ro, rd, tm)
     hp = hm.heightmap_closest_plain(ter, ro, rd, tm)
     assert torch.equal(hk.valid, hp.valid)
@@ -1285,8 +1369,11 @@ def test_heightmap_kernel_bitwise(dev, R):
         assert chip_smoke.torch_equal_bits(getattr(hk, f), getattr(hp, f)), f
     assert torch.equal(hm.heightmap_any(ter, ro, rd, tm),
                        hm.heightmap_any_plain(ter, ro, rd, tm))
-    if R > 1000:
+    if R > 1000 and kind in ("mixed", "shadow"):
         assert 0.1 < float(hk.valid.float().mean()) < 0.9
+    if terrain == "nan":
+        # rays reach the NaN: their samples there are NaN
+        assert bool(hk.normal.isnan().any())
 
 
 # ---------------------------------------------------------------------------

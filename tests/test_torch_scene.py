@@ -231,6 +231,15 @@ def test_build_options_match_jax(opt):
     for f in dataclasses.fields(getattr(ts, part)):
         if f.name == "consts":
             continue
+        if f.name == "height_top":
+            # the port's own table of block maxima (the march kernel's),
+            # built from the JAX terrain's heights
+            from truetrace_tpu_torch.kernels.heightmap import height_top
+            want = height_top(torch.from_numpy(np.asarray(
+                js.terrain.height)), *js.terrain.hm_shape).numpy()
+            got = ts.terrain.height_top.numpy()
+            assert (got.view(np.int32) == want.view(np.int32)).all()
+            continue
         want = np.asarray(getattr(getattr(js, part), f.name))
         got = getattr(getattr(ts, part), f.name)
         got = np.asarray(got) if f.name == "hm_shape" else got.numpy()

@@ -74,8 +74,8 @@ _SIGNATURES = {
         "tt_tlas_smem": [I],
     },
     "heightmap.cu": {
-        "tt_heightmap": [P, I, I] + [F] * 10 + [P, P, P, I, I, I, I, P, P,
-                                                 P, P, P],
+        "tt_heightmap": [P, P, I, I] + [F] * 10 + [P, P, P, I, I, I, I, P,
+                                                    P, P, P, P],
     },
     "traverse_bvh2.cu": {
         "tt_bvh2": [P, I, I, P, P, P, I, I, I, I, P, P, P, P, P, P],

@@ -10,9 +10,10 @@ terrain uv.
 Two implementations of one march:
 
 * `heightmap_closest` / `heightmap_any` launch the CUDA kernel
-  `csrc/heightmap.cu` (one ray per thread, the bracket in registers) on
-  CUDA tensors and run the plain version on CPU tensors; each counts its
-  launches in `launches`.
+  `csrc/heightmap.cu` (one ray a thread; march steps that the terrain's
+  `height_top` proves lie above the grid skipped) on CUDA tensors and
+  run the plain version on CPU tensors; each counts its launches in
+  `launches`.
 * `heightmap_closest_plain` / `heightmap_any_plain`: plain PyTorch over
   all lanes, the JAX march op for op.
 
@@ -24,6 +25,7 @@ bisection.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -212,13 +214,68 @@ def sample_layers(ter, uv):
 
 
 # ---------------------------------------------------------------------------
+# The kernel's table of block maxima (Terrain.height_top)
+# ---------------------------------------------------------------------------
+
+TOP_HEADER = 32    # height_top's level offsets, ahead of its levels
+
+
+def top_levels(Hm: int, Wm: int) -> list:
+    """(rows, columns) of each level of height_top for a Hm x Wm grid:
+    level l has a window at every 2^l grid points a corner of a cell can
+    start at, enough levels that one window holds any rectangle of
+    cells."""
+    n = 1 + math.ceil(math.log2(max(Hm, Wm) - 1))
+    return [(((Hm - 2) >> lv) + 1, ((Wm - 2) >> lv) + 1) for lv in range(n)]
+
+
+def height_top(height: torch.Tensor, Hm: int, Wm: int) -> torch.Tensor:
+    """The height grid's block maxima, for the march kernel's skip test:
+    float32 [TOP_HEADER + sum of the levels' sizes] on height's device.
+    Entry (bz, bx) of level l bounds the grid points z in [bz 2^l, bz 2^l +
+    2^(l+1)), x in [bx 2^l, bx 2^l + 2^(l+1)): their maximum M plus 2^-16
+    of their largest |height| plus 2^-120, rounded up to float32 (the
+    bilinear blend of four of them, rounded in float32, stays below it),
+    and +inf where one of them is NaN or infinite. The first TOP_HEADER
+    words hold each level's offset (int32 bits)."""
+    h = height.reshape(1, 1, Hm, Wm).double()
+    bad = ~torch.isfinite(h)
+    hi = torch.where(bad, math.inf, h)
+    mag = torch.where(bad, math.inf, h.abs())
+    levels, offs = [], []
+    at = TOP_HEADER
+    for lv, (nz, nx) in enumerate(top_levels(Hm, Wm)):
+        c = 1 << lv
+        pad = (0, nx * c + c - Wm, 0, nz * c + c - Hm)
+        m, a = (torch.nn.functional.max_pool2d(
+            torch.nn.functional.pad(x, pad, value=v), 2 * c, c)[
+                0, 0, :nz, :nx] for x, v in ((hi, -math.inf), (mag, 0.0)))
+        bound = m + a * 2.0 ** -16 + 2.0 ** -120
+        top = bound.float()
+        top = torch.where(top.double() < bound,
+                          torch.nextafter(top, torch.full_like(top, math.inf)),
+                          top)
+        levels.append(top.reshape(-1))
+        offs.append(at)
+        at += nz * nx
+    head = torch.zeros(TOP_HEADER, dtype=torch.int32)
+    head[:len(offs)] = torch.tensor(offs, dtype=torch.int32)
+    return torch.cat([head.to(height.device).view(torch.float32)] + levels)
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _launch(ter, ro, rd, t_max, closest: bool, steps: int, bisect: int):
+def _launch(ter, ro, rd, t_max, closest: bool, steps: int, bisect: int,
+            lib=None):
+    """Check the arguments, allocate the outputs, launch
+    csrc/heightmap.cu (or `lib`, another build of it) over the
+    terrain's height grid and its table of block maxima."""
     dev = ro.device
     R = ro.shape[0]
-    for name, x in (("ro", ro), ("rd", rd), ("height", ter.height)):
+    for name, x in (("ro", ro), ("rd", rd), ("height", ter.height),
+                    ("height_top", ter.height_top)):
         if (x.device != dev or x.dtype != torch.float32
                 or not x.is_contiguous()):
             raise ValueError(f"{name}: need a contiguous float32 tensor on "
@@ -230,6 +287,10 @@ def _launch(ter, ro, rd, t_max, closest: bool, steps: int, bisect: int):
     if Hm < 2 or Wm < 2 or ter.height.shape != (Hm * Wm,):
         raise ValueError(f"height {tuple(ter.height.shape)} is not a flat "
                          f"{Hm}x{Wm} grid")
+    top = TOP_HEADER + sum(nz * nx for nz, nx in top_levels(Hm, Wm))
+    if ter.height_top.shape != (top,):
+        raise ValueError(f"height_top {tuple(ter.height_top.shape)} is not "
+                         f"the {Hm}x{Wm} grid's table of {top} words")
     if isinstance(t_max, torch.Tensor):
         tm = t_max.to(device=dev, dtype=torch.float32).expand(R).contiguous()
     else:
@@ -244,9 +305,10 @@ def _launch(ter, ro, rd, t_max, closest: bool, steps: int, bisect: int):
         outs = (t.data_ptr(), n.data_ptr(), uv.data_ptr())
     else:
         outs = (0, 0, 0)
-    err = _cuda.lib("heightmap.cu").tt_heightmap(
-        ter.height.data_ptr(), Hm, Wm, ox, oy, oz, hx, hy, hz, sx, sz,
-        *_spacing(ter),
+    lib = _cuda.lib("heightmap.cu") if lib is None else lib
+    err = lib.tt_heightmap(
+        ter.height.data_ptr(), ter.height_top.data_ptr(), Hm, Wm, ox, oy, oz,
+        hx, hy, hz, sx, sz, *_spacing(ter),
         ro.data_ptr(), rd.data_ptr(), tm.data_ptr(), R, steps, bisect,
         int(closest), valid.data_ptr(), *outs, _cuda.stream_ptr(ro))
     _cuda.check(err, "tt_heightmap")

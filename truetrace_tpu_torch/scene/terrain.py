@@ -6,7 +6,10 @@ Port of `truetrace_tpu/scene/terrain.py`. `Terrain` is a plain dataclass
 is one gather, the alphamap stays [A,A,4]. Its shape and placement (the
 grid shape, the origin, the extent and the top of its box) are also kept
 as Python numbers fixed at build time, so the march's loop bounds and
-constants never read the card back (ROADMAP.md §C.1).
+constants never read the card back (ROADMAP.md §C.1). `height_top`, the
+grid's block maxima by level (kernels/heightmap.py `height_top`, whose
+layout kernels/csrc/heightmap.cu reads), is built with the terrain: the
+march kernel skips the steps it proves lie above them.
 """
 from __future__ import annotations
 
@@ -17,10 +20,15 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from truetrace_tpu_torch.kernels.heightmap import height_top
+
 
 @dataclass
 class Terrain:
-    """One heightfield."""
+    """One heightfield. `height_top` is derived from `height` and must be
+    rebuilt (kernels/heightmap.py `height_top`) wherever `height`
+    changes: a stale table lets the march kernel skip steps that cross
+    the new surface."""
     height: torch.Tensor      # [Hm*Wm] f32 world-space heights (y)
     hm_shape: tuple           # (Hm, Wm)
     origin: torch.Tensor      # [3] world min corner (x, y_base, z)
@@ -28,6 +36,7 @@ class Terrain:
     h_max: torch.Tensor       # [] max height above origin.y (box top)
     alphamap: torch.Tensor    # [A,A,4] layer weights
     mat_ids: torch.Tensor     # [4] int64 material rows, -1 = unused
+    height_top: torch.Tensor  # the grid's block maxima, from height
 
     # the placement as float32 values in Python floats, fixed at build
     # time: (origin x, y, z, size x, z, h_max)
@@ -45,14 +54,15 @@ class Terrain:
             d[k], dt)).to(device)
         f32 = lambda k: [float(v) for v in np.asarray(d[k], np.float32)
                          .reshape(-1)]
-        return Terrain(height=t("height", np.float32),
-                       hm_shape=tuple(int(v) for v in
-                                      np.asarray(d["hm_shape"])),
+        hm_shape = tuple(int(v) for v in np.asarray(d["hm_shape"]))
+        height = t("height", np.float32)
+        return Terrain(height=height, hm_shape=hm_shape,
                        origin=t("origin", np.float32),
                        size=t("size", np.float32),
                        h_max=t("h_max", np.float32),
                        alphamap=t("alphamap", np.float32),
                        mat_ids=t("mat_ids", np.int64),
+                       height_top=height_top(height, *hm_shape),
                        consts=tuple(f32("origin") + f32("size")
                                     + f32("h_max")))
 
